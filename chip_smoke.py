@@ -12,8 +12,18 @@ Phases, in order; any failure exits non-zero before the result line:
      use_kernel=True)``, with launch counts and peak device memory;
   6. the plain tensor route: ``abo_minimize`` of Griewank and the sphere at
      n = 1e6;
-  7. one JSON line with every kernel's launches, error and times;
-  8. the last line, ``{"ok": true, "device": {...}}``.
+  7. K3 (flash attention) against its plain version in bf16 and float32 at
+     the shapes of ``ATTN_SHAPES`` (max abs and per row), timed at the
+     model's layer shape (T = 8192) beside its plain version and
+     ``scaled_dot_product_attention``, and at T = 32768;
+  8. the LM serving path at full width: ``mistral-nemo-12b``'s prefill step
+     on one T = 8192 request (40 K3 launches, wall time, tokens/s, peak
+     memory); the forward against the same forward with the plain
+     attention, K3 held per row on every layer's own q, k, v and the logits
+     at every position; prefill + 8 decode steps against the forward;
+  9. the serve launcher at full width (8 requests, 4 slots);
+ 10. one JSON line with every kernel's launches, error and times;
+ 11. the last line, ``{"ok": true, "device": {...}}``.
 
 Imports torch and the port only. Exits non-zero, printing no result, when
 no CUDA device is present or the port's sources are not beside this file.
@@ -21,6 +31,7 @@ no CUDA device is present or the port's sources are not beside this file.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -31,9 +42,10 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, float32 without the
-# tensor cores.
+# tensor cores, bf16 on the tensor cores (dense).
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12
+PEAK_BF16_OPS_S = 989e12
 # Elementary float32 operations per coordinate (K2) and per candidate probe
 # (K1), each transcendental counted as one (so the bound is a lower bound).
 # K2: index->float, rsqrt, u, cos, sin, square, compare, min, negate, log1p,
@@ -55,6 +67,40 @@ PLAIN_TOL = {"sphere": 9.72658017417416e-06 * 1.001}
 # the plain route solves at examples/quickstart.py's n.
 MAIN_N = 10**8
 PLAIN_N = 10**6
+# K3: (b, hq, hkv, sq, sk, d, causal, window), as tests/test_torch_gpu.py;
+# no shape has a query row without a valid key (ROADMAP, K3). Two limits on
+# N(0, 1) inputs: max abs, as tests/test_kernels.py holds the Pallas kernel
+# to its oracle; and per query row, the row's max |got - want| over its max
+# |want| (``row_rel_err``). The second scales with the output: at T = 8192
+# a late row averages V over thousands of keys, its entries are ~0.02, and
+# a max abs limit of 2e-2 would pass a kernel that dropped a kv block there
+# (benchmarks_torch/k3_fault_check.py plants such faults).
+ATTN_SHAPES = [
+    (2, 4, 4, 256, 256, 64, True, None),
+    (1, 8, 2, 384, 384, 128, True, None),        # GQA
+    (2, 4, 1, 256, 256, 64, True, None),         # MQA
+    (2, 4, 4, 256, 256, 64, True, 128),          # window
+    (1, 2, 2, 128, 128, 64, False, None),        # non-causal
+    (1, 4, 2, 200, 200, 64, True, None),         # ragged
+    (1, 32, 8, 333, 333, 120, True, 96),         # d = 120, ragged window
+    (2, 4, 2, 100, 300, 16, False, None),        # sq != sk, d = 16
+    (1, 32, 8, 8192, 8192, 128, True, None),     # the model's layer shape
+]
+ATTN_TOL = {"bfloat16": 2e-2, "float32": 2e-3}
+ATTN_ROW_TOL = {"bfloat16": 2e-2, "float32": 1e-3}
+LM_ARCH = "mistral-nemo-12b"
+LM_T = 8192                  # one prefill request
+LM_DECODE = 8                # decode steps after the prefill
+# bf16 tolerances of the full-width model (PERF.md has the readings): the
+# logits with K3 against the same forward with the plain attention, at
+# every position, and prefill + decode against the forward, each as max
+# abs over max |logit| of the reference at that position. The logits are
+# dominated by the MLPs' share of the residual stream, so the sensitive
+# check of K3 on the model's path is per layer: K3 against its plain
+# version on each layer's own q, k, v, held to ATTN_ROW_TOL.
+LM_REL_TOL_PLAIN = 0.05
+LM_REL_TOL_DECODE = 0.05
+LM_EARLY = 64                # positions reported apart: few keys each
 
 
 def fail(msg: str) -> None:
@@ -67,10 +113,31 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / PEAK_F32_OPS_S
+def bound_ms(n_bytes: float, n_ops: float,
+             peak_ops: float = PEAK_F32_OPS_S) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / peak_ops
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def row_rel_err(got, want) -> float:
+    """Max over query rows of the row's max |got - want| over its max
+    |want|."""
+    diff = (got.float() - want.float()).abs().amax(-1)
+    return float((diff / want.float().abs().amax(-1).clamp_min(1e-30)).max())
+
+
+def import_port():
+    """Put the checkout's ``src`` first on the path and import the port
+    from there; fails when the sources are not beside this script."""
+    src = os.path.join(ROOT, "src")
+    if not os.path.isdir(os.path.join(src, "repro_torch")):
+        fail(f"the port's sources are not beside this script ({src})")
+    sys.path.insert(0, src)
+    import repro_torch
+    check(os.path.dirname(os.path.abspath(repro_torch.__file__))
+          == os.path.join(src, "repro_torch"),
+          f"imported repro_torch from {repro_torch.__file__}, not {src}")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -85,6 +152,279 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _qkv(dev, seed, b, hq, hkv, sq, sk, d, dtype):
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed + sq + d)
+    return [torch.randn(s, generator=g, device=dev).to(dtype)
+            for s in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d))]
+
+
+def attention_readings(dev, seed: int) -> list[dict]:
+    """K3 against its plain version at every shape of ATTN_SHAPES in bf16
+    and float32: per case the max abs and the per-row error, and whether
+    both are within their limits."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_plain)
+    out = []
+    for shape in ATTN_SHAPES:
+        causal, window = shape[6], shape[7]
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = _qkv(dev, seed, *shape[:6], dtype)
+            got = flash_attention(q, k, v, causal=causal, window=window)
+            want = flash_attention_plain(q, k, v, causal=causal,
+                                         window=window)
+            torch.cuda.synchronize()
+            name = str(dtype).split(".")[-1]
+            err = float((got.float() - want.float()).abs().max())
+            row = row_rel_err(got, want)
+            out.append({"shape": shape, "dtype": name, "abs": err,
+                        "row": row, "ok": (
+                            tuple(got.shape) == tuple(want.shape)
+                            and bool(torch.isfinite(got).all())
+                            and err < ATTN_TOL[name]
+                            and row < ATTN_ROW_TOL[name])})
+            del q, k, v, got, want
+    return out
+
+
+def attention_phase(dev, seed: int) -> dict:
+    """Phase 7: K3 against its plain version at every shape of ATTN_SHAPES
+    in bf16 and float32, then timed at the model's layer shape. Returns
+    K3's entry of the kernels line, without its launches."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_plain)
+
+    main_err = {}
+    for r in attention_readings(dev, seed):
+        print(f"[K3] {r['shape']} {r['dtype']}: max abs err {r['abs']:.3g} "
+              f"(limit {ATTN_TOL[r['dtype']]}), per row {r['row']:.3g} "
+              f"(limit {ATTN_ROW_TOL[r['dtype']]})", flush=True)
+        check(r["ok"], f"K3 disagrees with its plain version at "
+              f"{r['shape']} {r['dtype']}")
+        if r["shape"][3] == LM_T:                 # the model's layer shape
+            main_err[r["dtype"]] = r["abs"]
+            main_err[r["dtype"] + "_row"] = r["row"]
+
+    def timed(t, reps):
+        """Kernel, SDPA (the yardstick) and bound at (1, 32/8, t, 128)
+        bf16 causal."""
+        b, hq, hkv, d = 1, 32, 8, 128
+        q, k, v = _qkv(dev, seed, b, hq, hkv, t, t, d, torch.bfloat16)
+        out = flash_attention(q, k, v)
+        ms = cuda_ms(lambda: flash_attention(q, k, v), reps)
+        def sdpa():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True)
+        ref = sdpa()
+        lib_ms = cuda_ms(sdpa, reps)
+        diff = float((out.float() - ref.float()).abs().max())
+        bound, by = bound_ms(2 * (2 * b * hq * t * d + 2 * b * hkv * t * d),
+                             4 * b * hq * d * t * (t + 1) / 2,
+                             PEAK_BF16_OPS_S)
+        print(f"[K3] (1, 32/8, {t}, 128) bf16 causal: kernel {ms:.4f} ms, "
+              f"scaled_dot_product_attention {lib_ms:.4f} ms (max abs "
+              f"diff to the kernel {diff:.3g}), bound {bound:.4f} ms ({by})",
+              flush=True)
+        return q, k, v, ms, lib_ms, bound, by
+
+    q, k, v, ms, lib_ms, bound, by = timed(LM_T, 20)
+    plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v), 3)
+    print(f"[K3] (1, 32/8, {LM_T}, 128) bf16 causal: plain version "
+          f"{plain_ms:.3f} ms", flush=True)
+    del q, k, v
+    timed(4 * LM_T, 5)                     # the prefill_32k layer shape
+    torch.cuda.empty_cache()
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:82",
+            "launches": 0, "max_abs_err": main_err["bfloat16"],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": lib_ms,
+            "max_abs_err_of": f"bf16 at (1, 32/8, {LM_T}, 128), causal",
+            "max_abs_err_f32": main_err["float32"],
+            "row_rel_err": main_err["bfloat16_row"],
+            "row_rel_err_f32": main_err["float32_row"]}
+
+
+@contextlib.contextmanager
+def plain_attention(layer_err: list):
+    """Run the model's attention through K3's plain version (the reference
+    run of phase 8; the wrapper itself never does that on the card). Each
+    layer also runs K3 on the same q, k, v, and its per-row error against
+    the plain output is appended to ``layer_err``."""
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_plain)
+    from repro_torch.models import attention
+
+    def both(q, k, v, *, causal=True, window=None):
+        want = flash_attention_plain(q, k, v, causal=causal, window=window)
+        layer_err.append(row_rel_err(
+            flash_attention(q, k, v, causal=causal, window=window), want))
+        return want
+
+    saved = attention.flash_attention
+    attention.flash_attention = both
+    try:
+        yield
+    finally:
+        attention.flash_attention = saved
+
+
+def lm_agreement(model, tokens) -> tuple[dict, "torch.Tensor"]:
+    """The full forward over ``tokens`` with K3 against the same forward
+    with the plain attention: K3's per-row error at each layer on that
+    layer's own q, k, v, and the logits' max abs difference over the
+    reference's max |logit| at each position. Returns the readings, the
+    reference's logits at the last position, and whether each is within
+    its limit."""
+    import torch
+    full, _ = model.forward(tokens)
+    layer_err = []
+    t0 = time.perf_counter()
+    with plain_attention(layer_err):
+        ref, _ = model.forward(tokens)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    diff = (full[0].float() - ref[0].float()).abs().amax(-1)
+    pos_rel = diff / ref[0].float().abs().amax(-1)
+    same = full[0].argmax(-1) == ref[0].argmax(-1)
+    last_ref = ref[:, -1].float()
+    del full, ref
+    r = {"layer_row_err": layer_err, "layers_max": max(layer_err),
+         "pos_rel_early": float(pos_rel[:LM_EARLY].max()),
+         "pos_rel_max": float(pos_rel.max()),
+         "pos_rel_last": float(pos_rel[-1]),
+         "argmax_equal_share": float(same.double().mean()),
+         "argmax_last_equal": bool(same[-1]), "plain_wall": plain_wall}
+    r["ok_layers"] = (len(layer_err) == model.cfg.n_layers
+                      and r["layers_max"] < ATTN_ROW_TOL["bfloat16"])
+    r["ok_logits"] = (r["pos_rel_max"] <= LM_REL_TOL_PLAIN
+                      and r["argmax_last_equal"])
+    return r, last_ref
+
+
+def lm_phase(dev, seed: int) -> int:
+    """Phases 8-9: the LM serving path at full width. Returns K3's launches
+    in the main-path run (one prefill step)."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+    from repro_torch.train.steps import make_prefill_step
+
+    cfg = ARCHS[LM_ARCH]
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev).init(seed)
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in model.parameters())
+    print(f"[lm] {LM_ARCH}: {n_par} parameters ({2 * n_par / 1e9:.2f} GB "
+          f"bf16), drawn on the card in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (1, LM_T + LM_DECODE),
+                           generator=gen, device=dev)
+    batch = {"tokens": tokens[:, :LM_T]}
+    step = make_prefill_step(model)
+    step(batch)                                           # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    last = step(batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = flash_attention.launches
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[lm] prefill step, 1 x {LM_T} tokens: wall {wall:.4f} s, "
+          f"{LM_T / wall:.1f} tokens/s, K3 launches {launches}, peak device "
+          f"memory {peak} B", flush=True)
+    check(launches == cfg.n_layers,
+          f"the prefill step launched K3 {launches} times, want "
+          f"{cfg.n_layers}")
+    check(tuple(last.shape) == (1, cfg.vocab_size)
+          and bool(torch.isfinite(last).all()),
+          "prefill-step logits are not finite or of the wrong shape")
+
+    agree, ref = lm_agreement(model, batch["tokens"])
+    print(f"[lm] forward over {LM_T}, K3 vs plain attention (plain run "
+          f"{agree['plain_wall']:.2f} s): K3 per row on each layer's own "
+          f"q, k, v: max {agree['layers_max']:.4g} (limit "
+          f"{ATTN_ROW_TOL['bfloat16']}), per layer "
+          f"{[round(e, 5) for e in agree['layer_row_err']]}", flush=True)
+    print(f"[lm] logits max abs diff over max |logit| per position: max "
+          f"{agree['pos_rel_max']:.4g} (limit {LM_REL_TOL_PLAIN}), first "
+          f"{LM_EARLY} positions {agree['pos_rel_early']:.4g}, last "
+          f"{agree['pos_rel_last']:.4g}; argmax equal at "
+          f"{agree['argmax_equal_share']:.4f} of positions, at the last "
+          f"{agree['argmax_last_equal']}", flush=True)
+    check(agree["ok_layers"], "K3 disagrees with its plain version on the "
+          "model's own q, k, v")
+    check(agree["ok_logits"], "the full-width forward disagrees with its "
+          "plain-attention run")
+    err = float((last.float() - ref).abs().max())
+    scale = float(ref.abs().max())
+    print(f"[lm] prefill-step logits vs the plain-attention forward's last "
+          f"position: max abs diff {err:.4g}, max |logit| {scale:.4g}, "
+          f"relative {err / scale:.4g} (limit {LM_REL_TOL_PLAIN}), argmax "
+          f"{int(last.argmax())} vs {int(ref.argmax())}", flush=True)
+    check(int(last.argmax()) == int(ref.argmax())
+          and err <= LM_REL_TOL_PLAIN * scale,
+          "the full-width prefill step disagrees with its plain-attention run")
+    del last, ref
+    torch.cuda.empty_cache()
+
+    flash_attention.launches = 0
+    logits_pre, cache = model.prefill(tokens[:, :LM_T],
+                                      max_len=LM_T + LM_DECODE)
+    check(flash_attention.launches == cfg.n_layers,
+          f"Model.prefill launched K3 {flash_attention.launches} times")
+    last_pre = logits_pre[:, -1].float()
+    del logits_pre
+    outs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(LM_T, LM_T + LM_DECODE):
+        lg, cache = model.decode_step(tokens[:, i:i + 1], cache, i)
+        outs.append(lg[:, 0].float())
+    torch.cuda.synchronize()
+    dec_ms = 1e3 * (time.perf_counter() - t0) / LM_DECODE
+    del cache
+    full, _ = model.forward(tokens)
+    want = full[0, LM_T - 1:].float()
+    del full
+    got = torch.cat([last_pre] + outs)
+    err = (got - want).abs().amax(dim=-1)
+    scale = float(want.abs().max())
+    agree = (got.argmax(-1) == want.argmax(-1)).tolist()
+    print(f"[lm] prefill({LM_T}) + {LM_DECODE} decode steps vs forward over "
+          f"{LM_T + LM_DECODE}: max abs diff per position {err.tolist()}, "
+          f"max |logit| {scale:.4g}, relative {float(err.max()) / scale:.4g} "
+          f"(limit {LM_REL_TOL_DECODE}), argmax equal {agree}, "
+          f"{dec_ms:.2f} ms per decode step", flush=True)
+    check(float(err.max()) <= LM_REL_TOL_DECODE * scale,
+          "prefill + decode disagrees with the forward")
+    del model, got, want, outs
+    torch.cuda.empty_cache()
+
+    # ---- 9. the serve launcher ---------------------------------------------
+    t0 = time.perf_counter()
+    outputs = serve.main(["--arch", LM_ARCH, "--requests", "8",
+                          "--batch-slots", "4", "--prompt-len", "16",
+                          "--max-new", "16", "--max-len", "256"])
+    print(f"[serve] main() took {time.perf_counter() - t0:.2f} s with the "
+          f"model's draw", flush=True)
+    check(len(outputs) == 8
+          and all(len(g) == 16 and all(0 <= x < cfg.vocab_size for x in g)
+                  for _, g in outputs),
+          "the serve launcher did not answer 8 requests with 16 tokens")
+    torch.cuda.empty_cache()
+    return launches
 
 
 def nvidia_smi_line() -> str:
@@ -103,14 +443,7 @@ def main() -> None:
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke needs a card")
-    src = os.path.join(ROOT, "src")
-    if not os.path.isdir(os.path.join(src, "repro_torch")):
-        fail(f"the port's sources are not beside this script ({src})")
-    sys.path.insert(0, src)
-    import repro_torch
-    check(os.path.dirname(os.path.abspath(repro_torch.__file__))
-          == os.path.join(src, "repro_torch"),
-          f"imported repro_torch from {repro_torch.__file__}, not {src}")
+    import_port()
     from repro_torch.core import ABOConfig, abo_minimize
     from repro_torch.kernels import _build
     from repro_torch.kernels.coord_sweep.ops import sweep_pass
@@ -284,13 +617,20 @@ def main() -> None:
         check(bool(torch.isfinite(r.x).all()), "plain-route x not finite")
     print(f"[main/plain] kernel launches {sweep_pass.launches}, "
           f"{griewank_aggregates.launches} (the plain route has none)")
+    del r, rk, rc
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # ---- 7-9. K3 and the LM serving path ----------------------------------
+    k3 = attention_phase(dev, args.seed)
+    k3["launches"] = lm_phase(dev, args.seed)
 
     foreign = sorted(m for m in sys.modules if m.split(".")[0]
                      in ("jax", "jaxlib", "repro", "benchmarks"))
     check(not foreign, f"the smoke imported {foreign[:5]}: JAX, the JAX "
           "package or its benchmarks")
 
-    # ---- 7. kernels line ---------------------------------------------------
+    # ---- 10. kernels line ---------------------------------------------------
     kernels.append({
         "name": "sweep_pass", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sweep_pass.cu",
@@ -306,9 +646,10 @@ def main() -> None:
         "launches": launches["griewank_aggregates"], "max_abs_err": k2_err,
         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
         "bound_by": k2_by, "library_ms": None})
+    kernels.append(k3)
     print(json.dumps({"kernels": kernels}))
 
-    # ---- 8. result -----------------------------------------------------------
+    # ---- 11. result -----------------------------------------------------------
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

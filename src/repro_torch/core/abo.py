@@ -295,6 +295,23 @@ def _threefry2x32(k0, k1, x0, x1):
     return x0, x1
 
 
+def _round_to_odd(s: torch.Tensor, err: torch.Tensor) -> torch.Tensor:
+    """Round-to-odd of the exact sum ``s + err`` (``s`` its nearest
+    rounding): an inexact ``s`` with an even last bit moves one ulp
+    toward ``err``."""
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.full_like(s, math.inf),
+                         torch.full_like(s, -math.inf))
+    return torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+
+
+def _two_sum(a: torch.Tensor, b: torch.Tensor):
+    """``(s, e)`` with ``s = fl(a + b)`` and ``s + e == a + b`` exactly."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
 def _fma_f32(a: torch.Tensor, b: float, c: float) -> torch.Tensor:
     """float32 ``a*b + c`` rounded ONCE, as XLA:CPU's contracted FMA does.
 
@@ -303,31 +320,54 @@ def _fma_f32(a: torch.Tensor, b: float, c: float) -> torch.Tensor:
     round-to-odd with 29 spare bits makes the final cast to float32 a
     correct single rounding."""
     p = a.double() * b
-    s = p + c
-    bb = s - p
-    err = (p - (s - bb)) + (c - bb)
-    even = (s.view(torch.int64) & 1) == 0
-    toward = torch.where(err > 0, torch.full_like(s, math.inf),
-                         torch.full_like(s, -math.inf))
-    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
-    return s.float()
+    s, err = _two_sum(p, torch.full_like(p, c))
+    return _round_to_odd(s, err).float()
 
 
-def _seed_key(seed) -> tuple[int, int]:
-    """``jax.random.PRNGKey(seed)`` with x64 off: the seed is cut to its
-    low 32 bits, so the key is ``(0, seed mod 2**32)``."""
-    return 0, int(seed) & _M32
+def _fma_f64(a: torch.Tensor, b: float, c: float) -> torch.Tensor:
+    """float64 ``a*b + c`` rounded ONCE, with float64 operations only.
+
+    Boldo and Melquiond's emulation ("Emulation of FMA and correctly
+    rounded sums: proved algorithms using rounding to odd", IEEE TC 2008):
+    ``a*b = uh + ul`` exactly (Dekker's product with Veltkamp's split),
+    ``c + uh = th + tl`` exactly (TwoSum), ``v = RO(tl + ul)``, and the
+    result is ``RN(th + v)``. Every step is its own tensor operation, so
+    nothing is contracted behind the algorithm's back."""
+    b = torch.full_like(a, b)
+    p = a * b
+    c_a, c_b = a * 134217729.0, b * 134217729.0          # 2**27 + 1
+    ah, bh = c_a - (c_a - a), c_b - (c_b - b)
+    al, bl = a - ah, b - bh
+    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    th, tl = _two_sum(torch.full_like(a, c), p)
+    return th + _round_to_odd(*_two_sum(tl, e))
+
+
+def _seed_key(seed, x64: bool) -> tuple[int, int]:
+    """``jax.random.PRNGKey(seed)``. With x64 off the seed is cut to its
+    low 32 bits, so the key is ``(0, seed mod 2**32)``; with x64 on it is
+    the 64-bit two's complement split into ``(high, low)`` 32-bit words."""
+    if not x64:
+        return 0, int(seed) & _M32
+    s = int(seed) & 0xFFFFFFFFFFFFFFFF
+    return s >> 32, s & _M32
 
 
 def _uniform_at(key, idx: torch.Tensor, dtype, lo, hi) -> torch.Tensor:
     """``uniform(fold_in(key, i), (), dtype, lo, hi)`` for each i in idx."""
-    if dtype != torch.float32:
-        raise NotImplementedError(
-            f"seeded starts are bit-exact for float32 only, got {dtype}")
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"seeded starts draw float32 or float64, not {dtype}")
     idx = idx.to(torch.int64) & _M32
     zero = torch.zeros_like(idx)
     k0, k1 = _threefry2x32(key[0], key[1], zero, idx)        # fold_in
     b0, b1 = _threefry2x32(k0, k1, zero, zero)               # random_bits
+    if dtype == torch.float64:
+        # 64 random bits (b0 << 32 | b1), top 52 as the [1, 2) mantissa
+        bits = (b0 << 20) | (b1 >> 12) | 0x3FF0000000000000
+        f = bits.view(torch.float64) - 1.0
+        # repro: allow[RPR001] lo/hi are host numbers, taken as float64 here
+        lo64, hi64 = float(lo), float(hi)
+        return torch.clamp(_fma_f64(f, hi64 - lo64, lo64), min=lo64)
     bits = (b0 ^ b1) >> 9 | 0x3F800000                       # [1, 2) mantissa
     f = bits.to(torch.int32).view(torch.float32) - 1.0
     # repro: allow[RPR001] lo/hi are host numbers, rounded to float32 here
@@ -343,12 +383,13 @@ def seeded_start(seed, n_pad, dtype, lo, hi, chunk=1 << 20, *, device=None):
     Coordinate ``i`` is drawn from its own counter-derived key
     (``fold_in(PRNGKey(seed), i)``), so its value depends only on
     ``(seed, i)``, never on the padded length — and it is bit for bit the
-    reference's draw for float32. Drawn in ``chunk``-sized segments so live
-    scratch stays O(chunk) beyond the output. float64 is not ported yet and
-    raises ``NotImplementedError``.
+    reference's draw: float32 as with ``jax_enable_x64`` off (32-bit
+    seeds), float64 as with it on (64-bit seeds), the only mode in which
+    the reference draws float64. Drawn in ``chunk``-sized segments so live
+    scratch stays O(chunk) beyond the output.
     """
     dev = resolve_device(device)
-    key = _seed_key(seed)
+    key = _seed_key(seed, x64=dtype == torch.float64)
     out = torch.empty((n_pad,), dtype=dtype, device=dev)
     for c0 in range(0, n_pad, chunk):
         idx = torch.arange(c0, min(c0 + chunk, n_pad), device=dev)
@@ -359,7 +400,8 @@ def seeded_start(seed, n_pad, dtype, lo, hi, chunk=1 << 20, *, device=None):
 def seeded_at(seed, idx: torch.Tensor, dtype, lo, hi) -> torch.Tensor:
     """:func:`seeded_start`'s per-coordinate draw at arbitrary global
     indices ``idx`` (a (k,) integer tensor; its device is used)."""
-    return _uniform_at(_seed_key(seed), idx, dtype, lo, hi)
+    return _uniform_at(_seed_key(seed, x64=dtype == torch.float64), idx,
+                       dtype, lo, hi)
 
 
 def _init_x(obj, n, n_pad, x0, dtype, seed, bounds, device):

@@ -1,0 +1,169 @@
+"""Decoder stack: per-layer modules in layer order, applied in a loop.
+
+Port of :mod:`repro.models.transformer` for the dense decoders. The
+reference groups layers into repeating pattern units and scans stacked
+copies (``jax.lax.scan``); the port keeps one module per layer in an
+``nn.ModuleList`` in layer index order (the reference's head, groups
+unit-major and tail, concatenated) and loops over them. Caches are a list
+in the same order, one dict per layer. ``stack_layout`` remains for
+``models.params``, which unstacks the reference's groups.
+
+Mixers ``attn``/``swa`` and dense MLPs only. RG-LRU, RWKV6, MoE and
+cross-attention raise ``NotImplementedError`` (ROADMAP queue 1, item 11).
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import is_gated, make_norm, mlp_apply, mlp_init
+
+_WAITS = "is not ported yet (ROADMAP queue 1, item 11: LM substrate)"
+
+
+def _check_kinds(cfg: ArchConfig, kind: str, mlp_kind: str) -> None:
+    if kind not in ("attn", "swa"):
+        raise NotImplementedError(f"mixer {kind!r} {_WAITS}")
+    if mlp_kind != "dense":
+        raise NotImplementedError(f"{mlp_kind!r} MLP {_WAITS}")
+    if cfg.cross_attention:
+        raise NotImplementedError(f"cross-attention {_WAITS}")
+
+
+# ---------------------------------------------------------------------------
+# single layer
+# ---------------------------------------------------------------------------
+def layer_init(cfg: ArchConfig, layer_idx: int, dtype, device) -> nn.ModuleDict:
+    _check_kinds(cfg, cfg.mixer_kind(layer_idx), cfg.mlp_kind(layer_idx))
+    norm_init, _ = make_norm(cfg.norm)
+    return nn.ModuleDict({
+        "norm_mixer": norm_init(cfg.d_model, dtype, device),
+        "norm_mlp": norm_init(cfg.d_model, dtype, device),
+        "attn": attn.attn_init(cfg, dtype, device),
+        "mlp": mlp_init(cfg.d_model, cfg.d_ff, dtype, device,
+                        is_gated(cfg.activation)),
+    })
+
+
+def layer_apply(params, cfg: ArchConfig, kind: str, mlp_kind: str, x, *,
+                positions, causal=True, cross_kv=None):
+    """Full-sequence layer. Returns (x, aux_loss)."""
+    _check_kinds(cfg, kind, mlp_kind)
+    if cross_kv is not None:
+        raise NotImplementedError(f"cross-attention {_WAITS}")
+    _, norm = make_norm(cfg.norm)
+    h = norm(params["norm_mixer"], x)
+    window = cfg.window if kind == "swa" else None
+    h = attn.attn_apply(params["attn"], cfg, h, positions=positions,
+                        window=window, causal=causal)
+    x = x + h
+    h = norm(params["norm_mlp"], x)
+    h = mlp_apply(params["mlp"], h, cfg.activation)
+    return x + h, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# layer cache (decode)
+# ---------------------------------------------------------------------------
+def layer_cache_init(cfg: ArchConfig, kind: str, batch, max_len, dtype,
+                     with_cross: bool, device=None):
+    if with_cross:
+        raise NotImplementedError(f"cross-attention {_WAITS}")
+    _check_kinds(cfg, kind, "dense")
+    ring = min(max_len, cfg.window) if kind == "swa" and cfg.window else max_len
+    return {"kv": attn.cache_init(attn.CacheSpec(
+        batch, ring, cfg.n_kv_heads, cfg.head_dim, dtype, quant=cfg.kv_quant,
+        device=device))}
+
+
+def layer_decode(params, cfg: ArchConfig, kind: str, mlp_kind: str, x,
+                 cache, pos):
+    """One-token decode. x: (b, 1, d). Returns (x, cache)."""
+    _check_kinds(cfg, kind, mlp_kind)
+    _, norm = make_norm(cfg.norm)
+    h = norm(params["norm_mixer"], x)
+    window = cfg.window if kind == "swa" else None
+    h, kv = attn.attn_decode_step(params["attn"], cfg, h, cache["kv"], pos,
+                                  window=window)
+    cache = {**cache, "kv": kv}
+    x = x + h
+    h = norm(params["norm_mlp"], x)
+    h = mlp_apply(params["mlp"], h, cfg.activation)
+    return x + h, cache
+
+
+def layer_prefill(params, cfg: ArchConfig, kind: str, mlp_kind: str, x, *,
+                  positions, max_len):
+    """Full-sequence layer that also emits the post-sequence decode cache."""
+    _check_kinds(cfg, kind, mlp_kind)
+    _, norm = make_norm(cfg.norm)
+    h = norm(params["norm_mixer"], x)
+    window = cfg.window if kind == "swa" else None
+    h, kv = attn.attn_prefill(params["attn"], cfg, h, positions=positions,
+                              window=window, max_len=max_len)
+    x = x + h
+    h = norm(params["norm_mlp"], x)
+    h = mlp_apply(params["mlp"], h, cfg.activation)
+    return x + h, {"kv": kv}
+
+
+# ---------------------------------------------------------------------------
+# stack: one module per layer, in layer order
+# ---------------------------------------------------------------------------
+def stack_layout(cfg: ArchConfig):
+    """(head_idxs, n_groups, unit_len, tail_idxs) over decoder layers."""
+    head = list(range(cfg.first_dense))
+    body = cfg.n_layers - cfg.first_dense
+    unit = len(cfg.pattern)
+    n_groups = body // unit
+    tail_start = cfg.first_dense + n_groups * unit
+    tail = list(range(tail_start, cfg.n_layers))
+    return head, n_groups, unit, tail
+
+
+def stack_init(cfg: ArchConfig, dtype, device) -> nn.ModuleList:
+    return nn.ModuleList([layer_init(cfg, i, dtype, device)
+                          for i in range(cfg.n_layers)])
+
+
+def stack_apply(layers, cfg: ArchConfig, x, *, positions, causal=True,
+                cross_kv=None):
+    """Full-sequence stack. Returns (x, aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, lp in enumerate(layers):
+        x, a = layer_apply(lp, cfg, cfg.mixer_kind(i), cfg.mlp_kind(i), x,
+                           positions=positions, causal=causal,
+                           cross_kv=cross_kv)
+        aux = aux + a
+    return x, aux
+
+
+def stack_prefill(layers, cfg: ArchConfig, x, *, positions, max_len):
+    """Forward the whole stack, returning (x, per-layer caches)."""
+    cache: list[dict[str, Any]] = []
+    for i, lp in enumerate(layers):
+        x, lc = layer_prefill(lp, cfg, cfg.mixer_kind(i), cfg.mlp_kind(i), x,
+                              positions=positions, max_len=max_len)
+        cache.append(lc)
+    return x, cache
+
+
+def stack_cache_init(cfg: ArchConfig, batch, max_len, dtype,
+                     with_cross: bool = False, device=None):
+    return [layer_cache_init(cfg, cfg.mixer_kind(i), batch, max_len, dtype,
+                             with_cross, device=device)
+            for i in range(cfg.n_layers)]
+
+
+def stack_decode(layers, cfg: ArchConfig, x, cache, pos):
+    """One-token decode through the whole stack. Returns (x, cache)."""
+    new_cache = []
+    for i, (lp, lc) in enumerate(zip(layers, cache)):
+        x, lc = layer_decode(lp, cfg, cfg.mixer_kind(i), cfg.mlp_kind(i), x,
+                             lc, pos)
+        new_cache.append(lc)
+    return x, new_cache

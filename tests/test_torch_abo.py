@@ -1,8 +1,9 @@
 """The port's solver (repro_torch.core.abo) against the JAX package's, on
 the CPU: config validation, the pass schedule, seeded starts (bit-exact for
-float32), the candidate grid, one pass continued from a JAX state, whole
-solves to the quality thresholds of tests/test_abo.py, and the package's
-rules (no JAX import, the card by default).
+float32, and for float64 with 64-bit seeds under x64), the candidate
+grid, one pass continued from a JAX state, whole solves to the quality
+thresholds of tests/test_abo.py, and the package's rules (no JAX import,
+the card by default).
 
 The JAX side stays at n <= 1000: its n=10,000 solve costs minutes here.
 """
@@ -80,8 +81,34 @@ def test_seeded_start_bit_exact_float32(seed):
 
 
 def test_seeded_start_float64_not_ported_yet():
-    with pytest.raises(NotImplementedError):
-        TA.seeded_start(0, 16, torch.float64, -1.0, 1.0, device=CPU)
+    # the float64 draw, once unported, is now the reference's under x64;
+    # unsupported dtypes raise
+    with jax.enable_x64(True):
+        want = np.asarray(JA.seeded_start(3, 16, jnp.float64, -1.0, 1.0))
+    got = TA.seeded_start(3, 16, torch.float64, -1.0, 1.0, device=CPU)
+    np.testing.assert_array_equal(got.numpy().view(np.uint64),
+                                  want.view(np.uint64))
+    with pytest.raises(ValueError):
+        TA.seeded_start(0, 16, torch.bfloat16, -1.0, 1.0, device=CPU)
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2**40 + 3])
+def test_seeded_start_bit_exact_x64(seed):
+    """float64 draws and 64-bit seeds (PRNGKey's high/low word split) under
+    the reference's x64 mode, bit for bit, over 200k coordinates."""
+    n = 200_000
+    idx = np.array([0, 5, 4095, 2**31 + 3, 2**32 - 1], np.uint32)
+    with jax.enable_x64(True):
+        want = np.asarray(JA.seeded_start(seed, n, jnp.float64, -600.0, 600.0))
+        want_at = np.asarray(JA.seeded_at(seed, jnp.asarray(idx), jnp.float64,
+                                          -5.12, 5.12))
+    got = TA.seeded_start(seed, n, torch.float64, -600.0, 600.0,
+                          chunk=1 << 16, device=CPU).numpy()
+    np.testing.assert_array_equal(got.view(np.uint64), want.view(np.uint64))
+    got = TA.seeded_at(seed, torch.from_numpy(idx.astype(np.int64)),
+                       torch.float64, -5.12, 5.12).numpy()
+    np.testing.assert_array_equal(got.view(np.uint64),
+                                  want_at.view(np.uint64))
 
 
 @pytest.mark.parametrize("m", [3, 16, 50, 64, 129])

@@ -1,0 +1,136 @@
+"""The port's attention op (repro_torch.kernels.flash_attention) against the
+JAX package's, on the CPU: the plain version that the K3 wrapper runs on a
+CPU tensor against JAX ``flash_attention(impl="interpret")`` (the Pallas
+kernel, interpreted) and ``impl="ref"``, on the same numpy inputs.
+
+Tolerances: 2e-3 (float32) and 2e-2 (bfloat16) max abs against the
+interpreted kernel, as tests/test_kernels.py holds the kernel to its
+oracle; 1e-5 (float32) and 2e-2 (bfloat16: one bf16 rounding of an O(1)
+output) against the JAX plain version. Measured on the CPU
+(tests/torch_parity_report.py): float32 <= 6.0e-7 against the plain version
+and <= 7.2e-7 against the interpreted kernel; bfloat16 <= 0.0156 (two bf16
+ulps at |x| in [1, 2)) against either.
+
+No shape here has a query row without a valid key: there the reference's
+versions disagree with each other (ROADMAP, K3).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.ops import flash_attention as jax_flash
+from repro_torch.kernels.flash_attention import ops
+from repro_torch.kernels.flash_attention.ref import (attention_ref,
+                                                     attention_ref_chunked)
+
+# (b, hq, hkv, sq, d, window, causal), as tests/test_kernels.py sweeps
+SHAPE_SWEEP = [
+    (2, 4, 4, 256, 64, None, True),
+    (1, 8, 2, 384, 128, None, True),      # GQA
+    (2, 4, 1, 256, 64, None, True),       # MQA
+    (2, 4, 4, 256, 64, 128, True),        # SWA
+    (1, 2, 2, 128, 64, None, False),      # encoder (non-causal)
+]
+TOL = {np.float32: 2e-3, "bfloat16": 2e-2}
+
+
+def _qkv(seed, b, hq, hkv, sq, sk, d):
+    rng = np.random.RandomState(seed)
+    return (rng.normal(size=(b, hq, sq, d)).astype(np.float32),
+            rng.normal(size=(b, hkv, sk, d)).astype(np.float32),
+            rng.normal(size=(b, hkv, sk, d)).astype(np.float32))
+
+
+def _port(arrs, dtype=torch.float32, **kw):
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in arrs)
+    return ops.flash_attention(q, k, v, **kw).float().numpy()
+
+
+def _jax(arrs, impl, dtype=jnp.float32, **kw):
+    q, k, v = (jnp.asarray(a).astype(dtype) for a in arrs)
+    return np.asarray(jax_flash(q, k, v, impl=impl, **kw).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,d,win,causal", SHAPE_SWEEP)
+def test_plain_matches_reference_shape_sweep(b, hq, hkv, sq, d, win, causal):
+    arrs = _qkv(sq + d, b, hq, hkv, sq, sq, d)
+    got = _port(arrs, causal=causal, window=win)
+    assert got.shape == (b, hq, sq, d)
+    kern = _jax(arrs, "interpret", causal=causal, window=win)
+    ref = _jax(arrs, "ref", causal=causal, window=win)
+    assert np.abs(got - kern).max() < TOL[np.float32]
+    assert np.abs(got - ref).max() < 1e-5
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 2, 128, 64), (1, 8, 2, 200, 128),
+                                   (2, 4, 1, 96, 120)])
+def test_plain_matches_reference_bf16(shape):
+    b, hq, hkv, sq, d = shape
+    arrs = _qkv(7, b, hq, hkv, sq, sq, d)
+    got = _port(arrs, torch.bfloat16)
+    kern = _jax(arrs, "interpret", jnp.bfloat16)
+    ref = _jax(arrs, "ref", jnp.bfloat16)
+    assert np.abs(got - kern).max() < TOL["bfloat16"]
+    assert np.abs(got - ref).max() < TOL["bfloat16"]
+
+
+@pytest.mark.parametrize("win", [None, 48])
+def test_plain_matches_reference_non_divisible_seq(win):
+    arrs = _qkv(3, 1, 2, 2, 200, 200, 64)
+    got = _port(arrs, window=win)
+    assert np.abs(got - _jax(arrs, "interpret", window=win)).max() < 2e-3
+    assert np.abs(got - _jax(arrs, "ref", window=win)).max() < 1e-5
+
+
+@pytest.mark.parametrize("causal,win", [(True, None), (True, 300),
+                                        (False, None)])
+def test_plain_chunked_path_matches_reference(causal, win):
+    """sk > 2048 takes the chunked online softmax in both packages."""
+    arrs = _qkv(11, 1, 4, 2, 2100, 2100, 32)
+    got = _port(arrs, causal=causal, window=win)
+    ref = _jax(arrs, "ref", causal=causal, window=win)
+    assert np.abs(got - ref).max() < 1e-5
+    # and the chunked version agrees with the port's dense one
+    q, k, v = (torch.from_numpy(a) for a in arrs)
+    k, v = k.repeat_interleave(2, 1), v.repeat_interleave(2, 1)
+    dense = attention_ref(q, k, v, causal=causal, window=win).numpy()
+    assert np.abs(got - dense).max() < 1e-5
+
+
+def test_chunked_matches_dense_ragged_blocks():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(5, 1, 2, 2, 150, 150, 32))
+    for win in (None, 20):
+        a = attention_ref(q, k, v, window=win)
+        c = attention_ref_chunked(q, k, v, window=win, block_k=64)
+        assert (a - c).abs().max() < 1e-5
+
+
+def test_cpu_tensor_runs_plain_and_counts_no_launch():
+    arrs = _qkv(1, 1, 4, 2, 64, 64, 16)
+    before = ops.flash_attention.launches
+    got = _port(arrs)
+    q, k, v = (torch.from_numpy(a) for a in arrs)
+    want = ops.flash_attention_plain(q, k, v).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert ops.flash_attention.launches == before
+
+
+@pytest.mark.parametrize("bad", ["heads", "dtype", "rank", "window", "device"])
+def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    q = torch.zeros(1, 4, 8, 16)
+    k = torch.zeros(1, 2, 8, 16)
+    v = torch.zeros(1, 2, 8, 16)
+    kw = {}
+    if bad == "heads":
+        k = v = torch.zeros(1, 3, 8, 16)
+    elif bad == "dtype":
+        k = k.double()
+    elif bad == "rank":
+        q = q[0]
+    elif bad == "window":
+        kw = dict(window=0)
+    elif bad == "device":
+        q, k, v = (t.to("meta") for t in (q, k, v))
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k, v, **kw)

@@ -8,23 +8,44 @@ imports torch and the port only (no JAX), so it runs where the card is:
 Tolerances are those the plain versions are held to against the JAX
 package on the CPU (tests/test_torch_kernels.py): one sweep pass gives x
 identical on >= 99.9% of coordinates, aggregates within 1e-3·(1 + |a_in|)
-and padding frozen; the Griewank aggregates agree to relative 1e-5.
+and padding frozen; the Griewank aggregates agree to relative 1e-5. K3 is
+held as chip_smoke.py holds it: max abs on N(0, 1) inputs, and per query
+row, the row's max |got - want| over its max |want|, which stays sensitive
+where long rows make every output small.
 """
 import pytest
 import torch
 
+from repro_torch.configs import ARCHS, reduced
 from repro_torch.core import ABOConfig, abo_minimize
 from repro_torch.kernels.coord_sweep.ops import pack_aggs, sweep_pass
 from repro_torch.kernels.coord_sweep.ref import (abo_minimize_kernel_ref,
                                                  sweep_pass_ref)
+from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                     flash_attention_plain)
 from repro_torch.kernels.griewank.ops import griewank_aggregates
 from repro_torch.kernels.griewank.ref import griewank_aggregates_ref
+from repro_torch.models.model import Model
 from repro_torch.objectives import GRIEWANK
 
 SHAPES = [(1, 128, 16), (4, 256, 64), (3, 512, 128), (2, 128, 33),
           (8, 4096, 50)]
 CASES = [(0.0, True), (0.5, False), (1.0, False)]
 X_SAME = 0.999
+# (b, hq, hkv, sq, sk, d, causal, window): the shapes chip_smoke.py checks
+ATTN_SHAPES = [
+    (2, 4, 4, 256, 256, 64, True, None),
+    (1, 8, 2, 384, 384, 128, True, None),        # GQA
+    (2, 4, 1, 256, 256, 64, True, None),         # MQA
+    (2, 4, 4, 256, 256, 64, True, 128),          # window
+    (1, 2, 2, 128, 128, 64, False, None),        # non-causal
+    (1, 4, 2, 200, 200, 64, True, None),         # ragged
+    (1, 32, 8, 333, 333, 120, True, 96),         # d = 120, ragged window
+    (2, 4, 2, 100, 300, 16, False, None),        # sq != sk, d = 16
+    (1, 32, 8, 8192, 8192, 128, True, None),     # the model's layer shape
+]
+ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-3}
+ATTN_ROW_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-3}
 AGG_TOL = 1e-3     # times (1 + |a_in|)
 
 pytestmark = pytest.mark.gpu
@@ -114,3 +135,82 @@ def test_wrappers_raise_on_cuda_float64(cuda):
         sweep_pass(torch.zeros((1, 128), dtype=torch.float64, device=cuda),
                    pack_aggs(torch.zeros(3, device=cuda)), m=8, n_valid=128,
                    half_width=1.0, lam=1.0, is_first=False)
+
+
+def _row_rel_err(got, want):
+    diff = (got.float() - want.float()).abs().amax(-1)
+    return float((diff / want.float().abs().amax(-1).clamp_min(1e-30)).max())
+
+
+def _qkv(shape, dtype, dev, seed=0):
+    b, hq, hkv, sq, sk, d = shape[:6]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(s, generator=g, device=dev).to(dtype)
+            for s in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d))]
+
+
+@pytest.mark.parametrize("shape", ATTN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_kernel_matches_plain(cuda, shape, dtype):
+    causal, window = shape[6], shape[7]
+    q, k, v = _qkv(shape, dtype, cuda)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert got.shape == want.shape and got.dtype == dtype
+    err = float((got.float() - want.float()).abs().max())
+    assert err < ATTN_TOL[dtype], err
+    assert _row_rel_err(got, want) < ATTN_ROW_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_kernel_strided_and_unaligned(cuda, dtype):
+    """The model's (b, t, h, d) projections read through transposed views,
+    and rows that are not 16-byte aligned (the scalar-load path)."""
+    b, t, hq, hkv, d = 2, 150, 8, 2, 64
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn(b, t, hq, d, generator=g, device=cuda).to(dtype)
+    buf = torch.randn(2 * b * t * hkv * d + 4, generator=g,
+                      device=cuda).to(dtype)
+    k = buf[4:4 + b * t * hkv * d].view(b, t, hkv, d)
+    v = buf[4 + b * t * hkv * d:].view(b, t, hkv, d)
+    args = [x.transpose(1, 2) for x in (q, k, v)]
+    got = flash_attention(*args, causal=True)
+    want = flash_attention_plain(*args, causal=True)
+    assert float((got.float() - want.float()).abs().max()) < ATTN_TOL[dtype]
+    assert _row_rel_err(got, want) < ATTN_ROW_TOL[dtype]
+
+
+def test_flash_attention_wrapper_rejects_on_cuda(cuda):
+    q = torch.zeros(1, 2, 8, 136, device=cuda)             # d > 128
+    with pytest.raises(ValueError):
+        flash_attention(q, q, q)
+    q = torch.zeros(1, 2, 8, 20, device=cuda)              # d % 8 != 0
+    with pytest.raises(ValueError):
+        flash_attention(q, q, q)
+    q = torch.zeros(1, 2, 8, 16, dtype=torch.float16, device=cuda)
+    with pytest.raises(ValueError):
+        flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("arch", ["mistral-nemo-12b", "h2o-danube-3-4b",
+                                  "granite-20b", "internlm2-20b"])
+def test_reduced_model_on_the_card_matches_cpu(cuda, arch):
+    cfg = reduced(ARCHS[arch])
+    cpu = Model(cfg, device="cpu").init(0)
+    card = Model(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    toks = torch.randint(0, cfg.vocab_size, (2, 50),
+                         generator=torch.Generator().manual_seed(2))
+    before = flash_attention.launches
+    lg, _ = card.forward(toks.to(cuda))
+    assert flash_attention.launches == before + cfg.n_layers
+    want, _ = cpu.forward(toks)
+    assert float((lg.cpu() - want).abs().max()) < 1e-4
+    max_len = cfg.window or 64
+    _, cache = card.prefill(toks[:, :44].to(cuda), max_len=max_len)
+    for i in range(44, 50):
+        lg, cache = card.decode_step(toks[:, i:i + 1].to(cuda), cache, i)
+        assert float((lg[:, 0].cpu() - want[:, i]).abs().max()) < 1e-4

@@ -5,15 +5,19 @@
 Prints, on the inputs of the parity tests (tests/test_torch_*.py), the
 largest discrepancies those tests hold to a tolerance: objective terms and
 aggregates, one sweep pass of the kernel route's plain version against the
-JAX oracle, float32 seeded starts, and whole solves of both routes at
-``--n-solve`` (default 1e6) for Griewank and the sphere. The tolerances in
-the tests and in PERF.md come from these numbers.
+JAX oracle, seeded starts (float32, and float64 with 64-bit seeds under
+x64), whole solves of both routes at ``--n-solve`` (default 1e6) for
+Griewank and the sphere, the plain attention against the JAX package's
+interpreted kernel and plain version, and the reduced dense models with the
+reference's weights carried across. The tolerances in the tests and in
+PERF.md come from these numbers. ``--only NAME ...`` runs some sections.
 """
 from __future__ import annotations
 
 import argparse
 import json
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -25,6 +29,12 @@ import repro_torch.objectives as T
 from repro.kernels.coord_sweep.ops import pack_aggs
 from repro.kernels.coord_sweep.ref import sweep_pass_ref as j_sweep_ref
 from repro_torch.kernels.coord_sweep.ref import sweep_pass_ref
+from repro.configs import ARCHS as J_ARCHS, reduced as j_reduced
+from repro.kernels.flash_attention.ops import flash_attention as j_flash
+from repro.models.model import Model as JModel
+from repro_torch.configs import ARCHS as T_ARCHS, reduced as t_reduced
+from repro_torch.kernels.flash_attention.ops import flash_attention_plain
+from repro_torch.models.params import params_from_jax
 
 SIZES = [100, 4096, 10_000, 3 * 4096 + 5]
 SHAPES = [(1, 128, 16), (4, 256, 64), (3, 512, 128), (2, 128, 33)]
@@ -86,7 +96,80 @@ def seeded_report() -> dict:
         b = TA.seeded_start(seed, 200_000, torch.float32, -600.0, 600.0,
                             device="cpu").numpy().view(np.uint32)
         mismatches += int((a != b).sum())
-    return {"float32_bit_mismatches": mismatches}
+    mismatches64 = 0
+    for seed in (0, 7, 2**40 + 3):
+        with jax.enable_x64(True):
+            a = np.asarray(JA.seeded_start(seed, 200_000, jnp.float64, -600.0,
+                                           600.0)).view(np.uint64)
+        b = TA.seeded_start(seed, 200_000, torch.float64, -600.0, 600.0,
+                            device="cpu").numpy().view(np.uint64)
+        mismatches64 += int((a != b).sum())
+    return {"float32_bit_mismatches": mismatches,
+            "float64_x64_bit_mismatches": mismatches64}
+
+
+# (b, hq, hkv, sq, sk, d, window, causal, dtype) of
+# tests/test_torch_flash_attention.py
+ATTN_CASES = [
+    (2, 4, 4, 256, 256, 64, None, True, "float32"),
+    (1, 8, 2, 384, 384, 128, None, True, "float32"),
+    (2, 4, 1, 256, 256, 64, None, True, "float32"),
+    (2, 4, 4, 256, 256, 64, 128, True, "float32"),
+    (1, 2, 2, 128, 128, 64, None, False, "float32"),
+    (1, 2, 2, 200, 200, 64, 48, True, "float32"),
+    (1, 4, 2, 2100, 2100, 32, 300, True, "float32"),
+    (1, 2, 2, 128, 128, 64, None, True, "bfloat16"),
+    (1, 8, 2, 200, 200, 128, None, True, "bfloat16"),
+    (2, 4, 1, 96, 96, 120, None, True, "bfloat16"),
+]
+
+
+def attention_report() -> dict:
+    out = {}
+    for b, hq, hkv, sq, sk, d, win, causal, dt in ATTN_CASES:
+        rng = np.random.RandomState(sq + d)
+        arrs = [rng.normal(size=s).astype(np.float32)
+                for s in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d))]
+        got = flash_attention_plain(
+            *(torch.from_numpy(a).to(getattr(torch, dt)) for a in arrs),
+            causal=causal, window=win).float().numpy()
+        errs = {}
+        for impl in (("ref", "interpret") if sk <= 2048 else ("ref",)):
+            want = j_flash(*(jnp.asarray(a).astype(getattr(jnp, dt))
+                             for a in arrs), causal=causal, window=win,
+                           impl=impl)
+            errs[impl] = float(np.abs(got - np.asarray(
+                want.astype(jnp.float32))).max())
+        out[f"{(b, hq, hkv, sq, sk, d, win, causal)} {dt}"] = errs
+    return out
+
+
+def models_report() -> dict:
+    out = {}
+    for arch in ("mistral-nemo-12b", "h2o-danube-3-4b", "granite-20b",
+                 "internlm2-20b"):
+        jm = JModel(j_reduced(J_ARCHS[arch]))
+        params = jm.init(jax.random.PRNGKey(3))
+        tm = params_from_jax(t_reduced(T_ARCHS[arch]),
+                             jax.tree.map(np.asarray, params), device="cpu")
+        swa = tm.cfg.window is not None
+        tp, max_len = (50, tm.cfg.window) if swa else (40, 64)
+        toks = np.random.RandomState(4).randint(0, 512, (2, tp + 6))
+        lj = np.asarray(jm.forward(params, jnp.asarray(toks))[0])
+        lt = tm.forward(torch.from_numpy(toks))[0].numpy()
+        pj, cj = jm.prefill(params, jnp.asarray(toks[:, :tp]), max_len=max_len)
+        pt, ct = tm.prefill(torch.from_numpy(toks[:, :tp]), max_len=max_len)
+        dec = 0.0
+        for i in range(tp, tp + 6):
+            gj, cj = jm.decode_step(params, jnp.asarray(toks[:, i:i + 1]), cj,
+                                    jnp.asarray(i))
+            gt, ct = tm.decode_step(torch.from_numpy(toks[:, i:i + 1]), ct, i)
+            dec = max(dec, float(np.abs(gt.numpy() - np.asarray(gj)).max()))
+        out[arch] = {"forward": float(np.abs(lt - lj).max()),
+                     "prefill": float(np.abs(pt.numpy()
+                                             - np.asarray(pj)).max()),
+                     "decode": dec, "max_abs_logit": float(np.abs(lj).max())}
+    return out
 
 
 def solves_report(n: int) -> dict:
@@ -103,11 +186,15 @@ def solves_report(n: int) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-solve", type=int, default=10**6)
+    ap.add_argument("--only", nargs="*", default=None)
     args = ap.parse_args()
     for key, fn in (("objectives", objectives_report), ("sweep", sweep_report),
                     ("seeded_start", seeded_report),
-                    ("solves", lambda: solves_report(args.n_solve))):
-        print(json.dumps({key: fn()}), flush=True)
+                    ("solves", lambda: solves_report(args.n_solve)),
+                    ("attention", attention_report),
+                    ("models", models_report)):
+        if args.only is None or key in args.only:
+            print(json.dumps({key: fn()}), flush=True)
 
 
 if __name__ == "__main__":

@@ -3,11 +3,14 @@
     PYTHONPATH=src python -m benchmarks_torch.k3_fault_check [--seed 0]
 
 On the card (CUDA required). For the kernel as it is and for each planted
-fault of ``FAULTS``, it writes a copy of ``csrc/flash_attention.cu`` with
-the fault into ``build/k3_faults/<fault>/`` (the source itself is never
-changed), builds and loads that copy in place of the kernel, and runs the
-checks of ``chip_smoke.py`` on it: K3 against its plain version at every
-shape of ``ATTN_SHAPES`` (max abs and per row), and the full-width
+fault of ``FAULTS``, it writes a copy of ``csrc/flash_attention_sm90.cu``
+(the Hopper kernel, which the dense models' prefill runs) with the fault
+into ``build/k3_faults/<fault>/``, beside an unchanged copy of
+``csrc/flash_attention.cu`` (the sources themselves are never changed),
+builds and loads those copies in place of the kernels, and runs the checks
+of ``chip_smoke.py`` on them: K3 against its plain version at every shape
+of ``ATTN_SHAPES`` (max abs and per row; the bf16 shapes with head_dim 120
+or 128 go to the Hopper kernel), and the full-width
 ``mistral-nemo-12b`` forward over 8192 tokens against the same forward
 with the plain attention (K3 per row on each layer's own q, k, v; the
 logits at every position). One JSON line per fault: each reading, its
@@ -28,52 +31,55 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
 
-# name -> [(text of flash_attention.cu, replacement, occurrences)]
+FAULTY = "flash_attention_sm90.cu"
+# name -> [(text of FAULTY, replacement, occurrences)]
 FAULTS = {
     "none": [],
     # query head h reads kv head h % hkv instead of h / (hq / hkv)
     "gqa_h_mod_hkv": [("kvh = h / g.group;", "kvh = h % (g.hq / g.group);",
-                       2)],
-    # rows with more than 8 kv blocks (>= 512 keys) skip the middle one
+                       1)],
+    # rows with more than 8 kv blocks (> 1024 keys) drop the middle one
     "skip_mid_block": [
-        ("    const int k0 = kb * kBN;\n",
-         "    if (kb1 - kb0 > 8 && kb == (kb0 + kb1) / 2) continue;\n"
-         "    const int k0 = kb * kBN;\n", 1),
-        ("    const int k0 = kb * kFBN;\n",
-         "    if (kb1 - kb0 > 8 && kb == (kb0 + kb1) / 2) continue;\n"
-         "    const int k0 = kb * kFBN;\n", 1)],
+        ("      const bool masked = needs_mask(g, qw0, 64, k0, kBN);\n",
+         "      const bool skip = n_kb > 8 && k0 == (kb0 + n_kb / 2) * kBN;\n"
+         "      const bool masked = skip || needs_mask(g, qw0, 64, k0, kBN);\n",
+         1),
+        ("!key_ok(g, e < 2 ? row0 : row1,",
+         "skip || !key_ok(g, e < 2 ? row0 : row1,", 1)],
     # from the 9th kv block on, a new running max does not rescale the
     # accumulator and denominator
     "late_no_rescale": [
-        ("const float al0 = expf(m0 - mx0), al1 = expf(m1 - mx1);",
-         "const float al0 = kb - kb0 >= 8 ? 1.0f : expf(m0 - mx0),\n"
-         "                al1 = kb - kb0 >= 8 ? 1.0f : expf(m1 - mx1);", 1),
-        ("const float alpha = expf(m - mx);",
-         "const float alpha = kb - kb0 >= 8 ? 1.0f : expf(m - mx);", 1)],
+        ("      al0 = exp2f(m0 - mx0);\n      al1 = exp2f(m1 - mx1);\n",
+         "      al0 = k0 >= (kb0 + 8) * kBN ? 1.0f : exp2f(m0 - mx0);\n"
+         "      al1 = k0 >= (kb0 + 8) * kBN ? 1.0f : exp2f(m1 - mx1);\n", 1)],
 }
 
 
 def use_kernel_source(fault: str) -> None:
-    """Point the kernel build at the source with ``fault`` planted (the
-    checkout's own for "none") and drop every loaded copy."""
+    """Point the kernel build at the sources with ``fault`` planted in
+    FAULTY (the checkout's own for "none") and drop every loaded copy."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops
     src = Path(_build.__file__).resolve().parent / "csrc"
-    text = (src / "flash_attention.cu").read_text()
+    text = (src / FAULTY).read_text()
     for old, new, count in FAULTS[fault]:
         if text.count(old) != count:
             raise RuntimeError(f"{fault}: {old!r} occurs {text.count(old)} "
-                               f"times in flash_attention.cu, want {count}")
+                               f"times in {FAULTY}, want {count}")
         text = text.replace(old, new)
     if FAULTS[fault]:
+        clean = src
         src = ROOT / "build" / "k3_faults" / fault
         src.mkdir(parents=True, exist_ok=True)
         for stale in src.glob("*"):
             stale.unlink()
-        (src / "flash_attention.cu").write_text(text)
+        (src / FAULTY).write_text(text)
+        (src / "flash_attention.cu").write_text(
+            (clean / "flash_attention.cu").read_text())
     _build.CSRC = src
     _build._libs.clear()
     ops._launcher.cache_clear()
+    ops._launcher_sm90.cache_clear()
     _build.build_all()
 
 
@@ -104,7 +110,8 @@ def main() -> None:
         row = {
             "fault": fault,
             "attn": [{"shape": r["shape"], "dtype": r["dtype"],
-                      "abs": r["abs"], "row": r["row"], "ok": r["ok"]}
+                      "kernel": r["kernel"], "abs": r["abs"], "row": r["row"],
+                      "ok": r["ok"]}
                      for r in attn],
             "attn_abs_limit": abs_tol, "attn_row_limit": row_tol,
             "attn_abs_fails": sum(not r["abs"] < abs_tol[r["dtype"]]

@@ -7,23 +7,32 @@ Phases, in order; any failure exits non-zero before the result line:
   1. device: the card's name and power limit;
   2. build: every CUDA kernel from ``src/repro_torch/kernels/csrc``;
   3. K2 (Griewank aggregates) against its plain version, timed;
-  4. K1 (one whole ABO pass) against its plain version, timed;
+  4. K1 (one whole ABO pass) against its plain version, and the cluster of
+     16 CTAs against one CTA (the same bits), both timed;
   5. the main path, kernel route: ``abo_minimize(GRIEWANK, 1e8,
-     use_kernel=True)``, with launch counts and peak device memory;
+     use_kernel=True)``, with launch counts, peak device memory, and its
+     fun beside the single-CTA kernel's;
   6. the plain tensor route: ``abo_minimize`` of Griewank and the sphere at
      n = 1e6;
-  7. K3 (flash attention) against its plain version in bf16 and float32 at
-     the shapes of ``ATTN_SHAPES`` (max abs and per row), timed at the
-     model's layer shape (T = 8192) beside its plain version and
-     ``scaled_dot_product_attention``, and at T = 32768;
+  7. K3 (flash attention, two kernels) against its plain version in bf16
+     and float32 at the shapes of ``ATTN_SHAPES`` (max abs and per row),
+     each shape through the kernel that ``choose_kernel`` gives it; the
+     Hopper kernel (``flash_attention_sm90``), the mma.sync kernel
+     (``flash_attention_mma``) and ``scaled_dot_product_attention`` timed in
+     turns at the model's layer shape (T = 8192) and at T = 32768, beside
+     the plain version and the bound;
   8. the LM serving path at full width: ``mistral-nemo-12b``'s prefill step
-     on one T = 8192 request (40 K3 launches, wall time, tokens/s, peak
-     memory); the forward against the same forward with the plain
-     attention, K3 held per row on every layer's own q, k, v and the logits
-     at every position; prefill + 8 decode steps against the forward;
+     on one T = 8192 request (40 launches, all of the Hopper kernel; wall
+     time, tokens/s, peak memory); the forward against the same forward with
+     the plain attention, K3 held per row on every layer's own q, k, v and
+     the logits at every position; prefill + 8 decode steps against the
+     forward;
   9. the serve launcher at full width (8 requests, 4 slots);
- 10. one JSON line with every kernel's launches, error and times;
- 11. the last line, ``{"ok": true, "device": {...}}``.
+ 10. the mma.sync kernel's path: the reduced ``mistral-nemo-12b`` (float32,
+     head_dim 16) prefill step on the card, against its plain-attention run,
+     and that kernel timed at its attention shape;
+ 11. one JSON line with every kernel's launches, error and times;
+ 12. the last line, ``{"ok": true, "device": {...}}``.
 
 Imports torch and the port only. Exits non-zero, printing no result, when
 no CUDA device is present or the port's sources are not beside this file.
@@ -101,6 +110,11 @@ LM_DECODE = 8                # decode steps after the prefill
 LM_REL_TOL_PLAIN = 0.05
 LM_REL_TOL_DECODE = 0.05
 LM_EARLY = 64                # positions reported apart: few keys each
+# The kernel route at MAIN_N ends at this fun with the single-CTA sweep
+# kernel; the cluster keeps the bits, so it is printed beside this run's.
+ONE_CTA_MAIN_FUN = 189705552.0
+# The mma.sync kernel's path: the reduced config's prefill step on the card.
+MMA_TOKENS = (4, 512)
 
 
 def fail(msg: str) -> None:
@@ -163,26 +177,32 @@ def _qkv(dev, seed, b, hq, hkv, sq, sk, d, dtype):
 
 def attention_readings(dev, seed: int) -> list[dict]:
     """K3 against its plain version at every shape of ATTN_SHAPES in bf16
-    and float32: per case the max abs and the per-row error, and whether
-    both are within their limits."""
+    and float32, each through the kernel ``choose_kernel`` names for it:
+    per case the kernel, the max abs and the per-row error, and whether
+    the kernel's own launch count moved and both errors are within their
+    limits."""
     import torch
-    from repro_torch.kernels.flash_attention.ops import (
-        flash_attention, flash_attention_plain)
+    from repro_torch.kernels.flash_attention import ops
     out = []
     for shape in ATTN_SHAPES:
         causal, window = shape[6], shape[7]
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = _qkv(dev, seed, *shape[:6], dtype)
-            got = flash_attention(q, k, v, causal=causal, window=window)
-            want = flash_attention_plain(q, k, v, causal=causal,
-                                         window=window)
+            kernel = ops.choose_kernel(q, k, v)
+            wrapper = getattr(ops, kernel)
+            before = wrapper.launches
+            got = ops.flash_attention(q, k, v, causal=causal, window=window)
+            launched = wrapper.launches == before + 1
+            want = ops.flash_attention_plain(q, k, v, causal=causal,
+                                             window=window)
             torch.cuda.synchronize()
             name = str(dtype).split(".")[-1]
             err = float((got.float() - want.float()).abs().max())
             row = row_rel_err(got, want)
-            out.append({"shape": shape, "dtype": name, "abs": err,
-                        "row": row, "ok": (
-                            tuple(got.shape) == tuple(want.shape)
+            out.append({"shape": shape, "dtype": name, "kernel": kernel,
+                        "abs": err, "row": row, "ok": (
+                            launched
+                            and tuple(got.shape) == tuple(want.shape)
                             and bool(torch.isfinite(got).all())
                             and err < ATTN_TOL[name]
                             and row < ATTN_ROW_TOL[name])})
@@ -190,65 +210,170 @@ def attention_readings(dev, seed: int) -> list[dict]:
     return out
 
 
-def attention_phase(dev, seed: int) -> dict:
+def k3_bound(b, hq, hkv, t, d, causal=True, peak=PEAK_BF16_OPS_S,
+             itemsize=2) -> tuple[float, str]:
+    """Least time for attention at (b, hq/hkv, t, d): Q, K, V and O moved
+    once; 4·d FLOP a (query, key) pair, over the pairs the mask keeps."""
+    pairs = t * (t + 1) / 2 if causal else t * t
+    return bound_ms(itemsize * (2 * b * hq * t * d + 2 * b * hkv * t * d),
+                    4 * b * hq * d * pairs, peak)
+
+
+def attention_phase(dev, seed: int) -> tuple[dict, dict]:
     """Phase 7: K3 against its plain version at every shape of ATTN_SHAPES
-    in bf16 and float32, then timed at the model's layer shape. Returns
-    K3's entry of the kernels line, without its launches."""
+    in bf16 and float32, then both kernels and SDPA timed in turns at the
+    model's layer shape and at T = 32768. Returns the Hopper kernel's entry
+    of the kernels line, without its launches, and the mma.sync kernel's
+    readings at the model's shape."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import (
-        flash_attention, flash_attention_plain)
+        flash_attention_mma, flash_attention_plain, flash_attention_sm90)
 
     main_err = {}
     for r in attention_readings(dev, seed):
-        print(f"[K3] {r['shape']} {r['dtype']}: max abs err {r['abs']:.3g} "
-              f"(limit {ATTN_TOL[r['dtype']]}), per row {r['row']:.3g} "
-              f"(limit {ATTN_ROW_TOL[r['dtype']]})", flush=True)
-        check(r["ok"], f"K3 disagrees with its plain version at "
-              f"{r['shape']} {r['dtype']}")
+        print(f"[K3] {r['shape']} {r['dtype']} via {r['kernel']}: max abs err "
+              f"{r['abs']:.3g} (limit {ATTN_TOL[r['dtype']]}), per row "
+              f"{r['row']:.3g} (limit {ATTN_ROW_TOL[r['dtype']]})", flush=True)
+        check(r["ok"], f"K3 ({r['kernel']}) disagrees with its plain version "
+              f"at {r['shape']} {r['dtype']}, or did not launch")
         if r["shape"][3] == LM_T:                 # the model's layer shape
-            main_err[r["dtype"]] = r["abs"]
-            main_err[r["dtype"] + "_row"] = r["row"]
+            main_err[r["dtype"]] = (r["abs"], r["row"], r["kernel"])
+    check(main_err["bfloat16"][2] == "flash_attention_sm90"
+          and main_err["float32"][2] == "flash_attention_mma",
+          f"the model's layer shape went to {main_err}")
 
     def timed(t, reps):
-        """Kernel, SDPA (the yardstick) and bound at (1, 32/8, t, 128)
-        bf16 causal."""
+        """Both kernels and SDPA (the yardstick) at (1, 32/8, t, 128) bf16
+        causal, in turns (sm90, mma, SDPA, SDPA, mma, sm90), and the
+        bound."""
         b, hq, hkv, d = 1, 32, 8, 128
         q, k, v = _qkv(dev, seed, b, hq, hkv, t, t, d, torch.bfloat16)
-        out = flash_attention(q, k, v)
-        ms = cuda_ms(lambda: flash_attention(q, k, v), reps)
+        new = flash_attention_sm90(q, k, v)
+        old = flash_attention_mma(q, k, v)
+
         def sdpa():
             return F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                   enable_gqa=True)
         ref = sdpa()
-        lib_ms = cuda_ms(sdpa, reps)
-        diff = float((out.float() - ref.float()).abs().max())
-        bound, by = bound_ms(2 * (2 * b * hq * t * d + 2 * b * hkv * t * d),
-                             4 * b * hq * d * t * (t + 1) / 2,
-                             PEAK_BF16_OPS_S)
-        print(f"[K3] (1, 32/8, {t}, 128) bf16 causal: kernel {ms:.4f} ms, "
-              f"scaled_dot_product_attention {lib_ms:.4f} ms (max abs "
-              f"diff to the kernel {diff:.3g}), bound {bound:.4f} ms ({by})",
-              flush=True)
-        return q, k, v, ms, lib_ms, bound, by
+        diff = float((new.float() - ref.float()).abs().max())
+        old_err = float((old.float() - new.float()).abs().max())
+        runs = {"sm90": (lambda: flash_attention_sm90(q, k, v), reps),
+                "mma": (lambda: flash_attention_mma(q, k, v),
+                        max(2, reps // 4)),
+                "sdpa": (sdpa, reps)}
+        ms = {n: [] for n in runs}
+        for order in (("sm90", "mma", "sdpa"), ("sdpa", "mma", "sm90")):
+            for n in order:
+                ms[n].append(cuda_ms(*runs[n]))
+        mean = {n: sum(v) / len(v) for n, v in ms.items()}
+        bound, by = k3_bound(b, hq, hkv, t, d)
+        print(f"[K3] (1, 32/8, {t}, 128) bf16 causal, in turns: "
+              f"flash_attention_sm90 {ms['sm90']} ms, flash_attention_mma "
+              f"{ms['mma']} ms, scaled_dot_product_attention "
+              f"{ms['sdpa']} ms; sm90 is {mean['mma'] / mean['sm90']:.3f}x "
+              f"faster than mma and {mean['sm90'] / mean['sdpa']:.3f}x SDPA's "
+              f"time; bound {bound:.4f} ms ({by}); max abs diff sm90 vs SDPA "
+              f"{diff:.3g}, mma vs sm90 {old_err:.3g}", flush=True)
+        return q, k, v, mean, bound, by
 
-    q, k, v, ms, lib_ms, bound, by = timed(LM_T, 20)
+    q, k, v, mean, bound, by = timed(LM_T, 20)
     plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v), 3)
     print(f"[K3] (1, 32/8, {LM_T}, 128) bf16 causal: plain version "
           f"{plain_ms:.3f} ms", flush=True)
     del q, k, v
-    timed(4 * LM_T, 5)                     # the prefill_32k layer shape
+    q, k, v, mean32, bound32, _ = timed(4 * LM_T, 4)  # prefill_32k's shape
+    del q, k, v
+    check(mean["mma"] >= 3 * mean["sm90"],
+          f"flash_attention_sm90 ({mean['sm90']:.4f} ms) is not 3x faster "
+          f"than flash_attention_mma ({mean['mma']:.4f} ms) at T = {LM_T}")
     torch.cuda.empty_cache()
-    return {"name": "flash_attention", "route": "cuda",
+    sm90 = {"name": "flash_attention_sm90", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:82",
+            "launches": 0, "max_abs_err": main_err["bfloat16"][0],
+            "ms": mean["sm90"], "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": mean["sdpa"],
+            "max_abs_err_of": f"bf16 at (1, 32/8, {LM_T}, 128), causal",
+            "row_rel_err": main_err["bfloat16"][1],
+            "ms_32768": mean32["sm90"], "library_ms_32768": mean32["sdpa"],
+            "bound_ms_32768": bound32}
+    mma_model = {"ms_model_shape": mean["mma"],
+                 "ms_model_shape_32768": mean32["mma"],
+                 "model_shape": f"bf16 (1, 32/8, {LM_T}, 128) causal",
+                 "max_abs_err_f32_model_shape": main_err["float32"][0],
+                 "row_rel_err_f32_model_shape": main_err["float32"][1]}
+    return sm90, mma_model
+
+
+def mma_path_phase(dev, seed: int) -> dict:
+    """Phase 10: the mma.sync kernel's path, the reduced config's prefill step
+    (float32, head_dim 16) on the card, with its launches counted, the
+    forward held against its plain-attention run, and the kernel timed at
+    that attention shape. Returns the kernel's entry of the kernels line."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_mma, flash_attention_plain, flash_attention_sm90)
+    from repro_torch.models.model import Model
+    from repro_torch.train.steps import make_prefill_step
+
+    cfg = reduced(ARCHS[LM_ARCH])
+    model = Model(cfg, device=dev).init(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, MMA_TOKENS, generator=gen,
+                           device=dev)
+    step = make_prefill_step(model)
+    step({"tokens": tokens})                               # warm-up
+    torch.cuda.synchronize()
+    flash_attention_mma.launches = flash_attention_sm90.launches = 0
+    last = step({"tokens": tokens})
+    torch.cuda.synchronize()
+    launches = flash_attention_mma.launches
+    print(f"[mma] reduced {LM_ARCH} ({cfg.n_layers} layers, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads of {cfg.head_dim}, float32) prefill step "
+          f"on {MMA_TOKENS}: flash_attention_mma launches {launches}, "
+          f"flash_attention_sm90 {flash_attention_sm90.launches}", flush=True)
+    check(launches == cfg.n_layers and flash_attention_sm90.launches == 0,
+          "the reduced prefill step did not run flash_attention_mma per layer")
+    check(bool(torch.isfinite(last).all()), "reduced logits not finite")
+    agree, _ = lm_agreement(model, tokens)
+    print(f"[mma] forward vs plain attention: per layer "
+          f"{agree['layers_max']:.4g} (limit {ATTN_ROW_TOL['bfloat16']}), "
+          f"logits {agree['pos_rel_max']:.4g} (limit {LM_REL_TOL_PLAIN})",
+          flush=True)
+    check(agree["ok_layers"] and agree["ok_logits"],
+          "the reduced forward disagrees with its plain-attention run")
+    b, t = MMA_TOKENS
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = _qkv(dev, seed, b, hq, hkv, t, t, d, torch.float32)
+    got = flash_attention_mma(q, k, v)
+    want = flash_attention_plain(q, k, v)
+    err = float((got.float() - want.float()).abs().max())
+    ms = cuda_ms(lambda: flash_attention_mma(q, k, v), 50)
+    plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v), 10)
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), 50)
+    bound, by = k3_bound(b, hq, hkv, t, d, peak=PEAK_F32_OPS_S, itemsize=4)
+    print(f"[mma] ({b}, {hq}/{hkv}, {t}, {d}) float32 causal: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"scaled_dot_product_attention {lib_ms:.4f} ms, bound {bound:.5f} "
+          f"ms ({by}); max abs err {err:.3g} (limit {ATTN_TOL['float32']})",
+          flush=True)
+    check(err < ATTN_TOL["float32"], "flash_attention_mma disagrees at its "
+          "path's shape")
+    del model
+    torch.cuda.empty_cache()
+    return {"name": "flash_attention_mma", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:82",
-            "launches": 0, "max_abs_err": main_err["bfloat16"],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": by, "library_ms": lib_ms,
-            "max_abs_err_of": f"bf16 at (1, 32/8, {LM_T}, 128), causal",
-            "max_abs_err_f32": main_err["float32"],
-            "row_rel_err": main_err["bfloat16_row"],
-            "row_rel_err_f32": main_err["float32_row"]}
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib_ms,
+            "launches_of": f"reduced {LM_ARCH} prefill step, float32",
+            "max_abs_err_of": f"float32 at ({b}, {hq}/{hkv}, {t}, {d}), "
+                              "causal"}
 
 
 @contextlib.contextmanager
@@ -309,11 +434,12 @@ def lm_agreement(model, tokens) -> tuple[dict, "torch.Tensor"]:
 
 
 def lm_phase(dev, seed: int) -> int:
-    """Phases 8-9: the LM serving path at full width. Returns K3's launches
-    in the main-path run (one prefill step)."""
+    """Phases 8-9: the LM serving path at full width. Returns the Hopper
+    kernel's launches in the main-path run (one prefill step)."""
     import torch
     from repro_torch.configs import ARCHS
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_mma, flash_attention_sm90)
     from repro_torch.launch import serve
     from repro_torch.models.model import Model
     from repro_torch.train.steps import make_prefill_step
@@ -335,18 +461,22 @@ def lm_phase(dev, seed: int) -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     flash_attention.launches = 0
+    flash_attention_sm90.launches = flash_attention_mma.launches = 0
     t0 = time.perf_counter()
     last = step(batch)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = flash_attention.launches
+    launches = flash_attention_sm90.launches
     peak = torch.cuda.max_memory_allocated()
     print(f"[lm] prefill step, 1 x {LM_T} tokens: wall {wall:.4f} s, "
-          f"{LM_T / wall:.1f} tokens/s, K3 launches {launches}, peak device "
-          f"memory {peak} B", flush=True)
-    check(launches == cfg.n_layers,
-          f"the prefill step launched K3 {launches} times, want "
-          f"{cfg.n_layers}")
+          f"{LM_T / wall:.1f} tokens/s, K3 launches: flash_attention_sm90 "
+          f"{launches}, flash_attention_mma {flash_attention_mma.launches}; "
+          f"peak device memory {peak} B", flush=True)
+    check(launches == cfg.n_layers and flash_attention_mma.launches == 0
+          and flash_attention.launches == cfg.n_layers,
+          f"the prefill step launched flash_attention_sm90 {launches} times "
+          f"and flash_attention_mma {flash_attention_mma.launches} times, "
+          f"want {cfg.n_layers} and 0")
     check(tuple(last.shape) == (1, cfg.vocab_size)
           and bool(torch.isfinite(last).all()),
           "prefill-step logits are not finite or of the wrong shape")
@@ -446,7 +576,8 @@ def main() -> None:
     import_port()
     from repro_torch.core import ABOConfig, abo_minimize
     from repro_torch.kernels import _build
-    from repro_torch.kernels.coord_sweep.ops import sweep_pass
+    from repro_torch.kernels.coord_sweep.ops import (max_active_clusters,
+                                                     sweep_pass)
     from repro_torch.kernels.coord_sweep.ref import (abo_minimize_kernel_ref,
                                                      sweep_pass_ref)
     from repro_torch.kernels.griewank.ops import griewank_aggregates
@@ -503,44 +634,65 @@ def main() -> None:
     del x
 
     # ---- 4. K1 against its plain version ---------------------------------
-    def k1_case(n_blocks, block, m, lam, is_first):
-        """One pass of the kernel and of its plain version from the same
-        start, compared; returns (max aggregate error, x identical share,
-        kernel ms, plain ms)."""
+    # sweep_pass runs a cluster of 16 CTAs by default; cluster=1 is the
+    # single-CTA kernel, and the two must give the same bits.
+    print(f"[K1] clusters the card can hold at once for blocks of 4096: "
+          f"{max_active_clusters(4096, 16)} of 16 CTAs, "
+          f"{max_active_clusters(4096, 8)} of 8", flush=True)
+
+    def k1_case(n_blocks, block, m, lam, is_first, timed=False):
+        """One pass of the kernel (cluster of 16 and of 1) and of its plain
+        version from the same start, compared; returns (max aggregate
+        error, x identical share, C = 16 ms, C = 1 ms, plain ms)."""
         n = n_blocks * block - 17                 # padding coordinates
         x2d = uniform(n_blocks * block).view(n_blocks, block)
         aggs = griewank_aggregates_ref(x2d, n_valid=n)
         kw = dict(m=m, n_valid=n, half_width=37.5, lam=lam,
                   is_first=is_first)
-        xk, xr, out = x2d.clone(), x2d.clone(), {}
-        ms = cuda_ms(lambda: out.update(k=sweep_pass(xk, aggs, **kw)), 1)
+        xk, x1, xr, out = x2d.clone(), x2d.clone(), x2d.clone(), {}
+        ms = [cuda_ms(lambda: out.update(k=sweep_pass(xk, aggs, **kw)), 1)]
+        ms1 = cuda_ms(lambda: out.update(k1=sweep_pass(x1, aggs, cluster=1,
+                                                       **kw)), 1)
+        if timed:   # in turns: C = 16, C = 1, C = 16 on the same start
+            xt = x2d.clone()
+            ms.append(cuda_ms(lambda: sweep_pass(xt, aggs, **kw), 1))
+            check(torch.equal(xt, xk), "K1 gave other bits on a second run")
         plain_ms = cuda_ms(lambda: out.update(r=sweep_pass_ref(
             xr, aggs, lower=-600.0, upper=600.0, **kw)), 1)
-        ak, ar = out["k"][1], out["r"][1]
+        ak, a1, ar = out["k"][1], out["k1"][1], out["r"][1]
+        bits = bool(torch.equal(xk, x1)) and bool(torch.equal(ak, a1))
         same = float((xk == xr).double().mean())
         a_in, dk = aggs[0, :3].double(), (ak - ar)[0, :3].double().abs()
         frozen = bool((xk.view(-1)[n:] == x2d.view(-1)[n:]).all())
         print(f"[K1] {n_blocks}x{block} m={m} lam={lam} first={is_first}: "
-              f"x identical {same:.6f}, aggs diff {dk.tolist()}, padding "
-              f"frozen {frozen}, kernel {ms:.2f} ms, plain {plain_ms:.1f} ms",
-              flush=True)
+              f"cluster 16 vs 1 bit-identical (x and aggregates) {bits}; vs "
+              f"plain: x identical {same:.6f}, aggs diff {dk.tolist()}, "
+              f"padding frozen {frozen}; cluster 16 {ms} ms, cluster 1 "
+              f"{ms1:.2f} ms, plain {plain_ms:.1f} ms", flush=True)
+        check(bits, "K1 with a cluster of 16 differs from one CTA")
         check(same >= 0.999 and frozen
               and bool((dk <= 1e-3 * (1 + a_in.abs())).all()),
               "K1 disagrees with its plain version")
-        return float(dk.max()), same, ms, plain_ms
+        return float(dk.max()), same, sum(ms) / len(ms), ms1, plain_ms
 
     k1_err, k1_same = 0.0, 1.0
     for lam, is_first in ((0.0, True), (0.5, False), (1.0, False)):
-        err, same, _, _ = k1_case(64, 4096, 50, lam, is_first)
+        err, same, *_ = k1_case(64, 4096, 50, lam, is_first)
         k1_err, k1_same = max(k1_err, err), min(k1_same, same)
+    err, same, *_ = k1_case(16, 4097, 50, 0.5, False)   # not a 1024 multiple
+    k1_err, k1_same = max(k1_err, err), min(k1_same, same)
     main_blocks = -(-MAIN_N // 4096)
-    err, same, k1_ms, k1_plain_ms = k1_case(main_blocks, 4096, 50, 0.5, False)
+    err, same, k1_ms, k1_ms1, k1_plain_ms = k1_case(main_blocks, 4096, 50,
+                                                    0.5, False, timed=True)
     k1_err, k1_same = max(k1_err, err), min(k1_same, same)
     k1_bound, k1_by = bound_ms(8 * main_blocks * 4096 + 2 * 4 * 128,
                                K1_OPS_PER_PROBE * 50 * main_blocks * 4096)
-    print(f"[K1] one pass at {main_blocks}x4096 m=50: kernel {k1_ms:.1f} ms, "
+    print(f"[K1] one pass at {main_blocks}x4096 m=50: cluster of 16 "
+          f"{k1_ms:.1f} ms, one CTA {k1_ms1:.1f} ms ({k1_ms1 / k1_ms:.2f}x), "
           f"plain {k1_plain_ms:.1f} ms, bound {k1_bound:.3f} ms ({k1_by})",
           flush=True)
+    check(k1_ms1 >= 5 * k1_ms, "K1 with a cluster of 16 is not 5x faster "
+          "than one CTA")
 
     # ---- 5. main path, kernel route --------------------------------------
     torch.cuda.synchronize()
@@ -556,7 +708,9 @@ def main() -> None:
                 "griewank_aggregates": griewank_aggregates.launches}
     peak = torch.cuda.max_memory_allocated()
     sol_bytes = 4 * MAIN_N
-    print(f"[main/kernel] n={MAIN_N}: fun {r.fun!r}, wall {wall:.2f} s, "
+    print(f"[main/kernel] n={MAIN_N}: fun {r.fun!r} (one CTA a pass: "
+          f"{ONE_CTA_MAIN_FUN!r}; equal {r.fun == ONE_CTA_MAIN_FUN}), wall "
+          f"{wall:.2f} s, "
           f"{r.fe / wall:.4g} probes/s, {wall / 5:.2f} s per pass (wall/5), "
           f"launches {launches}, peak {peak} B = {peak / sol_bytes:.4f} x "
           f"solution bytes {sol_bytes}", flush=True)
@@ -621,16 +775,18 @@ def main() -> None:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
-    # ---- 7-9. K3 and the LM serving path ----------------------------------
-    k3 = attention_phase(dev, args.seed)
+    # ---- 7-10. K3 and the LM serving path ---------------------------------
+    k3, mma_model = attention_phase(dev, args.seed)
     k3["launches"] = lm_phase(dev, args.seed)
+    k3_mma = mma_path_phase(dev, args.seed)
+    k3_mma.update(mma_model)
 
     foreign = sorted(m for m in sys.modules if m.split(".")[0]
                      in ("jax", "jaxlib", "repro", "benchmarks"))
     check(not foreign, f"the smoke imported {foreign[:5]}: JAX, the JAX "
           "package or its benchmarks")
 
-    # ---- 10. kernels line ---------------------------------------------------
+    # ---- 11. kernels line ---------------------------------------------------
     kernels.append({
         "name": "sweep_pass", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sweep_pass.cu",
@@ -638,7 +794,8 @@ def main() -> None:
         "launches": launches["sweep_pass"], "max_abs_err": k1_err,
         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
         "bound_by": k1_by, "library_ms": None,
-        "max_abs_err_of": "aggregates", "x_identical": k1_same})
+        "max_abs_err_of": "aggregates", "x_identical": k1_same,
+        "cluster": 16, "ms_one_cta": k1_ms1})
     kernels.append({
         "name": "griewank_aggregates", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/griewank_aggregates.cu",
@@ -647,9 +804,10 @@ def main() -> None:
         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
         "bound_by": k2_by, "library_ms": None})
     kernels.append(k3)
+    kernels.append(k3_mma)
     print(json.dumps({"kernels": kernels}))
 
-    # ---- 11. result -----------------------------------------------------------
+    # ---- 12. result -----------------------------------------------------------
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

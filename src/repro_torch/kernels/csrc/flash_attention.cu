@@ -1,6 +1,12 @@
 // K3: flash attention forward (online softmax), bf16 on the tensor cores
 // and float32 on the CUDA cores.
 //
+// The op (kernels/flash_attention/ops.py::choose_kernel) sends bf16 with
+// head_dim 120 or 128 and 16-byte-aligned pointers and strides, the dense
+// models' prefill, to flash_attention_sm90.cu (TMA and wgmma), and
+// everything else it takes here: float32, head_dim up to 64 (the reduced
+// configs' 16) or another multiple of 8, and unaligned strides.
+//
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py
 // (flash_attention_kernel, body _attn_kernel): a grid over (batch·heads,
 // q blocks, kv blocks) whose kv axis runs in order, with the running max,

@@ -1,18 +1,29 @@
-"""Public attention op: the GQA/SWA-aware wrapper of K3
-(``csrc/flash_attention.cu``).
+"""Public attention op: the GQA/SWA-aware wrapper of K3, which has two
+CUDA kernels.
 
-Port of :mod:`repro.kernels.flash_attention.ops`. On a CUDA tensor
-``flash_attention`` launches the CUDA kernel; on a CPU tensor it runs the
-plain version (``flash_attention_plain``), which chooses as the reference's
-``impl="ref"`` does: dense ``attention_ref`` for ``sk <= 2048``, else the
-chunked online softmax. There is no device probe and no fallback between
-the two. ``flash_attention.launches`` counts the calls that launched the
-kernel.
+Port of :mod:`repro.kernels.flash_attention.ops`. On a CPU tensor
+``flash_attention`` runs the plain version (``flash_attention_plain``),
+which chooses as the reference's ``impl="ref"`` does: dense
+``attention_ref`` for ``sk <= 2048``, else the chunked online softmax. On a
+CUDA tensor it launches the kernel that ``choose_kernel`` names for the
+inputs' dtype, head_dim and alignment:
+
+* ``flash_attention_sm90`` (``csrc/flash_attention_sm90.cu``: TMA, a ring
+  of shared-memory stages, wgmma) for bf16 with head_dim 120 or 128 and
+  16-byte-aligned pointers and strides: the dense models' prefill;
+* ``flash_attention_mma`` (``csrc/flash_attention.cu``: mma.sync in bf16,
+  CUDA cores in float32) for everything else it takes.
+
+There is no device probe, and no fallback from one kernel to the other or
+to the plain version. Each kernel wrapper counts its own launches
+(``flash_attention_sm90.launches``, ``flash_attention_mma.launches``);
+``flash_attention.launches`` counts the op's launches of either.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -21,6 +32,9 @@ from repro_torch.kernels.flash_attention.ref import (attention_ref,
                                                      attention_ref_chunked)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+SM90_HEAD_DIMS = (120, 128)
 
 
 @functools.cache
@@ -33,6 +47,44 @@ def _launcher():
                       ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib, fn
+
+
+@functools.cache
+def _launcher_sm90():
+    lib = _build.load("flash_attention_sm90")
+    fn = lib.flash_attention_sm90_launch
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                   + [ctypes.c_longlong] * 12
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def _tma_strides(t):
+    """The (batch, head, sequence) element strides of a (b, h, s, d) view,
+    with any stride of an extent-1 dimension (which addresses nothing)
+    replaced by the packed one, so that the tensor map takes it."""
+    packed = (t.shape[1] * t.shape[2] * t.shape[3], t.shape[2] * t.shape[3],
+              t.shape[3])
+    return tuple(p if n == 1 else st
+                 for st, n, p in zip(t.stride()[:3], t.shape[:3], packed))
+
+
+def choose_kernel(q, k, v) -> str:
+    """Which CUDA kernel takes (q, k, v): ``"flash_attention_sm90"`` for
+    bf16 with head_dim 120 or 128, non-empty sequences, every base pointer
+    16-byte aligned and every stride a multiple of 8 elements (16 bytes,
+    the tensor map's rule), else ``"flash_attention_mma"``. Reads only dtypes, shapes,
+    strides and pointers: no device query."""
+    if (q.dtype == k.dtype == v.dtype == torch.bfloat16
+            and q.shape[-1] in SM90_HEAD_DIMS
+            and q.shape[2] > 0 and k.shape[2] > 0
+            and all(t.data_ptr() % 16 == 0
+                    and all(st % 8 == 0 for st in _tma_strides(t))
+                    for t in (q, k, v))):
+        return "flash_attention_sm90"
+    return "flash_attention_mma"
 
 
 def _check(q, k, v, window):
@@ -70,24 +122,25 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None):
     return attention_ref(q, k, v, seq_len=sk, causal=causal, window=window)
 
 
-def flash_attention(q, k, v, *, causal=True, window=None):
-    """Attention of q (b, hq, sq, d) over k, v (b, hkv, sk, d); hkv divides
-    hq and query head h reads kv head h // (hq // hkv).
+def _new_out(q):
+    """A (b, hq, sq, d) view of a (b, sq, hq, d) buffer, so the caller's
+    merge of the heads is free."""
+    b, hq, sq, d = q.shape
+    return torch.empty((b, sq, hq, d), dtype=q.dtype,
+                       device=q.device).transpose(1, 2)
 
-    The reference's ``block_q``/``block_k`` (its TPU tile sizes) are not
-    taken: the kernel's tiles are fixed by its design, and the plain
-    version's blocks are those of ``impl="ref"``.
 
-    On a CUDA tensor (float32 or bfloat16, d a multiple of 8 up to 128, any
-    strides with the last dimension contiguous) the kernel runs and returns
-    a (b, hq, sq, d) view of a (b, sq, hq, d) buffer, so the caller's merge
-    of the heads is free. Rows with no valid key come out as zeros there.
-    """
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def flash_attention_mma(q, k, v, *, causal=True, window=None):
+    """The kernel of ``csrc/flash_attention.cu`` on CUDA tensors (float32
+    or bfloat16, d a multiple of 8 up to 128, any strides with the last
+    dimension contiguous); returns ``_new_out(q)`` filled."""
     b, hq, hkv, sk, d = _check(q, k, v, window)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+        raise ValueError(f"flash_attention_mma runs on cuda, not {q.device}")
     if q.dtype not in _DTYPES:
         raise ValueError(f"the kernel takes float32 or bfloat16, not {q.dtype}")
     if d % 8 or d > 128:
@@ -98,8 +151,7 @@ def flash_attention(q, k, v, *, causal=True, window=None):
     if b * hq > 65535:
         raise ValueError(f"batch x heads = {b * hq} exceeds the grid's 65535")
     sq = q.shape[2]
-    out = torch.empty((b, sq, hq, d), dtype=q.dtype,
-                      device=q.device).transpose(1, 2)
+    out = _new_out(q)
     if sq == 0 or b * hq == 0:
         return out
     vec16 = all(t.data_ptr() % 16 == 0
@@ -107,15 +159,76 @@ def flash_attention(q, k, v, *, causal=True, window=None):
                 for t in (q, k, v))
     lib, fn = _launcher()
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   _DTYPES[q.dtype], b, hq, hkv, sq, sk, d,
                   *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                   *out.stride()[:3], int(bool(causal)), int(window or 0),
-                  d ** -0.5, int(vec16), stream)
+                  d ** -0.5, int(vec16), _stream(q))
     _build.check(lib, code, "flash_attention")
+    flash_attention_mma.launches += 1
+    return out
+
+
+def flash_attention_sm90(q, k, v, *, causal=True, window=None):
+    """The kernel of ``csrc/flash_attention_sm90.cu`` on CUDA tensors that
+    ``choose_kernel`` sends to it; raises on any other."""
+    b, hq, hkv, sk, d = _check(q, k, v, window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_sm90 runs on cuda, not {q.device}")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("the kernel needs the last dimension contiguous")
+    if choose_kernel(q, k, v) != "flash_attention_sm90":
+        raise ValueError(
+            f"flash_attention_sm90 takes bf16 with head_dim in "
+            f"{SM90_HEAD_DIMS} and 16-byte-aligned pointers and strides; got "
+            f"{q.dtype}, d = {d}, strides {q.stride()}, {k.stride()}, "
+            f"{v.stride()}")
+    if b * hq > 65535:
+        raise ValueError(f"batch x heads = {b * hq} exceeds the grid's 65535")
+    sq = q.shape[2]
+    out = _new_out(q)
+    if sq == 0 or b * hq == 0:
+        return out
+    lib, fn = _launcher_sm90()
+    with torch.cuda.device(q.device):
+        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  b, hq, hkv, sq, sk, d, *_tma_strides(q), *_tma_strides(k),
+                  *_tma_strides(v), *out.stride()[:3], int(bool(causal)),
+                  int(window or 0), d ** -0.5 * math.log2(math.e), _stream(q))
+    _build.check(lib, code, "flash_attention_sm90")
+    flash_attention_sm90.launches += 1
+    return out
+
+
+_KERNELS = {"flash_attention_sm90": flash_attention_sm90,
+            "flash_attention_mma": flash_attention_mma}
+
+
+def flash_attention(q, k, v, *, causal=True, window=None):
+    """Attention of q (b, hq, sq, d) over k, v (b, hkv, sk, d); hkv divides
+    hq and query head h reads kv head h // (hq / hkv).
+
+    The reference's ``block_q``/``block_k`` (its TPU tile sizes) are not
+    taken: the kernels' tiles are fixed by their design, and the plain
+    version's blocks are those of ``impl="ref"``.
+
+    On a CUDA tensor (float32 or bfloat16, d a multiple of 8 up to 128, any
+    strides with the last dimension contiguous) the kernel that
+    ``choose_kernel`` names runs and returns a (b, hq, sq, d) view of a
+    (b, sq, hq, d) buffer, so the caller's merge of the heads is free. Rows
+    with no valid key come out as zeros there.
+    """
+    _check(q, k, v, window)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    out = _KERNELS[choose_kernel(q, k, v)](q, k, v, causal=causal,
+                                            window=window)
     flash_attention.launches += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention_mma.launches = 0
+flash_attention_sm90.launches = 0

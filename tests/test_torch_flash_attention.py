@@ -134,3 +134,56 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         q, k, v = (t.to("meta") for t in (q, k, v))
     with pytest.raises(ValueError):
         ops.flash_attention(q, k, v, **kw)
+
+
+def _bf16(*shape):
+    return torch.zeros(*shape, dtype=torch.bfloat16)
+
+
+def _routing_cases():
+    """(name, q, k, v, kernel that ``choose_kernel`` must name)."""
+    sm90, mma = "flash_attention_sm90", "flash_attention_mma"
+    cases = []
+    for d in (120, 128):
+        cases.append((f"bf16 d={d}", _bf16(1, 4, 64, d), _bf16(1, 2, 64, d),
+                      _bf16(1, 2, 64, d), sm90))
+        # the model's (b, t, h, d) projections read as (b, h, t, d) views
+        q = _bf16(2, 50, 4, d).transpose(1, 2)
+        k = _bf16(2, 50, 2, d).transpose(1, 2)
+        cases.append((f"bf16 d={d} transposed", q, k, k, sm90))
+    for d in (16, 64, 112):
+        cases.append((f"bf16 d={d}", _bf16(1, 4, 64, d), _bf16(1, 2, 64, d),
+                      _bf16(1, 2, 64, d), mma))
+    f = torch.zeros(1, 4, 64, 128)
+    cases.append(("float32 d=128", f, f[:, :2], f[:, :2], mma))
+    h = torch.zeros(1, 4, 64, 128, dtype=torch.float16)
+    cases.append(("float16 d=128", h, h, h, mma))
+    buf = _bf16(4 * 64 * 128 + 1)
+    off = buf[1:].view(1, 4, 64, 128)          # 2-byte-aligned base pointer
+    cases.append(("bf16 d=128 unaligned pointer", off, _bf16(1, 2, 64, 128),
+                  _bf16(1, 2, 64, 128), mma))
+    wide = _bf16(1, 4, 64, 132)[..., :128]     # row stride 132: 264 bytes
+    cases.append(("bf16 d=128 stride 132", wide, _bf16(1, 2, 64, 128),
+                  _bf16(1, 2, 64, 128), mma))
+    # an extent-1 dimension's stride addresses nothing and does not count
+    one = _bf16(1, 1, 64, 128).as_strided((1, 1, 64, 128), (3, 5, 128, 1))
+    cases.append(("bf16 d=128 odd strides of extent-1 dims", one,
+                  _bf16(1, 1, 64, 128), _bf16(1, 1, 64, 128), sm90))
+    cases.append(("bf16 d=128 sk=0", _bf16(1, 2, 8, 128), _bf16(1, 2, 0, 128),
+                  _bf16(1, 2, 0, 128), mma))
+    return cases
+
+
+@pytest.mark.parametrize("case", _routing_cases(), ids=lambda c: c[0])
+def test_choose_kernel_routes_by_dtype_head_dim_and_alignment(case):
+    _, q, k, v, want = case
+    assert ops.choose_kernel(q, k, v) == want
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    q = _bf16(1, 2, 8, 128)
+    for fn in (ops.flash_attention_sm90, ops.flash_attention_mma):
+        before = fn.launches
+        with pytest.raises(ValueError):
+            fn(q, q, q)
+        assert fn.launches == before

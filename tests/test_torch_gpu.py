@@ -18,11 +18,15 @@ import torch
 
 from repro_torch.configs import ARCHS, reduced
 from repro_torch.core import ABOConfig, abo_minimize
-from repro_torch.kernels.coord_sweep.ops import pack_aggs, sweep_pass
+from repro_torch.kernels.coord_sweep.ops import (max_active_clusters,
+                                                 pack_aggs, sweep_pass)
 from repro_torch.kernels.coord_sweep.ref import (abo_minimize_kernel_ref,
                                                  sweep_pass_ref)
-from repro_torch.kernels.flash_attention.ops import (flash_attention,
-                                                     flash_attention_plain)
+from repro_torch.kernels.flash_attention.ops import (choose_kernel,
+                                                     flash_attention,
+                                                     flash_attention_mma,
+                                                     flash_attention_plain,
+                                                     flash_attention_sm90)
 from repro_torch.kernels.griewank.ops import griewank_aggregates
 from repro_torch.kernels.griewank.ref import griewank_aggregates_ref
 from repro_torch.models.model import Model
@@ -44,6 +48,8 @@ ATTN_SHAPES = [
     (2, 4, 2, 100, 300, 16, False, None),        # sq != sk, d = 16
     (1, 32, 8, 8192, 8192, 128, True, None),     # the model's layer shape
 ]
+# the shapes the Hopper kernel serves: bf16 with head_dim 120 or 128
+SM90_SHAPES = [s for s in ATTN_SHAPES if s[5] in (120, 128)]
 ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-3}
 ATTN_ROW_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-3}
 AGG_TOL = 1e-3     # times (1 + |a_in|)
@@ -97,6 +103,32 @@ def test_sweep_pass_kernel_matches_plain(cuda, n_blocks, block, m, lam,
     assert bool((err <= AGG_TOL * (1 + a_in.abs())).all()), (err, a_in)
     assert torch.equal(xo.view(-1)[n:], x_in.view(-1)[n:])
     assert not ak[0, 3:].any()
+
+
+@pytest.mark.parametrize("n_blocks,block,m", [(64, 4096, 50), (6, 4097, 50),
+                                              (5, 1000, 33)])
+@pytest.mark.parametrize("lam,is_first", CASES)
+def test_sweep_pass_cluster_keeps_the_bits(cuda, n_blocks, block, m, lam,
+                                           is_first):
+    """A cluster of 16 (and of 2, 4, 8) CTAs gives the single CTA's x and
+    aggregates bit for bit, including blocks that are not a multiple of
+    1024."""
+    x_in = _uniform((n_blocks, block), block * 7 + m, cuda)
+    n = n_blocks * block - 17
+    aggs = griewank_aggregates_ref(x_in, n_valid=n)
+    kw = dict(m=m, n_valid=n, half_width=37.5, lam=lam, is_first=is_first)
+    x1 = x_in.clone()
+    _, a1 = sweep_pass(x1, aggs, cluster=1, **kw)
+    for c in (16, 8, 4, 2):
+        xc = x_in.clone()
+        _, ac = sweep_pass(xc, aggs, cluster=c, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(xc, x1), c
+        assert torch.equal(ac, a1), c
+
+
+def test_sweep_pass_cluster_of_16_fits_on_the_card(cuda):
+    assert max_active_clusters(4096, 16) >= 1
 
 
 def test_kernel_route_on_the_card_matches_cpu(cuda):
@@ -181,6 +213,66 @@ def test_flash_attention_kernel_strided_and_unaligned(cuda, dtype):
     want = flash_attention_plain(*args, causal=True)
     assert float((got.float() - want.float()).abs().max()) < ATTN_TOL[dtype]
     assert _row_rel_err(got, want) < ATTN_ROW_TOL[dtype]
+
+
+@pytest.mark.parametrize("shape", SM90_SHAPES)
+def test_flash_attention_sm90_matches_plain(cuda, shape):
+    """The Hopper kernel at the bf16 shapes it serves (d = 120 and 128,
+    the windowed ragged d = 120 one included), through the op's routing;
+    only its own launch count moves."""
+    causal, window = shape[6], shape[7]
+    q, k, v = _qkv(shape, torch.bfloat16, cuda)
+    assert choose_kernel(q, k, v) == "flash_attention_sm90"
+    new, old = flash_attention_sm90.launches, flash_attention_mma.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_sm90.launches == new + 1
+    assert flash_attention_mma.launches == old
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert float((got.float() - want.float()).abs().max()) < \
+        ATTN_TOL[torch.bfloat16]
+    assert _row_rel_err(got, want) < ATTN_ROW_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("d", [120, 128])
+def test_flash_attention_sm90_strided_view(cuda, d):
+    """(b, t, h, d) projections read through their (b, h, t, d) transposes,
+    as the model passes them, with the tensor maps over the strided views."""
+    b, t, hq, hkv = 2, 300, 8, 2
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = [torch.randn(b, t, h, d, generator=g, device=cuda)
+               .to(torch.bfloat16).transpose(1, 2) for h in (hq, hkv, hkv)]
+    assert choose_kernel(q, k, v) == "flash_attention_sm90"
+    before = flash_attention_sm90.launches
+    got = flash_attention(q, k, v, causal=True, window=100)
+    assert flash_attention_sm90.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal=True, window=100)
+    assert float((got.float() - want.float()).abs().max()) < \
+        ATTN_TOL[torch.bfloat16]
+    assert _row_rel_err(got, want) < ATTN_ROW_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("shape", SM90_SHAPES[:-1])
+def test_flash_attention_mma_still_matches_plain_at_sm90_shapes(cuda, shape):
+    """The mma.sync kernel, called directly, still agrees where the op now
+    routes to the Hopper kernel (the smoke times the two there)."""
+    causal, window = shape[6], shape[7]
+    q, k, v = _qkv(shape, torch.bfloat16, cuda)
+    before = flash_attention_mma.launches
+    got = flash_attention_mma(q, k, v, causal=causal, window=window)
+    assert flash_attention_mma.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert float((got.float() - want.float()).abs().max()) < \
+        ATTN_TOL[torch.bfloat16]
+    assert _row_rel_err(got, want) < ATTN_ROW_TOL[torch.bfloat16]
+
+
+def test_flash_attention_sm90_refuses_what_it_does_not_serve(cuda):
+    for q in (torch.zeros(1, 2, 8, 64, dtype=torch.bfloat16, device=cuda),
+              torch.zeros(1, 2, 8, 128, device=cuda)):
+        with pytest.raises(ValueError):
+            flash_attention_sm90(q, q, q)
 
 
 def test_flash_attention_wrapper_rejects_on_cuda(cuda):

@@ -165,3 +165,136 @@ def test_kernel_path_plain_version_is_the_cpu_route(x0_seed):
     rb = abo_minimize_kernel_ref(1000, config=cfg, x0=x0, device="cpu")
     assert torch.equal(ra.x, rb.x) and ra.fun == rb.fun and ra.fe == rb.fe
     assert torch.equal(ra.history, rb.history)
+
+
+# ---------------------------------------------------------------------------
+# K1's cluster split (csrc/sweep_pass.cu), emulated in numpy: the residue
+# classes of the 1024-leaf tree and the lanes' argmin merge give the bits of
+# the single-CTA kernel at every cluster size.
+# ---------------------------------------------------------------------------
+def _tree(leaves):
+    """The fixed-shape float32 tree: w = len/2 ... 1, red[t] += red[t + w]."""
+    red = np.array(leaves, dtype=np.float32)
+    w = len(red) // 2
+    while w:
+        red[:w] = red[:w] + red[w:2 * w]
+        w //= 2
+    return red[0]
+
+
+def _virtual_partials(deltas):
+    """Virtual thread t sums its coordinates t, t + 1024, ... in order."""
+    part = np.zeros(1024, np.float32)
+    for i, d in enumerate(deltas):
+        part[i % 1024] = np.float32(part[i % 1024] + d)
+    return part
+
+
+def _cluster_sum(deltas, c):
+    """What the kernel does with a cluster of c CTAs: CTA r walks its local
+    slots s = k * (1024 / c) + j (coordinate k * 1024 + r + c * j) for
+    virtual thread j, folds its 1024/c leaves, and the c partials are folded
+    with levels c/2 ... 1."""
+    v = 1024 // c
+    n_k = -(-len(deltas) // 1024)
+    partials = []
+    for r in range(c):
+        leaves = np.zeros(v, np.float32)
+        for j in range(v):
+            for k in range(n_k):
+                i = k * 1024 + r + c * j
+                if i < len(deltas):
+                    leaves[j] = np.float32(leaves[j] + deltas[i])
+        partials.append(_tree(leaves))
+    return _tree(partials)
+
+
+@pytest.mark.parametrize("block", [4096, 4097, 1000])
+@pytest.mark.parametrize("c", [1, 2, 4, 8, 16])
+def test_cluster_split_sums_in_the_tree_order(block, c):
+    rng = np.random.RandomState(block + c)
+    # deltas of mixed sign and magnitude, so that another order would round
+    # differently
+    deltas = (rng.standard_normal(block)
+              * 10.0 ** rng.uniform(-3, 4, block)).astype(np.float32)
+    want = _tree(_virtual_partials(deltas))
+    got = _cluster_sum(deltas, c)
+    assert got.tobytes() == want.tobytes()
+
+
+def test_cluster_split_by_contiguous_ranges_would_change_the_bits():
+    """CTA r owning the contiguous virtual threads [64 r, 64 r + 64) would
+    fold other pairs first: with 2^24 at t = 0, 1 at t = 1 and -2^24 at
+    t = 512, the tree cancels 2^24 first and keeps the 1, a contiguous
+    split rounds 2^24 + 1 first and loses it. The residue classes keep the
+    tree's pairs."""
+    deltas = np.zeros(1024, np.float32)
+    deltas[0], deltas[1], deltas[512] = 2.0 ** 24, 1.0, -(2.0 ** 24)
+    part = _virtual_partials(deltas)
+    contiguous = _tree([_tree(part[64 * r:64 * (r + 1)]) for r in range(16)])
+    assert contiguous.tobytes() != _tree(part).tobytes()
+    assert _cluster_sum(deltas, 16).tobytes() == _tree(part).tobytes()
+
+
+def _argmin_sequential(f):
+    """The single-CTA kernel's running argmin: jnp.argmin's rule."""
+    best = 0
+    for j in range(1, len(f)):
+        if not np.isnan(f[best]) and (np.isnan(f[j]) or f[j] < f[best]):
+            best = j
+    return best
+
+
+def _argmin_lanes(f, lanes):
+    """Lane l runs the same rule over j = l, l + lanes, ...; the lanes'
+    (value, index) pairs are merged by an xor butterfly, NaNs first, then
+    smaller values, ties to the lower index."""
+    def precedes(a, b):
+        (fa, ja), (fb, jb) = a, b
+        if np.isnan(fb):
+            return np.isnan(fa) and ja < jb
+        return np.isnan(fa) or fa < fb or (fa == fb and ja < jb)
+    best = []
+    for lane in range(lanes):
+        js = list(range(lane, len(f), lanes))
+        if js:
+            j = js[_argmin_sequential(f[js])]
+            best.append((f[j], j))
+        else:
+            best.append(None)
+    o = lanes // 2
+    while o:
+        nxt = []
+        for lane in range(lanes):
+            mine, other = best[lane], best[lane ^ o]
+            if other is not None and (mine is None or precedes(other, mine)):
+                mine = other
+            nxt.append(mine)
+        best = nxt
+        o //= 2
+    assert all(b == best[0] for b in best)
+    return best[0][1]
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("m", [3, 16, 50])
+def test_lane_split_argmin_is_jnp_argmin(lanes, m):
+    rng = np.random.RandomState(m * 31 + lanes)
+    for trial in range(200):
+        f = rng.randint(0, 4, m).astype(np.float32) - 1.5   # many ties
+        if trial % 3 == 0:
+            f[rng.randint(0, m, 2)] = np.nan
+        if trial % 5 == 0:
+            f[rng.randint(0, m)] = -0.0
+            f[rng.randint(0, m)] = 0.0
+        want = int(jnp.argmin(jnp.asarray(f)))
+        assert _argmin_sequential(f) == want
+        assert _argmin_lanes(f, lanes) == want
+
+
+@pytest.mark.parametrize("cluster", [0, 3, 32])
+def test_sweep_pass_wrapper_rejects_bad_cluster(cluster):
+    with pytest.raises(ValueError):
+        sweep_pass(torch.zeros((2, 128)), torch.zeros((1, AGG_LANES)), m=16,
+                   n_valid=200, half_width=1.0, lam=1.0, is_first=False,
+                   cluster=cluster)

@@ -14,25 +14,33 @@ Phases, in order; any failure exits non-zero before the result line:
      fun beside the single-CTA kernel's;
   6. the plain tensor route: ``abo_minimize`` of Griewank and the sphere at
      n = 1e6;
-  7. K3 (flash attention, two kernels) against its plain version in bf16
+  7. the solve engine (``repro_torch.engine``) through the port's
+     ``solve_server`` batch mode: 24 jobs over 8 lanes at n = 1e5, 1e6 and
+     4e6 (wall time, jobs/s, probes/s, row steps and launches per row step,
+     swept-row waste, peak memory beside the pool bytes, every job's fun
+     against its limit, the pools shrunk after the drain, no kernel
+     launched); a second run of 3 jobs under ``--sanitize`` whose jobs are
+     held bit for bit to ``abo_minimize`` on the card; and one 4096-wide
+     tile summed inside slabs of 1, 2, 3, 17 and 256 rows;
+  8. K3 (flash attention, two kernels) against its plain version in bf16
      and float32 at the shapes of ``ATTN_SHAPES`` (max abs and per row),
      each shape through the kernel that ``choose_kernel`` gives it; the
      Hopper kernel (``flash_attention_sm90``), the mma.sync kernel
      (``flash_attention_mma``) and ``scaled_dot_product_attention`` timed in
      turns at the model's layer shape (T = 8192) and at T = 32768, beside
      the plain version and the bound;
-  8. the LM serving path at full width: ``mistral-nemo-12b``'s prefill step
+  9. the LM serving path at full width: ``mistral-nemo-12b``'s prefill step
      on one T = 8192 request (40 launches, all of the Hopper kernel; wall
      time, tokens/s, peak memory); the forward against the same forward with
      the plain attention, K3 held per row on every layer's own q, k, v and
      the logits at every position; prefill + 8 decode steps against the
      forward;
-  9. the serve launcher at full width (8 requests, 4 slots);
- 10. the mma.sync kernel's path: the reduced ``mistral-nemo-12b`` (float32,
+ 10. the serve launcher at full width (8 requests, 4 slots);
+ 11. the mma.sync kernel's path: the reduced ``mistral-nemo-12b`` (float32,
      head_dim 16) prefill step on the card, against its plain-attention run,
      and that kernel timed at its attention shape;
- 11. one JSON line with every kernel's launches, error and times;
- 12. the last line, ``{"ok": true, "device": {...}}``.
+ 12. one JSON line with every kernel's launches, error and times;
+ 13. the last line, ``{"ok": true, "device": {...}}``.
 
 Imports torch and the port only. Exits non-zero, printing no result, when
 no CUDA device is present or the port's sources are not beside this file.
@@ -55,17 +63,34 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12
 PEAK_BF16_OPS_S = 989e12
-# Elementary float32 operations per coordinate (K2) and per candidate probe
-# (K1), each transcendental counted as one (so the bound is a lower bound).
-# K2: index->float, rsqrt, u, cos, sin, square, compare, min, negate, log1p,
-#     half, abs, max, log, select, x*x, /4000, cos<0, mask compare, 3 mask
-#     multiplies, 3 adds = 24.
-# K1: offset (convert, multiply, subtract), window (multiply, add), clamp 2,
-#     incumbent and padding selects 2, the 16 plane operations of K2 after
-#     rsqrt (u .. cos<0), 3 deltas, 3 aggregate adds, combine (parity 3,
-#     compare, expm1 or exp, multiply, add or subtract, select), argmin
-#     compare = 40.
-K2_OPS_PER_COORD = 24
+# K2 is bound by instruction issue, not by its float32 operations: each
+# precise cosf, sinf, log1pf and logf is a range reduction and a
+# polynomial. Its bound counts the instructions Griewank itself needs per
+# coordinate, by pipe (benchmarks_torch/k2_sass.py, "function": cuobjdump
+# -sass of the sm_90a build, NVIDIA H100 80GB HBM3, 700.00 W): the library
+# sequences of rsqrtf, sinf and cosf, and of log1pf where sin^2 u < 0.5,
+# else logf; the products, compares, selects and the three masked adds. It
+# leaves out the index, address, load and loop instructions and the cost
+# of divergence: a floor of the function, not of this build. Each pipe
+# runs at its own rate per SM and clock (CUDA C++ Programming Guide,
+# arithmetic throughput, compute capability 9.0), all of them behind one
+# issue port of 32 lanes on each of the four schedulers, on 132 SMs at
+# 1980 MHz. The fold then adds the tile partials in order, a chain of
+# dependent float32 adds of 4 clocks each.
+K2_FN = {"common": {"fp32": 30, "alu": 17, "mufu": 1, "conv": 1},
+         "log1p": {"fp32": 17, "alu": 8, "mufu": 0, "conv": 0},
+         "log": {"fp32": 16, "alu": 11, "mufu": 0, "conv": 0}}
+PIPE_RATE = {"fp32": 128, "alu": 64, "mufu": 16, "conv": 16}
+SMS, CLOCK_HZ, ISSUE_LANES, FADD_CLOCKS = 132, 1.98e9, 128, 4
+# What this build issues for a warp of 32 coordinates (k2_sass.py, the
+# whole loop): printed beside the bound.
+K2_SASS = {"common": 92, "log1p": 35, "log": 30}
+# Elementary float32 operations per candidate probe (K1), each
+# transcendental counted as one (so the bound is a lower bound): offset
+# (convert, multiply, subtract), window (multiply, add), clamp 2, incumbent
+# and padding selects 2, the 16 plane operations of K2 after rsqrt
+# (u .. cos<0), 3 deltas, 3 aggregate adds, combine (parity 3, compare,
+# expm1 or exp, multiply, add or subtract, select), argmin compare = 40.
 K1_OPS_PER_PROBE = 40
 # The plain route is held to the 1e-6 of tests/test_abo.py, except where the
 # JAX package itself misses it: the sphere at n = 1e6 ends at
@@ -116,6 +141,41 @@ ONE_CTA_MAIN_FUN = 189705552.0
 # The mma.sync kernel's path: the reduced config's prefill step on the card.
 MMA_TOKENS = (4, 512)
 
+# Phase 7, the solve engine through the port's solve_server batch mode, at
+# the reference's default sampling and block. solve_server's job i solves
+# objective i mod 3 at size i mod 3 from seed i (the reference's mix), so
+# the 24-job run holds (griewank, 1e5), (sphere, 1e6) and (rastrigin, 4e6);
+# the sanitized run lists the sizes the other way round and holds
+# (griewank, 4e6), (sphere, 1e6) and (rastrigin, 1e5), the three jobs held
+# bit for bit to abo_minimize.
+ENGINE_COMMON = ["--objectives", "griewank,sphere,rastrigin", "--samples",
+                 "50", "--passes", "5", "--block", "4096", "--device", "cuda"]
+ENGINE_MAIN = ["--jobs", "24", "--lanes", "8", "--n",
+               "100000,1000000,4000000"] + ENGINE_COMMON
+ENGINE_SANITIZED = ["--jobs", "3", "--lanes", "3", "--n",
+                    "4000000,1000000,100000", "--sanitize"] + ENGINE_COMMON
+# In the 24-job run the three families share the 8 lanes, 2 or 3 each, and
+# a family's lanes share every row step. So one job of each family is also
+# held bit for bit to abo_minimize, each on the last lane of a pool of 3
+# (seeds 14, 15 and 22: rastrigin, griewank, sphere). A lane that read
+# another lane's blocks or aggregates would give a fun within the limits
+# all the same.
+ENGINE_MAIN_SOLO_SEEDS = (14, 15, 22)
+# The JAX package's own abo_minimize on these jobs (CPU, the largest fun
+# over the seeds this phase gives each (objective, n);
+# benchmarks_torch/engine_limits.py). From seeded starts it misses 1e-6 at
+# n >= 1e6: its float32 aggregates cannot resolve a probe once the sums are
+# large. A job is held to 1e-6, or where the JAX package misses that, to
+# its value x 1.001, as PLAIN_TOL holds the plain route.
+ENGINE_JAX_FUN = {
+    ("griewank", 100000): 3.0593154676239465e-09,
+    ("sphere", 1000000): 1859553.75,
+    ("rastrigin", 4000000): 4065884.0,
+    ("griewank", 4000000): 4814165.5,
+    ("rastrigin", 100000): 0.0,
+}
+ENGINE_PHASE_S = 90          # the phase's time limit
+
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
@@ -132,6 +192,43 @@ def bound_ms(n_bytes: float, n_ops: float,
     t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / peak_ops
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def k2_bound_ms(x) -> tuple[float, str, dict]:
+    """Least time for K2 on ``x``: its bytes (x read once) at the memory
+    rate, against Griewank's own instructions (K2_FN: the common ones and,
+    per coordinate, those of the branch it takes on this data) at each
+    pipe's rate and the issue rate, plus the fold's chain of dependent
+    adds, one per tile. Beside it, the same issue rate applied to what
+    this build issues (K2_SASS, per warp, both branches where a warp's
+    coordinates take both)."""
+    import torch
+    n = x.numel()
+    i1 = torch.arange(1, n + 1, device=x.device).to(torch.float32)
+    low = torch.sin(x * torch.rsqrt(i1)).square() < 0.5
+    n_low = int(low.sum())
+    ops = {p: n * K2_FN["common"][p] + n_low * K2_FN["log1p"][p]
+           + (n - n_low) * K2_FN["log"][p] for p in PIPE_RATE}
+    lanes = SMS * CLOCK_HZ
+    per_pipe = {p: v / (PIPE_RATE[p] * lanes) for p, v in ops.items()}
+    t_issue = max(sum(ops.values()) / (ISSUE_LANES * lanes),
+                  *per_pipe.values())
+    t_fold = -(-n // 4096) * FADD_CLOCKS / CLOCK_HZ
+    t_bytes = (4 * n + 4 * 128) / PEAK_BYTES_S
+    by = "operations" if t_issue + t_fold >= t_bytes else "bytes"
+    low = torch.cat([low, low.new_ones((-n) % 32)]).view(-1, 32)
+    warps = low.shape[0]
+    on_log1p, on_log = int(low.any(1).sum()), int((~low).any(1).sum())
+    built = (warps * K2_SASS["common"] + on_log1p * K2_SASS["log1p"]
+             + on_log * K2_SASS["log"])
+    return 1e3 * max(t_issue + t_fold, t_bytes), by, {
+        "issue_ms": 1e3 * t_issue, "fold_ms": 1e3 * t_fold,
+        "bytes_ms": 1e3 * t_bytes,
+        "pipe_ms": {p: 1e3 * t for p, t in per_pipe.items()},
+        "function_instructions_per_coordinate": sum(ops.values()) / n,
+        "coordinates_on_log1p": n_low,
+        "build_instructions_per_coordinate": built * 32 / n,
+        "build_issue_plus_fold_ms": 1e3 * (built / (4 * lanes) + t_fold)}
 
 
 def row_rel_err(got, want) -> float:
@@ -173,6 +270,235 @@ def _qkv(dev, seed, b, hq, hkv, sq, sk, d, dtype):
     g = torch.Generator(device=dev).manual_seed(seed + sq + d)
     return [torch.randn(s, generator=g, device=dev).to(dtype)
             for s in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d))]
+
+
+def engine_limit(objective: str, n: int) -> float:
+    v = ENGINE_JAX_FUN[(objective, n)]
+    return 1e-6 if v < 1e-6 else v * 1.001
+
+
+def tile_sum_readings(dev, seed: int) -> list[tuple[int, bool, bool]]:
+    """One 4096-wide Griewank tile (global tile 1000) summed alone and as
+    the middle row of slabs of 1, 2, 3, 17 and 256 rows: per slab, whether
+    the port's tile sum (a halving tree) and the former ``.sum(dim=1)``
+    give the lone tile's bits."""
+    import torch
+    from repro_torch.objectives import GRIEWANK
+    tile, t_idx = 4096, 1000
+
+    def old_sum(xt, first):
+        rows = xt.shape[0]
+        idx = (first * tile + torch.arange(rows * tile, device=dev)).view(
+            rows, tile)
+        return GRIEWANK.terms(idx, xt).sum(dim=1)
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.rand(tile, generator=g, device=dev) * 1200 - 600
+    new1 = GRIEWANK._tile_sums(x.view(1, tile), t_idx, 10**9,
+                               torch.float32)[0]
+    old1 = old_sum(x.view(1, tile), t_idx)[0]
+    out = []
+    for rows in (1, 2, 3, 17, 256):
+        slab = torch.rand((rows, tile), generator=g, device=dev) * 1200 - 600
+        pos = rows // 2
+        slab[pos] = x
+        new = GRIEWANK._tile_sums(slab, t_idx - pos, 10**9,
+                                  torch.float32)[pos]
+        old = old_sum(slab, t_idx - pos)[pos]
+        out.append((rows, bool(torch.equal(new, new1)),
+                    bool(torch.equal(old, old1))))
+    return out
+
+
+def row_step_costs(dev, objective: str) -> dict:
+    """One engine row step at the 24-job run's width, 8 lanes at n = 1e5
+    of one objective (25 row steps a pass), in a steady-state pass (no
+    refill, no harvest; the pass's lane re-sync included): the CUDA
+    kernels, the dispatched (non-view) operators and the kernels' summed
+    device time per row step, from a pass under the profiler and a
+    dispatch mode; and the wall time per row step of the next pass,
+    unprofiled, from its start to the card's finish."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.engine import JobSpec, SolveEngine
+    from repro_torch.core import ABOConfig
+
+    class OpCount(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not func.is_view:
+                self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    eng = SolveEngine(lanes=8, max_fuse=1, device=dev)
+    eng.submit_many(JobSpec(objective, 100000, ABOConfig(), seed=i)
+                    for i in range(8))
+    eng.step()                                  # placement and pass 1
+    torch.cuda.synchronize()
+    rows = eng.row_steps
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CUDA]) as prof:
+        with OpCount() as ops:
+            eng.step()                          # pass 2: steady state
+        torch.cuda.synchronize()
+    rows = eng.row_steps - rows
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(e.time_range.elapsed_us() for e in kernels)
+    before = eng.row_steps
+    t0 = time.perf_counter()
+    eng.step()                                  # pass 3, unprofiled
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"kernels": len(kernels) / rows, "operators": ops.n / rows,
+            "device_ms": 1e-3 * device_us / rows,
+            "wall_ms": 1e3 * wall / (eng.row_steps - before)}
+
+
+def hold_to_solo(eng, jid: str, dev, run: str, lane: tuple) -> None:
+    """Fails unless the engine's job ``jid`` has the fun, x and history of
+    the same spec through ``abo_minimize`` on the card, bit for bit, and a
+    fun within its limit. ``lane`` is (its slot, its pool's running lanes)
+    at its harvest."""
+    import torch
+    from repro_torch.core import abo_minimize
+    from repro_torch.objectives import OBJECTIVES
+    got = eng.result(jid)
+    spec = eng.jobs[jid].spec
+    solo = abo_minimize(OBJECTIVES[spec.objective], spec.n,
+                        config=spec.config, seed=spec.seed, device=dev)
+    same = (got.fun == solo.fun and torch.equal(got.x, solo.x.cpu())
+            and torch.equal(got.history, solo.history.cpu()))
+    lim = engine_limit(spec.objective, spec.n)
+    print(f"[engine] {run}: {spec.objective} n={spec.n} seed {spec.seed} "
+          f"(lane {lane[0]} of {lane[1]}): engine fun {got.fun!r}, abo_minimize {solo.fun!r}, "
+          f"fun, x and history bit-identical {same}; limit {lim!r}",
+          flush=True)
+    check(same, f"engine job {jid} ({run}) differs from abo_minimize")
+    check(got.fun < lim, f"engine {spec.objective} n={spec.n}: fun "
+          f"{got.fun} >= {lim}")
+
+
+def engine_phase(dev, seed: int) -> None:
+    """Phase 7: the solve engine on the card through the port's
+    solve_server batch mode (see ENGINE_MAIN and ENGINE_SANITIZED)."""
+    import torch
+    from repro_torch.engine import scheduler
+    from repro_torch.kernels.coord_sweep.ops import sweep_pass
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_mma, flash_attention_sm90)
+    from repro_torch.kernels.griewank.ops import griewank_aggregates
+    from repro_torch.launch import solve_server
+
+    t_phase = time.perf_counter()
+    readings = tile_sum_readings(dev, seed)
+    print("[engine] one tile in slabs of (rows, halving tree == alone, "
+          f".sum(dim=1) == alone): {readings}", flush=True)
+    check(all(new for _, new, _ in readings),
+          "the tile sum depends on the slab it is reduced in")
+
+    counters = (sweep_pass, griewank_aggregates, flash_attention,
+                flash_attention_mma, flash_attention_sm90)
+    for k in counters:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # the pool bytes after each step, and each finishing job's (slot, the
+    # pool's running lanes) at its harvest: the hooks read host metadata
+    pool_bytes, lanes = [], {}
+    step, harvest = scheduler.SolveEngine.step, scheduler.SolveEngine._harvest
+
+    def sampled_step(self):
+        out = step(self)
+        pool_bytes.append(self.memory_stats()["pool_device_bytes"])
+        return out
+
+    def sampled_harvest(self, pool, ops):
+        lanes.update((jid, (slot, pool.active))
+                     for slot, jid in enumerate(pool.job_ids) if jid)
+        return harvest(self, pool, ops)
+
+    scheduler.SolveEngine.step = sampled_step
+    scheduler.SolveEngine._harvest = sampled_harvest
+    try:
+        t0 = time.perf_counter()
+        stats, eng = solve_server.run(ENGINE_MAIN)
+        took = {"main": time.perf_counter() - t0}
+        peak = torch.cuda.max_memory_allocated()
+        main_lanes, lanes = lanes, {}
+        t0 = time.perf_counter()
+        stats_s, eng_s = solve_server.run(ENGINE_SANITIZED)
+        took["sanitized"] = time.perf_counter() - t0
+    finally:
+        scheduler.SolveEngine.step = step
+        scheduler.SolveEngine._harvest = harvest
+    after = eng.memory_stats()
+    waste = eng.pad_stats()["swept_waste"]
+    wall = stats["dt_s"]
+    print(f"[engine] solve_server {' '.join(ENGINE_MAIN[:6])}: "
+          f"{stats['done']} jobs in {wall:.3f} s over {stats['steps']} "
+          f"steps, {stats['jobs_per_s']:.4f} jobs/s, "
+          f"{stats['fe_per_s']:.4g} probes/s; {eng.row_steps} row steps, "
+          f"{1e3 * wall / eng.row_steps:.4f} ms per row step (wall / row "
+          f"steps); swept-row waste {waste!r}; peak device memory {peak} B, "
+          f"pool bytes at most {max(pool_bytes)} B over the steps, "
+          f"{after['pool_device_bytes']} B after the drain "
+          f"({after['pool_pages']} pages, {after['pool_slots']} slots, "
+          f"{len(eng.pools)} families)", flush=True)
+    by_pair: dict = {}
+    for rec in eng.jobs.values():
+        by_pair.setdefault((rec.spec.objective, rec.spec.n), []).append(
+            (rec.spec.seed, rec.fun if rec.status == "done" else math.inf))
+    for (name, n), funs in sorted(by_pair.items()):
+        lim = engine_limit(name, n)
+        worst = max(f for _, f in funs)
+        print(f"[engine] {name} n={n}: fun by seed {sorted(funs)} (limit "
+              f"{lim!r})", flush=True)
+        check(worst < lim, f"engine {name} n={n}: fun {worst} >= {lim}")
+    launches = {k.__name__: k.launches for k in counters}
+    t0 = time.perf_counter()
+    for jid, rec in sorted(eng.jobs.items()):
+        if rec.spec.seed in ENGINE_MAIN_SOLO_SEEDS:
+            hold_to_solo(eng, jid, dev, "24-job run", main_lanes[jid])
+            check(main_lanes[jid][1] >= 2, f"job {jid} had its rows alone")
+    took["abo_minimize_main"] = time.perf_counter() - t0
+    check(stats["done"] == 24 and len(by_pair) == 3,
+          f"the engine finished {stats['done']} of 24 jobs")
+    check(not any(launches.values()),
+          f"the engine launched kernels {launches}; it runs none")
+    check(after["pool_pages"] <= len(eng.pools)
+          and after["pool_device_bytes"] < max(pool_bytes),
+          f"the pools did not shrink after the drain: {after}")
+    del eng
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    for jid in sorted(eng_s.jobs):
+        hold_to_solo(eng_s, jid, dev, "sanitized", lanes[jid])
+    check(stats_s["done"] == 3 and stats_s["sanitize"], "the sanitized run "
+          "did not finish its 3 jobs")
+    took["abo_minimize"] = time.perf_counter() - t0
+    del eng_s
+    t0 = time.perf_counter()
+    per_step = {name: row_step_costs(dev, name)
+                for name in ("griewank", "sphere", "rastrigin")}
+    took["row_step_costs"] = time.perf_counter() - t0
+    for name, c in per_step.items():
+        print(f"[engine] {name} row step at width 8 (n = 1e5, a steady-state "
+              f"pass): {c['kernels']:.2f} CUDA kernels, {c['operators']:.2f} "
+              f"dispatched operators, {c['device_ms']:.5f} ms of kernel time "
+              f"(profiled pass), {c['wall_ms']:.5f} ms of wall time "
+              f"(next pass, unprofiled)", flush=True)
+        check(c["device_ms"] > 0, f"{name}: no row-step kernel time read")
+    check(not any(k.launches for k in counters),
+          "the engine launched a kernel")
+    total = time.perf_counter() - t_phase
+    print(f"[engine] phase took {total:.1f} s (limit {ENGINE_PHASE_S} s): "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in took.items()), flush=True)
+    check(total <= ENGINE_PHASE_S, f"the engine phase took {total:.1f} s")
+    torch.cuda.empty_cache()
 
 
 def attention_readings(dev, seed: int) -> list[dict]:
@@ -220,7 +546,7 @@ def k3_bound(b, hq, hkv, t, d, causal=True, peak=PEAK_BF16_OPS_S,
 
 
 def attention_phase(dev, seed: int) -> tuple[dict, dict]:
-    """Phase 7: K3 against its plain version at every shape of ATTN_SHAPES
+    """Phase 8: K3 against its plain version at every shape of ATTN_SHAPES
     in bf16 and float32, then both kernels and SDPA timed in turns at the
     model's layer shape and at T = 32768. Returns the Hopper kernel's entry
     of the kernels line, without its launches, and the mma.sync kernel's
@@ -307,7 +633,7 @@ def attention_phase(dev, seed: int) -> tuple[dict, dict]:
 
 
 def mma_path_phase(dev, seed: int) -> dict:
-    """Phase 10: the mma.sync kernel's path, the reduced config's prefill step
+    """Phase 11: the mma.sync kernel's path, the reduced config's prefill step
     (float32, head_dim 16) on the card, with its launches counted, the
     forward held against its plain-attention run, and the kernel timed at
     that attention shape. Returns the kernel's entry of the kernels line."""
@@ -379,7 +705,7 @@ def mma_path_phase(dev, seed: int) -> dict:
 @contextlib.contextmanager
 def plain_attention(layer_err: list):
     """Run the model's attention through K3's plain version (the reference
-    run of phase 8; the wrapper itself never does that on the card). Each
+    run of phase 9; the wrapper itself never does that on the card). Each
     layer also runs K3 on the same q, k, v, and its per-row error against
     the plain output is appended to ``layer_err``."""
     from repro_torch.kernels.flash_attention.ops import (
@@ -434,7 +760,7 @@ def lm_agreement(model, tokens) -> tuple[dict, "torch.Tensor"]:
 
 
 def lm_phase(dev, seed: int) -> int:
-    """Phases 8-9: the LM serving path at full width. Returns the Hopper
+    """Phases 9-10: the LM serving path at full width. Returns the Hopper
     kernel's launches in the main-path run (one prefill step)."""
     import torch
     from repro_torch.configs import ARCHS
@@ -542,7 +868,7 @@ def lm_phase(dev, seed: int) -> int:
     del model, got, want, outs
     torch.cuda.empty_cache()
 
-    # ---- 9. the serve launcher ---------------------------------------------
+    # ---- 10. the serve launcher ---------------------------------------------
     t0 = time.perf_counter()
     outputs = serve.main(["--arch", LM_ARCH, "--requests", "8",
                           "--batch-slots", "4", "--prompt-len", "16",
@@ -626,11 +952,10 @@ def main() -> None:
     k2_ms = cuda_ms(lambda: griewank_aggregates(x), 20)
     k2_plain_ms = cuda_ms(lambda: griewank_aggregates_ref(
         x, n_valid=x.numel()), 2)
-    k2_bound, k2_by = bound_ms(4 * x.numel() + 4 * 128,
-                               K2_OPS_PER_COORD * x.numel())
+    k2_bound, k2_by, k2_parts = k2_bound_ms(x)
     print(f"[K2] n={x.numel()}: kernel {k2_ms:.4f} ms, plain "
-          f"{k2_plain_ms:.2f} ms, bound {k2_bound:.4f} ms ({k2_by})",
-          flush=True)
+          f"{k2_plain_ms:.2f} ms, bound {k2_bound:.4f} ms ({k2_by}: "
+          f"{k2_parts})", flush=True)
     del x
 
     # ---- 4. K1 against its plain version ---------------------------------
@@ -775,7 +1100,10 @@ def main() -> None:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
-    # ---- 7-10. K3 and the LM serving path ---------------------------------
+    # ---- 7. the solve engine ----------------------------------------------
+    engine_phase(dev, args.seed)
+
+    # ---- 8-11. K3 and the LM serving path ---------------------------------
     k3, mma_model = attention_phase(dev, args.seed)
     k3["launches"] = lm_phase(dev, args.seed)
     k3_mma = mma_path_phase(dev, args.seed)
@@ -786,7 +1114,7 @@ def main() -> None:
     check(not foreign, f"the smoke imported {foreign[:5]}: JAX, the JAX "
           "package or its benchmarks")
 
-    # ---- 11. kernels line ---------------------------------------------------
+    # ---- 12. kernels line ---------------------------------------------------
     kernels.append({
         "name": "sweep_pass", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sweep_pass.cu",
@@ -807,7 +1135,7 @@ def main() -> None:
     kernels.append(k3_mma)
     print(json.dumps({"kernels": kernels}))
 
-    # ---- 12. result -----------------------------------------------------------
+    # ---- 13. result -----------------------------------------------------------
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.objectives.base import SeparableObjective
+from repro_torch.objectives.base import SeparableObjective, tree_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,17 +128,6 @@ def _linspace_offsets(num, dt, dev):
     div = num - 1
     t = torch.arange(div, dtype=dt, device=dev) * (1.0 / div)
     return torch.cat([-(1.0 - t) + t, torch.ones(1, dtype=dt, device=dev)])
-
-
-def tree_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum over axis 0 with an EXPLICIT balanced association tree (halve,
-    add, repeat; an odd leftover rides along unmodified), so any two
-    programs summing the same values get the same bits."""
-    while x.shape[0] > 1:
-        k = x.shape[0] // 2
-        head = x[:k] + x[k: 2 * k]
-        x = head if x.shape[0] == 2 * k else torch.cat([head, x[2 * k:]])
-    return x[0]
 
 
 def _probe_commit(obj, cfg, xb, aggs, idx, valid, half_width, is_first_pass,

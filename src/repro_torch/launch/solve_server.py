@@ -1,0 +1,228 @@
+"""Solve-service launcher, batch mode: queue many ABO jobs through the engine.
+
+Port of :mod:`repro.launch.solve_server`'s batch mode, on one device:
+
+    PYTHONPATH=src python -m repro_torch.launch.solve_server --jobs 24 \\
+        --lanes 8 --n 100000,1000000,4000000      # on the card
+    PYTHONPATH=src python -m repro_torch.launch.solve_server --jobs 12 \\
+        --lanes 4 --n 400 --samples 20 --passes 4 --device cpu
+
+It submits the reference's synthetic mix — job i solves objective
+``i mod len(--objectives)`` at size ``i mod len(--n)`` from seed i —
+drains the queue with continuous lane refill, and prints the reference's
+summary line (jobs/s and probe-FE/s). ``--retain-done``,
+``--pool-high-water``, ``--trace``, ``--metrics-out``, ``--inject``,
+``--max-queue`` and ``--memory-budget`` behave as in the reference.
+``--sanitize`` runs every step under ``repro_torch.analysis``'s sync guard
+(CUDA's sync debug mode on the card) and checks that each step updates the
+pool in place; ``--compile-budget N`` fails the run if the drain builds
+more than N pool shapes (eager PyTorch compiles nothing; shapes are what
+the budget counts). ``--device`` picks the device (default: the card).
+
+Not ported yet, each exiting non-zero with a message: ``--http`` and
+``--workers`` (the serving tier), ``--ckpt-dir``, ``--resume`` and
+``--journal-every`` (checkpointing), ``--devices`` and ``--span``
+(sharded and spanning pools). ROADMAP.md, queue 1, says which PR brings
+each.
+"""
+from __future__ import annotations
+
+import argparse
+import signal
+import threading
+import time
+
+from repro_torch.core.abo import ABOConfig
+from repro_torch.engine.faults import parse_fault_spec
+from repro_torch.engine.jobs import JobSpec
+from repro_torch.engine.scheduler import SolveEngine
+
+# flags of the reference that the port does not take yet, and the ROADMAP
+# item (queue 1) that brings them
+NOT_PORTED = {
+    "http": "item 9, serve/", "workers": "item 9, serve/",
+    "ckpt_dir": "item 7, checkpoint/", "resume": "item 7, checkpoint/",
+    "journal_every": "item 7, checkpoint/",
+    "devices": "item 10, multi-device", "span": "item 10, multi-device",
+}
+
+
+def _mixed_specs(n_jobs, objectives, ns, cfg, seed0=0):
+    return [JobSpec(objectives[i % len(objectives)], ns[i % len(ns)], cfg,
+                    seed=seed0 + i)
+            for i in range(n_jobs)]
+
+
+def _install_signal_handlers(on_signal):
+    """SIGTERM/SIGINT -> ``on_signal(signum)``; returns the previous
+    handlers (empty off the main thread, where signal.signal fails)."""
+    if threading.current_thread() is not threading.main_thread():
+        return {}
+    prev = {}
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        prev[sig] = signal.signal(
+            sig, lambda signum, frame: on_signal(signum))
+    return prev
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.launch.solve_server")
+    ap.add_argument("--jobs", type=int, default=32)
+    ap.add_argument("--lanes", type=int, default=8)
+    ap.add_argument("--n", default="1000",
+                    help="problem size, or a comma list for a "
+                         "heterogeneous-n workload (e.g. 500,1300,6000)")
+    ap.add_argument("--objectives", default="griewank,sphere,rastrigin")
+    ap.add_argument("--samples", type=int, default=50)
+    ap.add_argument("--passes", type=int, default=5)
+    ap.add_argument("--block", type=int, default=4096)
+    ap.add_argument("--retain-done", type=int, default=None, metavar="N",
+                    help="evict whole job records of delivered/cancelled "
+                         "jobs beyond the N most recent")
+    ap.add_argument("--pool-high-water", type=float, default=2.0,
+                    metavar="X",
+                    help="shrink a drained pool once its capacity exceeds "
+                         "X times the ladder rung actually occupied (X >= "
+                         "1; 0 disables shrinking)")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="enable span tracing and export Chrome-trace JSON "
+                         "to PATH when the run ends")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write a final Prometheus text snapshot to PATH")
+    ap.add_argument("--sanitize", action="store_true",
+                    help="run every step under the host-sync guard and "
+                         "check that each step updates the pool in place")
+    ap.add_argument("--compile-budget", type=int, default=None, metavar="N",
+                    help="fail the run if the drain builds more than N "
+                         "pool shapes")
+    ap.add_argument("--inject", default=None, metavar="SPEC",
+                    help="arm deterministic fault injection: "
+                         "site[:key=val]*[;site...] (e.g. "
+                         "'objective_eval:every=4:seed=7')")
+    ap.add_argument("--max-queue", type=int, default=None, metavar="N",
+                    help="bounded admission: reject submissions once N "
+                         "jobs are queued")
+    ap.add_argument("--memory-budget", type=int, default=None,
+                    metavar="BYTES",
+                    help="reject submissions whose projected pool bytes "
+                         "would exceed BYTES")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the card; 'cpu' runs the "
+                         "same engine on the CPU)")
+    for flag in ("--http", "--workers", "--ckpt-dir", "--journal-every",
+                 "--devices", "--span"):
+        ap.add_argument(flag, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--resume", action="store_true", help=argparse.SUPPRESS)
+    return ap
+
+
+def run(argv=None) -> tuple[dict, SolveEngine]:
+    """Parse ``argv``, run the batch and print the summary line; returns
+    the stats dict (what :func:`main` returns) and the drained engine,
+    whose job records hold every result."""
+    ap = _parser()
+    args = ap.parse_args(argv)
+    for name, item in NOT_PORTED.items():
+        if getattr(args, name) not in (None, False):
+            ap.error(f"--{name.replace('_', '-')} is not ported to "
+                     f"repro_torch yet (ROADMAP.md, queue 1, {item})")
+    if args.retain_done is not None and args.retain_done < 0:
+        ap.error(f"--retain-done must be >= 0, got {args.retain_done}")
+    high_water = args.pool_high_water
+    if high_water == 0:
+        high_water = None                # 0 = never shrink
+    elif high_water < 1:
+        ap.error("--pool-high-water must be >= 1 (or 0 to disable), got "
+                 f"{args.pool_high_water}")
+    if args.max_queue is not None and args.max_queue < 1:
+        ap.error(f"--max-queue must be >= 1, got {args.max_queue}")
+    if args.memory_budget is not None and args.memory_budget < 1:
+        ap.error(f"--memory-budget must be >= 1, got {args.memory_budget}")
+    faults = None
+    if args.inject:
+        try:
+            faults = parse_fault_spec(args.inject)
+        except ValueError as e:
+            ap.error(f"--inject: {e}")
+    objectives = [o for o in args.objectives.split(",") if o]
+    try:
+        ns = [int(v) for v in str(args.n).split(",") if v.strip()]
+    except ValueError:
+        ns = []
+    if not ns:
+        ap.error(f"--n must be an int or comma list of ints, got {args.n!r}")
+
+    engine = SolveEngine(lanes=args.lanes, retain_done=args.retain_done,
+                         pool_high_water=high_water,
+                         max_queue=args.max_queue,
+                         memory_budget_bytes=args.memory_budget,
+                         sanitize=args.sanitize, faults=faults,
+                         device=args.device)
+    if args.trace:
+        engine.trace(args.trace)
+    cfg = ABOConfig(samples_per_pass=args.samples, n_passes=args.passes,
+                    block_size=args.block)
+    engine.submit_many(_mixed_specs(args.jobs, objectives, ns, cfg))
+    # SIGTERM/SIGINT stop the drain at the next step boundary
+    stop_flag = threading.Event()
+
+    def on_signal(signum):
+        print(f"[solve_server] signal {signum}: stopping after this step",
+              flush=True)
+        stop_flag.set()
+
+    prev = _install_signal_handlers(on_signal)
+    try:
+        t0 = time.time()
+        if args.compile_budget is not None:
+            from repro_torch.analysis import compile_guard
+            with compile_guard(args.compile_budget,
+                               "solve_server drain") as cg:
+                done = engine.run(stop=stop_flag.is_set)
+            print(f"[solve_server] compile_guard: {cg.count} pool shape(s) "
+                  f"built (budget {args.compile_budget})", flush=True)
+        else:
+            done = engine.run(stop=stop_flag.is_set)
+        # the last step's harvest read back its finishers, so the device
+        # work of every finished job is inside dt
+        dt = max(time.time() - t0, 1e-9)
+    finally:
+        for sig, handler in prev.items():
+            signal.signal(sig, handler)
+    fe = sum(r.spec.config.n_passes * r.spec.config.samples_per_pass
+             * r.spec.n for r in engine.jobs.values() if r.status == "done")
+    waste = engine.pad_stats()["swept_waste"]
+    stats = {"done": done, "steps": engine.step_count, "dt_s": dt,
+             "jobs_per_s": done / dt, "fe_per_s": fe / dt,
+             "families": len(engine.pools),
+             "families_created": len(engine.family_keys_seen),
+             "devices": engine.n_dev, "sanitize": engine.sanitize,
+             "swept_waste": waste, **engine.memory_stats()}
+    if args.compile_budget is not None:
+        stats["compiles"] = cg.count
+        stats["compile_budget"] = args.compile_budget
+    if stop_flag.is_set():
+        stats["interrupted"] = True
+    print(f"[solve_server] {done} jobs in {dt:.2f}s over "
+          f"{engine.step_count} steps "
+          f"({stats['families_created']} executable families, "
+          f"{0.0 if waste is None else waste:.1%} swept-row waste): "
+          f"{stats['jobs_per_s']:.1f} jobs/s, {stats['fe_per_s']:.3g} "
+          "probe-FE/s", flush=True)
+    if args.trace:
+        print(f"[solve_server] trace -> {engine.trace_export()}",
+              flush=True)
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as fh:
+            fh.write(engine.render_prometheus())
+        print(f"[solve_server] metrics -> {args.metrics_out}", flush=True)
+    return stats, engine
+
+
+def main(argv=None):
+    return run(argv)[0]
+
+
+if __name__ == "__main__":
+    main()

@@ -33,10 +33,25 @@ REDUCE_TILE = 4096
 STREAM_TILES = 256
 
 
+def tree_sum(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Sum over ``dim`` with an EXPLICIT balanced association tree (halve,
+    add, repeat; an odd leftover rides along unmodified), so any two
+    programs summing the same values get the same bits, whatever else
+    the tensor holds: every add is elementwise, so the order depends on
+    neither the other dimensions nor the device."""
+    while x.shape[dim] > 1:
+        k = x.shape[dim] // 2
+        head = x.narrow(dim, 0, k) + x.narrow(dim, k, k)
+        x = (head if x.shape[dim] == 2 * k
+             else torch.cat([head, x.narrow(dim, 2 * k, 1)], dim))
+    return x.select(dim, 0)
+
+
 def fold_partials(partials: torch.Tensor) -> torch.Tensor:
-    """Left-fold (T, n_aggs) tile partials in index order:
+    """Left-fold tile partials over the first axis in index order:
     ((0 + p_0) + p_1) + ... — the accumulation order of the reference's
-    tile scan, add for add."""
+    tile scan, add for add. Trailing axes ride along, so (T, L, n_aggs)
+    partials of L lanes fold with one add per tile for all of them."""
     acc = torch.zeros_like(partials[0])
     for t in range(partials.shape[0]):
         acc = acc + partials[t]
@@ -70,16 +85,24 @@ class SeparableObjective:
 
     # ---- full evaluations ------------------------------------------------
     def _tile_sums(self, xt, first_tile, n_valid, agg_dtype):
-        """Masked per-tile sums of a (rows, REDUCE_TILE) slab whose first
-        row is tile ``first_tile``: (rows, n_aggs)."""
-        rows, tile = xt.shape
+        """Masked per-tile sums of a (..., rows, REDUCE_TILE) slab whose
+        first row is tile ``first_tile``: (..., rows, n_aggs). ``n_valid``
+        is a number, a 0-d tensor, or one count per leading index.
+
+        Each tile is summed by :func:`tree_sum`, not ``.sum``: a reduction
+        kernel picks its order from the slab's shape (on CUDA from the row
+        count as well as the row length), and a tile must give the same
+        bits alone, in a chunk of 256, or in a batch of gathered lanes."""
+        rows, tile = xt.shape[-2:]
         idx = (first_tile * tile
                + torch.arange(rows * tile, device=xt.device)).view(rows, tile)
         t = self.terms(idx, xt).to(agg_dtype)
+        if isinstance(n_valid, torch.Tensor) and n_valid.ndim:
+            n_valid = n_valid[..., None, None]
         # where, not the reference's multiply by the mask: a masked -inf
         # term (Schwefel 2.22's log|0| in the zero tail) would make it NaN
         mask = (idx < n_valid)[..., None]
-        return torch.where(mask, t, 0.0).sum(dim=1)
+        return tree_sum(torch.where(mask, t, 0.0), dim=-2)
 
     def aggregates(self, x: torch.Tensor, n_valid=None, *, chunk_size=None,
                    agg_dtype=torch.float32) -> torch.Tensor:
@@ -92,22 +115,36 @@ class SeparableObjective:
         for compatibility and ignored, as in the reference. ``n_valid`` may
         be an int or a 0-d integer tensor."""
         del chunk_size
+        n_valid = x.shape[0] if n_valid is None else n_valid
+        return self.row_aggregates(x[None], n_valid, agg_dtype=agg_dtype)[0]
+
+    def row_aggregates(self, rows: torch.Tensor, n_valid, *,
+                       agg_dtype=torch.float32) -> torch.Tensor:
+        """:meth:`aggregates` of each row of an (L, width) batch at once:
+        (L, n_aggs). ``n_valid`` is one count for every row (an int or a
+        0-d tensor) or one per row (an (L,) tensor). Row i is bit for bit
+        ``aggregates(rows[i], n_valid[i])``: the tile sums are
+        shape-independent and the tiles fold in index order with one add
+        per tile for every row, so the width may be any padding of a row's
+        own length — tiles past it are masked zeros, and adding +0.0 to an
+        accumulator that starts at +0.0 changes no bit."""
         tile = REDUCE_TILE
-        n = x.shape[0]
-        n_valid = n if n_valid is None else n_valid
+        n_rows, n = rows.shape
         n_full, tail = divmod(n, tile)
         parts = []
         for c0 in range(0, n_full, STREAM_TILES):
-            rows = min(STREAM_TILES, n_full - c0)
-            xt = x[c0 * tile:(c0 + rows) * tile].view(rows, tile)
+            k = min(STREAM_TILES, n_full - c0)
+            xt = rows[:, c0 * tile:(c0 + k) * tile].reshape(n_rows, k, tile)
             parts.append(self._tile_sums(xt, c0, n_valid, agg_dtype))
         if tail:
-            xt = torch.zeros((1, tile), dtype=x.dtype, device=x.device)
-            xt[0, :tail] = x[n_full * tile:]
+            xt = torch.zeros((n_rows, 1, tile), dtype=rows.dtype,
+                             device=rows.device)
+            xt[:, 0, :tail] = rows[:, n_full * tile:]
             parts.append(self._tile_sums(xt, n_full, n_valid, agg_dtype))
         if not parts:
-            return torch.zeros((self.n_aggs,), dtype=agg_dtype, device=x.device)
-        return fold_partials(torch.cat(parts))
+            return torch.zeros((n_rows, self.n_aggs), dtype=agg_dtype,
+                               device=rows.device)
+        return fold_partials(torch.cat(parts, dim=1).transpose(0, 1))
 
     def tile_partial(self, xc, tile_idx, n_valid, *, agg_dtype=torch.float32):
         """Masked partial sum of ONE fixed-origin reduction tile.

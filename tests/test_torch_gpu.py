@@ -12,12 +12,19 @@ and padding frozen; the Griewank aggregates agree to relative 1e-5. K3 is
 held as chip_smoke.py holds it: max abs on N(0, 1) inputs, and per query
 row, the row's max |got - want| over its max |want|, which stays sensitive
 where long rows make every output small.
+
+The solve engine runs no kernel; its contracts on the card are that a
+tile's sum does not depend on the slab it is reduced in, that every job's
+fun, x and history equal the port's ``abo_minimize`` bit for bit, and that
+a steady-state step does not synchronise with the host.
 """
 import pytest
 import torch
 
+from repro_torch.analysis.sanitize import HostSyncError, sync_guard
 from repro_torch.configs import ARCHS, reduced
 from repro_torch.core import ABOConfig, abo_minimize
+from repro_torch.engine import JobSpec, SolveEngine
 from repro_torch.kernels.coord_sweep.ops import (max_active_clusters,
                                                  pack_aggs, sweep_pass)
 from repro_torch.kernels.coord_sweep.ref import (abo_minimize_kernel_ref,
@@ -30,7 +37,7 @@ from repro_torch.kernels.flash_attention.ops import (choose_kernel,
 from repro_torch.kernels.griewank.ops import griewank_aggregates
 from repro_torch.kernels.griewank.ref import griewank_aggregates_ref
 from repro_torch.models.model import Model
-from repro_torch.objectives import GRIEWANK
+from repro_torch.objectives import GRIEWANK, OBJECTIVES
 
 SHAPES = [(1, 128, 16), (4, 256, 64), (3, 512, 128), (2, 128, 33),
           (8, 4096, 50)]
@@ -306,3 +313,85 @@ def test_reduced_model_on_the_card_matches_cpu(cuda, arch):
     for i in range(44, 50):
         lg, cache = card.decode_step(toks[:, i:i + 1].to(cuda), cache, i)
         assert float((lg[:, 0].cpu() - want[:, i]).abs().max()) < 1e-4
+
+
+# ---------------------------------------------------------------------------
+# the solve engine
+# ---------------------------------------------------------------------------
+ENGINE_CFG = ABOConfig(samples_per_pass=7, n_passes=4, block_size=256)
+
+
+@pytest.mark.parametrize("rows", [1, 2, 3, 17, 256])
+def test_tile_sum_does_not_depend_on_the_slab(cuda, rows):
+    tile, t_idx, pos = GRIEWANK.REDUCE_TILE, 1000, rows // 2
+    x = _uniform(tile, 7, cuda)
+    want = GRIEWANK._tile_sums(x.view(1, tile), t_idx, 10**9,
+                               torch.float32)[0]
+    slab = _uniform((rows, tile), rows, cuda)
+    slab[pos] = x
+    got = GRIEWANK._tile_sums(slab, t_idx - pos, 10**9, torch.float32)[pos]
+    assert torch.equal(got, want)
+
+
+def test_row_aggregates_equal_aggregates_on_the_card(cuda):
+    ns = [100, 3 * 4096 + 5, 2**20 + 4096 * 3 + 7]
+    rows = torch.zeros((3, 2**20 + 4096 * 8), device=cuda)
+    for i, n in enumerate(ns):
+        rows[i, :n] = _uniform(n, n, cuda)
+    got = GRIEWANK.row_aggregates(rows, torch.tensor(ns, device=cuda))
+    for i, n in enumerate(ns):
+        assert torch.equal(got[i], GRIEWANK.aggregates(rows[i, :n].clone(), n))
+
+
+def _engine_specs():
+    specs = [JobSpec(name, n, ENGINE_CFG, seed=i) for i, (name, n) in
+             enumerate([("griewank", 3000), ("sphere", 1000),
+                        ("rastrigin", 5000), ("shifted_sphere", 700),
+                        ("griewank", 100), ("sphere", 4096 * 3 + 5),
+                        ("rastrigin", 9000), ("griewank", 257)])]
+    specs.append(JobSpec("sphere", 2**20 + 4096 * 60 + 13,
+                         ABOConfig(samples_per_pass=7, n_passes=2), seed=10))
+    specs.append(JobSpec("griewank", 600, ENGINE_CFG,
+                         x0=tuple(float(v) for v in range(-300, 300))))
+    return specs
+
+
+def test_engine_matches_abo_minimize_bit_for_bit(cuda):
+    specs = _engine_specs()
+    eng = SolveEngine(lanes=3, device=cuda)
+    ids = eng.submit_many(specs)
+    assert eng.run() == len(specs)
+    for spec, jid in zip(specs, ids):
+        got = eng.result(jid)
+        solo = abo_minimize(OBJECTIVES[spec.objective], spec.n,
+                            config=spec.config, seed=spec.seed, x0=spec.x0,
+                            device=cuda)
+        assert got.fun == solo.fun, (spec, got.fun, solo.fun)
+        assert torch.equal(got.x, solo.x.cpu())
+        assert torch.equal(got.history, solo.history.cpu())
+
+
+def test_sync_guard_catches_syncs_on_the_card(cuda):
+    t = torch.ones(4, device=cuda)
+    with pytest.raises(HostSyncError):
+        with sync_guard():
+            t.sum().item()
+    with pytest.raises(RuntimeError):                # CUDA's own check
+        with sync_guard():
+            torch.nonzero(t)
+    torch.nonzero(t)                                 # restored afterwards
+
+
+def test_engine_steady_state_steps_do_not_sync(cuda):
+    eng = SolveEngine(lanes=3, max_fuse=1, device=cuda)
+    ids = eng.submit_many(_engine_specs()[:3])
+    eng.step()                                       # refill, plan, pass 1
+    with sync_guard():
+        eng.step()                                   # passes 2 and 3: no
+        eng.step()                                   # refill, no harvest
+    assert eng.run() == 3
+    sane = SolveEngine(lanes=3, sanitize=True, device=cuda)
+    sane_ids = sane.submit_many(_engine_specs()[:3])
+    assert sane.run() == 3                           # every step guarded
+    for a, b in zip(ids, sane_ids):
+        assert eng.result(a).fun == sane.result(b).fun

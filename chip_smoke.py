@@ -6,7 +6,10 @@
 Phases, in order; any failure exits non-zero before the result line:
   1. device: the card's name and power limit;
   2. build: every CUDA kernel from ``src/repro_torch/kernels/csrc``;
-  3. K2 (Griewank aggregates) against its plain version, timed;
+  3. K2 (Griewank aggregates) against its plain version, bit for bit,
+     ragged tails with inf and NaN past n_valid included; its shortcuts
+     against the library calls they replace over their whole domains;
+     timed beside its bound;
   4. K1 (one whole ABO pass) against its plain version, and the cluster of
      16 CTAs against one CTA (the same bits), both timed;
   5. the main path, kernel route: ``abo_minimize(GRIEWANK, 1e8,
@@ -64,27 +67,32 @@ PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12
 PEAK_BF16_OPS_S = 989e12
 # K2 is bound by instruction issue, not by its float32 operations: each
-# precise cosf, sinf, log1pf and logf is a range reduction and a
-# polynomial. Its bound counts the instructions Griewank itself needs per
-# coordinate, by pipe (benchmarks_torch/k2_sass.py, "function": cuobjdump
-# -sass of the sm_90a build, NVIDIA H100 80GB HBM3, 700.00 W): the library
-# sequences of rsqrtf, sinf and cosf, and of log1pf where sin^2 u < 0.5,
-# else logf; the products, compares, selects and the three masked adds. It
-# leaves out the index, address, load and loop instructions and the cost
-# of divergence: a floor of the function, not of this build. Each pipe
-# runs at its own rate per SM and clock (CUDA C++ Programming Guide,
-# arithmetic throughput, compute capability 9.0), all of them behind one
-# issue port of 32 lanes on each of the four schedulers, on 132 SMs at
-# 1980 MHz. The fold then adds the tile partials in order, a chain of
-# dependent float32 adds of 4 clocks each.
-K2_FN = {"common": {"fp32": 30, "alu": 17, "mufu": 1, "conv": 1},
-         "log1p": {"fp32": 17, "alu": 8, "mufu": 0, "conv": 0},
+# coordinate runs the library sequences of rsqrt, sin/cos (one range
+# reduction for the pair) and log1p or log. Its bound counts the
+# instructions Griewank itself needs per coordinate, by pipe
+# (benchmarks_torch/k2_sass.py, "function": cuobjdump -sass of the sm_90a
+# build, NVIDIA H100 80GB HBM3, 700.00 W): rsqrt, the reduction and both
+# polynomials, and log1p where sin^2 u < 0.5, else log; the products,
+# compares, selects and the tile sum's adds in each thread. It leaves out
+# the index, address, load and loop instructions and the cost of
+# divergence: a floor of the function, not of this build. Each pipe runs at
+# its own rate per SM and clock (CUDA C++ Programming Guide, arithmetic
+# throughput, compute capability 9.0), all of them behind one issue port of
+# 32 lanes on each of the four schedulers, on 132 SMs at 1980 MHz. The fold
+# adds the tile partials in order, a chain of dependent float32 adds of 4
+# clocks each; it runs beside the pass (a fold CTA trails the tiles' ready
+# flags), so the bound is the larger of the two, not their sum.
+K2_FN = {"common": {"fp32": 19.8125, "alu": 12.0625, "mufu": 1, "conv": 1},
+         "log1p": {"fp32": 17, "alu": 7, "mufu": 0, "conv": 0},
          "log": {"fp32": 16, "alu": 11, "mufu": 0, "conv": 0}}
 PIPE_RATE = {"fp32": 128, "alu": 64, "mufu": 16, "conv": 16}
 SMS, CLOCK_HZ, ISSUE_LANES, FADD_CLOCKS = 132, 1.98e9, 128, 4
-# What this build issues for a warp of 32 coordinates (k2_sass.py, the
-# whole loop): printed beside the bound.
-K2_SASS = {"common": 92, "log1p": 35, "log": 30}
+# What this build issues (k2_sass.py, the same build): per warp of 32
+# coordinates, the tile body's common part and each branch; per tile, the
+# tile prologue of its 8 warps, warp 0's tree and publication and the other
+# 7 warps' share of the tree. Printed beside the bound.
+K2_SASS = {"common": 42.0625, "log1p": 25, "log": 36.5,
+           "tile": 8 * 33 + 119 + 7 * 28}
 # Elementary float32 operations per candidate probe (K1), each
 # transcendental counted as one (so the bound is a lower bound): offset
 # (convert, multiply, subtract), window (multiply, add), clamp 2, incumbent
@@ -198,10 +206,11 @@ def k2_bound_ms(x) -> tuple[float, str, dict]:
     """Least time for K2 on ``x``: its bytes (x read once) at the memory
     rate, against Griewank's own instructions (K2_FN: the common ones and,
     per coordinate, those of the branch it takes on this data) at each
-    pipe's rate and the issue rate, plus the fold's chain of dependent
-    adds, one per tile. Beside it, the same issue rate applied to what
-    this build issues (K2_SASS, per warp, both branches where a warp's
-    coordinates take both)."""
+    pipe's rate and the issue rate, and against the fold's chain of
+    dependent adds, one per tile, which can run beside the pass. Beside it,
+    the same issue rate applied to what this build issues (K2_SASS, per
+    warp, both branches where a warp's coordinates take both, and per
+    tile)."""
     import torch
     n = x.numel()
     i1 = torch.arange(1, n + 1, device=x.device).to(torch.float32)
@@ -213,22 +222,24 @@ def k2_bound_ms(x) -> tuple[float, str, dict]:
     per_pipe = {p: v / (PIPE_RATE[p] * lanes) for p, v in ops.items()}
     t_issue = max(sum(ops.values()) / (ISSUE_LANES * lanes),
                   *per_pipe.values())
-    t_fold = -(-n // 4096) * FADD_CLOCKS / CLOCK_HZ
+    tiles = -(-n // 4096)
+    t_fold = tiles * FADD_CLOCKS / CLOCK_HZ
     t_bytes = (4 * n + 4 * 128) / PEAK_BYTES_S
-    by = "operations" if t_issue + t_fold >= t_bytes else "bytes"
+    t_ops = max(t_issue, t_fold)
+    by = "operations" if t_ops >= t_bytes else "bytes"
     low = torch.cat([low, low.new_ones((-n) % 32)]).view(-1, 32)
     warps = low.shape[0]
     on_log1p, on_log = int(low.any(1).sum()), int((~low).any(1).sum())
     built = (warps * K2_SASS["common"] + on_log1p * K2_SASS["log1p"]
-             + on_log * K2_SASS["log"])
-    return 1e3 * max(t_issue + t_fold, t_bytes), by, {
+             + on_log * K2_SASS["log"] + tiles * K2_SASS["tile"])
+    return 1e3 * max(t_ops, t_bytes), by, {
         "issue_ms": 1e3 * t_issue, "fold_ms": 1e3 * t_fold,
         "bytes_ms": 1e3 * t_bytes,
         "pipe_ms": {p: 1e3 * t for p, t in per_pipe.items()},
         "function_instructions_per_coordinate": sum(ops.values()) / n,
         "coordinates_on_log1p": n_low,
         "build_instructions_per_coordinate": built * 32 / n,
-        "build_issue_plus_fold_ms": 1e3 * (built / (4 * lanes) + t_fold)}
+        "build_issue_ms": 1e3 * built / (4 * lanes)}
 
 
 def row_rel_err(got, want) -> float:
@@ -906,7 +917,8 @@ def main() -> None:
                                                      sweep_pass)
     from repro_torch.kernels.coord_sweep.ref import (abo_minimize_kernel_ref,
                                                      sweep_pass_ref)
-    from repro_torch.kernels.griewank.ops import griewank_aggregates
+    from repro_torch.kernels.griewank.ops import (
+        griewank_aggregates, griewank_shortcut_mismatches)
     from repro_torch.kernels.griewank.ref import griewank_aggregates_ref
     from repro_torch.objectives import GRIEWANK, SPHERE
 
@@ -935,28 +947,66 @@ def main() -> None:
     kernels = []
 
     # ---- 3. K2 against its plain version ---------------------------------
+    # The kernel adds in the plain version's order, so it is held to its
+    # bits (torch.equal), with the relative 1e-5 beside it; a ragged case
+    # puts inf and NaN past n_valid, where the plain version selects zeros.
     k2_err = 0.0
+
+    def k2_case(x, n_valid, what):
+        before = griewank_aggregates.launches
+        got = griewank_aggregates(x, n_valid)
+        check(griewank_aggregates.launches == before + 1,
+              "a griewank_aggregates call is not one launch")
+        want = griewank_aggregates_ref(x, n_valid=n_valid)
+        g, w = got[0, :3].double(), want[0, :3].double()
+        err = (g - w).abs()
+        rel = err / w.abs().clamp(min=1e-30)
+        bits = bool(torch.equal(got, want))
+        print(f"[K2] {what} n={x.numel()} n_valid={n_valid}: kernel "
+              f"{g.tolist()} plain {w.tolist()} rel {rel.tolist()}, "
+              f"bit-identical {bits}", flush=True)
+        check(bool(rel[0] <= 1e-5) and bool(rel[1] <= 1e-5)
+              and bool(err[2] <= max(1.0, 1e-5 * float(w[2].abs()))),
+              f"K2 disagrees with its plain version at n={x.numel()}")
+        check(bits and bool(torch.isfinite(got).all()),
+              f"K2 is not its plain version's bits at n={x.numel()}, "
+              f"n_valid={n_valid}")
+        return float(err.max())
+
     for n in (3 * 4096 + 5, MAIN_N + 17):
         x = uniform(n)
-        got = griewank_aggregates(x)[0, :3].double()
-        want = griewank_aggregates_ref(x, n_valid=n)[0, :3].double()
-        err = (got - want).abs()
-        rel = err / want.abs().clamp(min=1e-30)
-        print(f"[K2] n={n} kernel {got.tolist()} plain {want.tolist()} "
-              f"rel {rel.tolist()}", flush=True)
-        check(bool(rel[0] <= 1e-5) and bool(rel[1] <= 1e-5)
-              and bool(err[2] <= max(1.0, 1e-5 * float(want[2].abs()))),
-              f"K2 disagrees with its plain version at n={n}")
-        k2_err = max(k2_err, float(err.max()))
+        for n_valid in (n, n - 3):
+            k2_err = max(k2_err, k2_case(x, n_valid, "uniform"))
+        if n < MAIN_N:
+            xr = x.clone()
+            xr[n - 7:n - 4] = torch.tensor([math.inf, math.nan, -math.inf],
+                                           device=dev)
+            k2_err = max(k2_err, k2_case(xr, n - 7, "inf/NaN past n_valid"))
+    check(torch.equal(griewank_aggregates(x), griewank_aggregates(x)),
+          "K2 gave other bits on a repeat")
+    t0 = time.perf_counter()
+    mismatches = griewank_shortcut_mismatches(dev)
+    print(f"[K2] shortcuts against the library calls they replace, inputs "
+          f"that differ over each whole domain: {mismatches} "
+          f"({time.perf_counter() - t0:.2f} s) | {smi}", flush=True)
+    check(not any(mismatches.values()),
+          f"a K2 shortcut differs from its library call: {mismatches}")
     griewank_aggregates(x)                                   # warm-up
     k2_ms = cuda_ms(lambda: griewank_aggregates(x), 20)
     k2_plain_ms = cuda_ms(lambda: griewank_aggregates_ref(
         x, n_valid=x.numel()), 2)
     k2_bound, k2_by, k2_parts = k2_bound_ms(x)
-    print(f"[K2] n={x.numel()}: kernel {k2_ms:.4f} ms, plain "
-          f"{k2_plain_ms:.2f} ms, bound {k2_bound:.4f} ms ({k2_by}: "
-          f"{k2_parts})", flush=True)
-    del x
+    print(f"[K2] n={x.numel()}: kernel {k2_ms:.4f} ms (20 launches after a "
+          f"warm-up), plain "
+          f"{k2_plain_ms:.2f} ms, bound {k2_bound:.4f} ms ({k2_by}), "
+          f"{k2_bound / k2_ms:.1%} of it; instructions a coordinate: "
+          f"function {k2_parts['function_instructions_per_coordinate']:.2f},"
+          f" build {k2_parts['build_instructions_per_coordinate']:.2f} | "
+          f"{smi}", flush=True)
+    print(f"[K2] bound parts: {k2_parts}", flush=True)
+    check(k2_bound <= k2_ms, f"K2 took {k2_ms} ms, under its bound "
+          f"{k2_bound} ms: the bound is not a floor")
+    del x, xr
 
     # ---- 4. K1 against its plain version ---------------------------------
     # sweep_pass runs a cluster of 16 CTAs by default; cluster=1 is the

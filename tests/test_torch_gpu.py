@@ -8,7 +8,8 @@ imports torch and the port only (no JAX), so it runs where the card is:
 Tolerances are those the plain versions are held to against the JAX
 package on the CPU (tests/test_torch_kernels.py): one sweep pass gives x
 identical on >= 99.9% of coordinates, aggregates within 1e-3·(1 + |a_in|)
-and padding frozen; the Griewank aggregates agree to relative 1e-5. K3 is
+and padding frozen; the Griewank aggregates agree to relative 1e-5 and,
+since the kernel adds in the plain version's order, bit for bit. K3 is
 held as chip_smoke.py holds it: max abs on N(0, 1) inputs, and per query
 row, the row's max |got - want| over its max |want|, which stays sensitive
 where long rows make every output small.
@@ -34,7 +35,8 @@ from repro_torch.kernels.flash_attention.ops import (choose_kernel,
                                                      flash_attention_mma,
                                                      flash_attention_plain,
                                                      flash_attention_sm90)
-from repro_torch.kernels.griewank.ops import griewank_aggregates
+from repro_torch.kernels.griewank.ops import (griewank_aggregates,
+                                              griewank_shortcut_mismatches)
 from repro_torch.kernels.griewank.ref import griewank_aggregates_ref
 from repro_torch.models.model import Model
 from repro_torch.objectives import GRIEWANK, OBJECTIVES
@@ -84,9 +86,42 @@ def test_griewank_aggregates_kernel_matches_plain(cuda, n):
         got = griewank_aggregates(x, n_valid)
         want = griewank_aggregates_ref(x, n_valid=n_valid)
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        # the kernel adds in the plain version's order: the same bits
+        assert torch.equal(got, want)
     assert griewank_aggregates.launches == before + 2
     # no atomics: the same bits on every run
     assert torch.equal(griewank_aggregates(x), griewank_aggregates(x))
+
+
+@pytest.mark.parametrize("n", [4097, 3 * 4096 + 5, 10**6 + 3])
+def test_griewank_aggregates_kernel_selects_away_inf_and_nan(cuda, n):
+    """inf and NaN past n_valid: the plain version selects zeros there
+    (a where, not a multiply by the mask), and so does the kernel."""
+    x = _uniform(n, n + 1, cuda)
+    x[n - 7:n - 4] = torch.tensor([float("inf"), float("nan"),
+                                   -float("inf")], device=cuda)
+    got = griewank_aggregates(x, n - 7)
+    want = griewank_aggregates_ref(x, n_valid=n - 7)
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, want)
+
+
+def test_griewank_aggregates_shortcuts_match_the_library(cuda):
+    """Each shortcut of the kernel gives the library call's bits on every
+    input of its domain (sin/cos on all 2^32 bit patterns)."""
+    mismatches = griewank_shortcut_mismatches(cuda)
+    assert set(mismatches) == {"sincos", "rsqrt_approx_ftz",
+                               "int32_to_float", "log1p"}
+    assert not any(mismatches.values()), mismatches
+
+
+def test_griewank_aggregates_is_one_launch_with_the_same_bits(cuda):
+    x = _uniform(10**7 + 11, 3, cuda)
+    before = griewank_aggregates.launches
+    first = griewank_aggregates(x, 10**7 + 5)
+    assert griewank_aggregates.launches == before + 1
+    for _ in range(3):
+        assert torch.equal(griewank_aggregates(x, 10**7 + 5), first)
 
 
 @pytest.mark.parametrize("n_blocks,block,m", SHAPES)

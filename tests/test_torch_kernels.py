@@ -29,9 +29,11 @@ from repro_torch.kernels.coord_sweep.ref import (AGG_LANES,
                                                  abo_minimize_kernel_ref,
                                                  sweep_pass_ref)
 from repro_torch.kernels.griewank.ops import (griewank_aggregates,
-                                              griewank_eval)
+                                              griewank_eval,
+                                              griewank_shortcut_mismatches)
 from repro_torch.kernels.griewank.ref import griewank_aggregates_ref
 from repro_torch.objectives import GRIEWANK
+from repro_torch.objectives.base import tree_sum
 
 SHAPES = [(1, 128, 16), (4, 256, 64), (3, 512, 128), (2, 128, 33)]
 CASES = [(0.0, True), (0.5, False), (1.0, False)]
@@ -234,6 +236,87 @@ def test_cluster_split_by_contiguous_ranges_would_change_the_bits():
     contiguous = _tree([_tree(part[64 * r:64 * (r + 1)]) for r in range(16)])
     assert contiguous.tobytes() != _tree(part).tobytes()
     assert _cluster_sum(deltas, 16).tobytes() == _tree(part).tobytes()
+
+
+# ---------------------------------------------------------------------------
+# K2's in-tile order (csrc/griewank_aggregates.cu), emulated in numpy: thread
+# t of 256 holds coordinates t + 256·j of a 4096 tile in 16 registers; levels
+# 2048..256 add register j and j + 8, + 4, + 2, + 1 in each thread; levels
+# 128, 64 and 32 add warp w and w + 4, + 2, + 1 lane by lane; levels 16..1
+# are warp 0's shuffles down. That is tree_sum's halving tree, add for add.
+# ---------------------------------------------------------------------------
+def _k2_tile_sum(leaves):
+    v = np.array(leaves, dtype=np.float32).reshape(16, 256)  # v[j, t]
+    for w in (8, 4, 2, 1):
+        v[:w] = v[:w] + v[w:2 * w]
+    warps = v[0].reshape(8, 32).copy()                       # warps[w, lane]
+    for h in (4, 2, 1):
+        warps[:h] = warps[:h] + warps[h:2 * h]
+    lanes = warps[0].copy()
+    for off in (16, 8, 4, 2, 1):
+        # __shfl_down_sync: lane l reads lane l + off (its own value past
+        # lane 31; lane 0's chain never reads those)
+        lanes = lanes + np.concatenate([lanes[off:], lanes[32 - off:]])
+    return lanes[0]
+
+
+def _thread_order_tile_sum(leaves):
+    """Another order a CTA could take: thread t sums t, t + 256, ... in
+    index order from 0, then the CTA folds its 256 threads by a tree."""
+    part = np.zeros(256, np.float32)
+    for j in range(16):
+        part = part + np.asarray(leaves, np.float32)[256 * j:256 * (j + 1)]
+    return _tree(part)
+
+
+def _mixed_tile(rng, n_valid=4096):
+    """A 4096 tile of mixed sign and magnitude, zero-selected past n_valid
+    as the plain version selects the ragged tail."""
+    t = (rng.standard_normal(4096) * 10.0 ** rng.uniform(-4, 6, 4096))
+    return np.where(np.arange(4096) < n_valid, t, 0.0).astype(np.float32)
+
+
+@pytest.mark.parametrize("n_valid", [4096, 4095, 2049, 100, 1])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k2_tile_order_is_tree_sum(n_valid, seed):
+    leaves = _mixed_tile(np.random.RandomState(seed * 7919 + n_valid),
+                         n_valid)
+    want = tree_sum(torch.from_numpy(leaves)).numpy()
+    assert _k2_tile_sum(leaves).tobytes() == want.tobytes()
+
+
+@pytest.mark.parametrize("tile,ragged", [(0, 0), (7, 0), (244140, 0),
+                                         (3, 5), (3, 4091), (244140, 2048)])
+def test_k2_tile_order_gives_the_plain_tile_sums(tile, ragged):
+    """Griewank's own term planes of one tile, the tail from ``ragged`` on
+    selected away: the model's three sums are ``_tile_sums``' bits."""
+    rng = np.random.RandomState(tile + ragged)
+    x = torch.from_numpy(rng.uniform(-600, 600, 4096).astype(np.float32))
+    n_valid = tile * 4096 + (4096 - ragged if ragged else 4096)
+    want = GRIEWANK._tile_sums(x.view(1, 4096), tile, n_valid,
+                               torch.float32)[0]
+    idx = tile * 4096 + torch.arange(4096)
+    planes = torch.where((idx < n_valid)[:, None], GRIEWANK.terms(idx, x),
+                         0.0).numpy()
+    got = np.array([_k2_tile_sum(planes[:, a]) for a in range(3)])
+    assert got.tobytes() == want.numpy().tobytes()
+
+
+def test_k2_in_order_thread_sums_would_change_the_bits():
+    """With 2^24 at coordinate 0, 1 at 256 and -2^24 at 2048, the tree
+    cancels 2^24 first (level 2048) and keeps the 1; summing each thread's
+    coordinates in index order rounds 2^24 + 1 first and loses it."""
+    leaves = np.zeros(4096, np.float32)
+    leaves[0], leaves[256], leaves[2048] = 2.0 ** 24, 1.0, -(2.0 ** 24)
+    want = tree_sum(torch.from_numpy(leaves)).numpy()
+    assert _k2_tile_sum(leaves).tobytes() == want.tobytes() \
+        == np.float32(1.0).tobytes()
+    assert _thread_order_tile_sum(leaves).tobytes() != want.tobytes()
+
+
+def test_griewank_shortcut_checks_refuse_the_cpu():
+    with pytest.raises(ValueError):
+        griewank_shortcut_mismatches("cpu")
 
 
 def _argmin_sequential(f):

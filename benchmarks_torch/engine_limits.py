@@ -10,6 +10,12 @@ with the largest fun of each (objective, n): the values
 ``chip_smoke.ENGINE_JAX_FUN`` holds. A job of the phase is held to 1e-6, or
 where the JAX package misses that, to its value x 1.001. About 5 minutes on
 a CPU (the three n = 4e6 solves take most of it).
+
+    PYTHONPATH=src JAX_PLATFORMS=cpu python -m benchmarks_torch.engine_limits --x64
+
+does the same for the float64 phase (``chip_smoke.F64_N`` and
+``F64_ENGINE``) under ``jax.enable_x64(True)`` with ``dtype=jnp.float64``:
+the values ``chip_smoke.F64_JAX_FUN`` holds. About 2 minutes on a CPU.
 """
 from __future__ import annotations
 
@@ -57,5 +63,27 @@ def main() -> dict:
     return worst
 
 
+def main_x64() -> dict:
+    import jax
+    import jax.numpy as jnp
+
+    import chip_smoke
+    from repro.core.abo import abo_minimize
+    from repro.objectives import OBJECTIVES
+    jobs = [("griewank", chip_smoke.F64_N, 0)] + [
+        (name, n, seed) for name, n, seed in chip_smoke.F64_ENGINE]
+    out: dict = {}
+    with jax.enable_x64(True):
+        for name, n, seed in jobs:
+            t0 = time.perf_counter()
+            fun = float(abo_minimize(OBJECTIVES[name], n, dtype=jnp.float64,
+                                     seed=seed).fun)
+            print(f"{name} n={n} seed={seed} float64 under x64: fun {fun!r} "
+                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
+            out[f"{name},{n},{seed}"] = fun
+    print(json.dumps(out))
+    return out
+
+
 if __name__ == "__main__":
-    main()
+    main_x64() if "--x64" in sys.argv[1:] else main()

@@ -25,25 +25,34 @@ Phases, in order; any failure exits non-zero before the result line:
      launched); a second run of 3 jobs under ``--sanitize`` whose jobs are
      held bit for bit to ``abo_minimize`` on the card; and one 4096-wide
      tile summed inside slabs of 1, 2, 3, 17 and 256 rows;
-  8. K3 (flash attention, two kernels) against its plain version in bf16
+  8. float64 solves: the plain route on Griewank in float64 at n = 1e7 from
+     seed 0 (fun against its limit, wall, probes/s, ms per block, peak
+     memory against the 8n solution bytes), then three float64 jobs through
+     the engine, each bit for bit ``abo_minimize``'s;
+  9. kill and resume at phase 7's size: the 24-job solve_server run in a
+     child process, killed at the second snapshot write and, apart, at the
+     13th journal append; fsck reports and repairs each directory; the
+     engine resumes here, and every durable job ends DONE with phase 7's
+     fun and history (and x, where the snapshot keeps it) bit for bit;
+ 10. K3 (flash attention, two kernels) against its plain version in bf16
      and float32 at the shapes of ``ATTN_SHAPES`` (max abs and per row),
      each shape through the kernel that ``choose_kernel`` gives it; the
      Hopper kernel (``flash_attention_sm90``), the mma.sync kernel
      (``flash_attention_mma``) and ``scaled_dot_product_attention`` timed in
      turns at the model's layer shape (T = 8192) and at T = 32768, beside
      the plain version and the bound;
-  9. the LM serving path at full width: ``mistral-nemo-12b``'s prefill step
+ 11. the LM serving path at full width: ``mistral-nemo-12b``'s prefill step
      on one T = 8192 request (40 launches, all of the Hopper kernel; wall
      time, tokens/s, peak memory); the forward against the same forward with
      the plain attention, K3 held per row on every layer's own q, k, v and
      the logits at every position; prefill + 8 decode steps against the
      forward;
- 10. the serve launcher at full width (8 requests, 4 slots);
- 11. the mma.sync kernel's path: the reduced ``mistral-nemo-12b`` (float32,
+ 12. the serve launcher at full width (8 requests, 4 slots);
+ 13. the mma.sync kernel's path: the reduced ``mistral-nemo-12b`` (float32,
      head_dim 16) prefill step on the card, against its plain-attention run,
      and that kernel timed at its attention shape;
- 12. one JSON line with every kernel's launches, error and times;
- 13. the last line, ``{"ok": true, "device": {...}}``.
+ 14. one JSON line with every kernel's launches, error and times;
+ 15. the last line, ``{"ok": true, "device": {...}}``.
 
 Imports torch and the port only. Exits non-zero, printing no result, when
 no CUDA device is present or the port's sources are not beside this file.
@@ -183,6 +192,33 @@ ENGINE_JAX_FUN = {
     ("rastrigin", 100000): 0.0,
 }
 ENGINE_PHASE_S = 90          # the phase's time limit
+
+# Phase 8, the paper's double-precision path: the plain route on Griewank
+# in float64 from seed 0, whose aggregates are float64 as the JAX
+# package's are under x64. The paper's headline n = 1e9 is cut by 100 to
+# fit the time limit: the plain route is launch-bound at ~1.9 ms a block
+# (PERF.md section 5), so 1e7 takes 5 x 2442 blocks, ~25 s. Then three
+# float64 jobs through the engine, each held bit for bit to abo_minimize.
+F64_N = 10**7
+F64_ENGINE = (("griewank", 10**6, 0), ("sphere", 10**6, 1),
+              ("rastrigin", 10**6, 2))
+# The JAX package's own abo_minimize on these solves under
+# jax.enable_x64(True) with dtype=jnp.float64 (CPU;
+# benchmarks_torch/engine_limits.py --x64). Each is held to 1e-6, or where
+# the JAX package misses that, to its value x 1.001.
+F64_JAX_FUN = {"griewank,10000000,0": 0.0, "griewank,1000000,0": 0.0,
+               "sphere,1000000,1": 0.0, "rastrigin,1000000,2": 0.0}
+F64_PHASE_S = 150
+# Phase 9, kill and resume at phase 7's size: ENGINE_MAIN through the
+# port's solve_server in a child process on the card, killed at a
+# durable-state failpoint, repaired by fsck, resumed in this process, and
+# every durable job held bit for bit to phase 7's uninterrupted run. (a)
+# A kill at the second snapshot write (the first is the one at submit, so
+# the second is step 1's); (b) a kill at the 13th journal append, the
+# torn tail inside the 24 submissions, before any base.
+CKPT_SNAPSHOT_KILL = "snapshot_write:kind=kill:nth=2"
+CKPT_JOURNAL_KILL = "journal_append:kind=kill:nth=13"
+CKPT_PHASE_S = 150
 
 
 def fail(msg: str) -> None:
@@ -391,9 +427,11 @@ def hold_to_solo(eng, jid: str, dev, run: str, lane: tuple) -> None:
           f"{got.fun} >= {lim}")
 
 
-def engine_phase(dev, seed: int) -> None:
+def engine_phase(dev, seed: int) -> dict:
     """Phase 7: the solve engine on the card through the port's
-    solve_server batch mode (see ENGINE_MAIN and ENGINE_SANITIZED)."""
+    solve_server batch mode (see ENGINE_MAIN and ENGINE_SANITIZED).
+    Returns the 24-job run's results, ``{job id: (fun, history, x)}``,
+    which phase 9's resumed runs are held to."""
     import torch
     from repro_torch.engine import scheduler
     from repro_torch.kernels.coord_sweep.ops import sweep_pass
@@ -482,6 +520,8 @@ def engine_phase(dev, seed: int) -> None:
     check(after["pool_pages"] <= len(eng.pools)
           and after["pool_device_bytes"] < max(pool_bytes),
           f"the pools did not shrink after the drain: {after}")
+    results = {jid: (rec.fun, list(rec.history), rec.x)
+               for jid, rec in eng.jobs.items()}
     del eng
     torch.cuda.empty_cache()
 
@@ -510,6 +550,222 @@ def engine_phase(dev, seed: int) -> None:
           + ", ".join(f"{k} {v:.1f} s" for k, v in took.items()), flush=True)
     check(total <= ENGINE_PHASE_S, f"the engine phase took {total:.1f} s")
     torch.cuda.empty_cache()
+    return results
+
+
+def f64_limit(key: str) -> float:
+    v = F64_JAX_FUN[key]
+    return 1e-6 if v < 1e-6 else v * 1.001
+
+
+def f64_phase(dev) -> None:
+    """Phase 8: the paper's double-precision path on the card. The plain
+    route on Griewank in float64 at F64_N, then F64_ENGINE's three float64
+    jobs through the engine, each bit for bit abo_minimize's."""
+    import torch
+    from repro_torch.core import ABOConfig, abo_minimize
+    from repro_torch.engine import JobSpec, SolveEngine
+    from repro_torch.objectives import GRIEWANK, OBJECTIVES
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r = abo_minimize(GRIEWANK, F64_N, dtype=torch.float64, seed=0,
+                     device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    blocks = 5 * -(-F64_N // 4096)
+    key = f"griewank,{F64_N},0"
+    lim = f64_limit(key)
+    print(f"[f64] griewank n={F64_N} float64 seed 0, plain route: fun "
+          f"{r.fun!r} (limit {lim!r}; the JAX package under x64 "
+          f"{F64_JAX_FUN[key]!r}), wall {wall:.2f} s, {r.fe / wall:.4g} "
+          f"probes/s, {1e3 * wall / blocks:.4f} ms per block ({blocks} "
+          f"blocks), peak device memory {peak} B = "
+          f"{peak / (8 * F64_N):.4f} x solution bytes {8 * F64_N}; history "
+          f"{r.history.tolist()}", flush=True)
+    check(tuple(r.x.shape) == (F64_N,) and r.x.dtype == torch.float64
+          and r.history.dtype == torch.float64
+          and bool(torch.isfinite(r.x).all()),
+          "the float64 solve's x or history is not float64 and finite")
+    check(r.fun < lim, f"float64 griewank fun {r.fun} >= {lim}")
+    del r
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    eng = SolveEngine(lanes=3, dtype=torch.float64, device=dev)
+    specs = [JobSpec(name, n, ABOConfig(), seed=seed)
+             for name, n, seed in F64_ENGINE]
+    ids = eng.submit_many(specs)
+    eng.run()
+    print(f"[f64] engine, {len(specs)} float64 jobs on 3 lanes: "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for spec, jid in zip(specs, ids):
+        got = eng.result(jid)
+        solo = abo_minimize(OBJECTIVES[spec.objective], spec.n,
+                            seed=spec.seed, dtype=torch.float64, device=dev)
+        same = (got.fun == solo.fun and torch.equal(got.x, solo.x.cpu())
+                and torch.equal(got.history, solo.history.cpu()))
+        lim = f64_limit(f"{spec.objective},{spec.n},{spec.seed}")
+        print(f"[f64] engine {spec.objective} n={spec.n} seed {spec.seed}: "
+              f"fun {got.fun!r}, abo_minimize {solo.fun!r}, fun, x and "
+              f"history bit-identical {same}, history {got.history.dtype}; "
+              f"limit {lim!r}", flush=True)
+        check(same and got.history.dtype == torch.float64,
+              f"float64 engine job {jid} differs from abo_minimize")
+        check(got.fun < lim, f"float64 engine {spec.objective}: fun "
+              f"{got.fun} >= {lim}")
+    del eng
+    torch.cuda.empty_cache()
+    total = time.perf_counter() - t_phase
+    print(f"[f64] phase took {total:.1f} s (limit {F64_PHASE_S} s) | "
+          f"{nvidia_smi_line()}", flush=True)
+    check(total <= F64_PHASE_S, f"the float64 phase took {total:.1f} s")
+
+
+# Run in each [ckpt] child: refuses JAX, the JAX package and its
+# benchmarks at import, then runs the port's solve_server with the rest
+# of the arguments (the first is the port's source directory).
+CKPT_CHILD = r"""
+import sys
+FOREIGN = ("jax", "jaxlib", "repro", "benchmarks")
+
+
+class NoForeign:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in FOREIGN:
+            raise ImportError(f"a chip_smoke child imported {name}")
+        return None
+
+
+sys.meta_path.insert(0, NoForeign())
+sys.path.insert(0, sys.argv[1])
+from repro_torch.launch import solve_server
+solve_server.main(sys.argv[2:])
+foreign = sorted(m for m in sys.modules if m.split(".")[0] in FOREIGN)
+if foreign:
+    raise SystemExit(f"a chip_smoke child imported {foreign[:5]}")
+"""
+
+
+def ckpt_child(argv: list, inject: str, timeout: float):
+    """The port's solve_server with ``argv`` in a child process under
+    ``REPRO_INJECT_FAULTS=inject``; killed at ``timeout``."""
+    env = dict(os.environ, REPRO_INJECT_FAULTS=inject)
+    return subprocess.run([sys.executable, "-c", CKPT_CHILD,
+                           os.path.join(ROOT, "src"), *argv],
+                          capture_output=True, text=True, env=env,
+                          timeout=timeout)
+
+
+def run_fsck(d: str, repair: bool) -> tuple[int, list]:
+    """``python -m repro_torch.checkpoint.fsck d [--repair]``: its exit
+    code and the kinds of its findings."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-m", "repro_torch.checkpoint.fsck",
+                          d] + (["--repair"] if repair else []),
+                         capture_output=True, text=True, env=env, timeout=120)
+    kinds = sorted(f["kind"] for f in json.loads(out.stdout)["findings"])
+    return out.returncode, kinds
+
+
+def ckpt_phase(dev, uninterrupted: dict) -> None:
+    """Phase 9: kill and resume at phase 7's size (see CKPT_SNAPSHOT_KILL
+    and CKPT_JOURNAL_KILL); ``uninterrupted`` is phase 7's results."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.engine import scheduler
+
+    t_phase = time.perf_counter()
+    root = os.path.join(ROOT, "build", "ckpt_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    # every snapshot of the resumed runs, timed whole (the host read-back
+    # of every pool and np.save), and the bytes it committed
+    snaps: list = []
+    snapshot = scheduler.SolveEngine._snapshot
+
+    def timed_snapshot(self):
+        t0 = time.perf_counter()
+        out = snapshot(self)
+        ms = 1e3 * (time.perf_counter() - t0)
+        step = self.ckpt.dir / f"step_{self.step_count:012d}"
+        snaps.append((ms, sum(f.stat().st_size for f in step.iterdir())))
+        return out
+
+    cases = (("snapshot kill", CKPT_SNAPSHOT_KILL, ["--ckpt-every", "1"],
+              "tmp_snapshot", {}),
+             ("journal kill", CKPT_JOURNAL_KILL, ["--journal-every", "2"],
+              "torn_tail", {"lanes": 8, "journal_every": 2}))
+    for what, inject, flags, finding, fresh_kw in cases:
+        d = os.path.join(root, what.split()[0])
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out = ckpt_child(ENGINE_MAIN + ["--ckpt-dir", d] + flags, inject,
+                         timeout=CKPT_PHASE_S)
+        print(f"[ckpt] {what}: solve_server {' '.join(flags)} under "
+              f"REPRO_INJECT_FAULTS={inject} exited {out.returncode} after "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        check(out.returncode == 137, f"[ckpt] {what}: the child exited "
+              f"{out.returncode}, not 137: {out.stderr[-2000:]}")
+        rc, kinds = run_fsck(d, repair=False)
+        rc_fix, _ = run_fsck(d, repair=True)
+        rc_after, kinds_after = run_fsck(d, repair=False)
+        print(f"[ckpt] {what}: fsck exit {rc} findings {kinds}; --repair "
+              f"exit {rc_fix}; then exit {rc_after} findings {kinds_after}",
+              flush=True)
+        check(rc == 1 and kinds == [finding] and rc_fix == 0
+              and rc_after == 0 and not kinds_after,
+              f"[ckpt] {what}: fsck did not report and repair {finding}")
+        scheduler.SolveEngine._snapshot = timed_snapshot
+        snaps.clear()
+        try:
+            t0 = time.perf_counter()
+            eng = scheduler.SolveEngine.resume(d, device=dev, **fresh_kw)
+            t_resume = time.perf_counter() - t0
+            js = eng.ckpt.journal_stats()
+            left = eng.pending()
+            durable = sorted(eng.jobs)
+            t0 = time.perf_counter()
+            eng.run()
+            t_run = time.perf_counter() - t0
+        finally:
+            scheduler.SolveEngine._snapshot = snapshot
+        with_x = 0
+        for jid in durable:
+            rec = eng.jobs[jid]
+            fun, hist, x = uninterrupted[jid]
+            check(rec.status == "done",
+                  f"[ckpt] {what}: {jid} ended {rec.status}")
+            same = rec.fun == fun and rec.history == hist
+            if rec.x is not None:
+                same = same and np.array_equal(rec.x, x)
+                with_x += 1
+            check(same, f"[ckpt] {what}: {jid} differs from phase 7's "
+                  "uninterrupted run")
+        ms = [m for m, _ in snaps]
+        print(f"[ckpt] {what}: resume {t_resume:.3f} s, work left {left}, "
+              f"{len(durable)} durable jobs, journal {js['records']} records"
+              f" / {js['bytes']} B at resume; resumed drain {t_run:.2f} s; "
+              f"all {len(durable)} DONE with phase 7's fun and history, x "
+              f"too for {with_x}; {len(ms)} snapshots, at most "
+              f"{max((b for _, b in snaps), default=0)} B, "
+              f"{sum(ms) / max(len(ms), 1):.1f} ms per snapshot write (mean; "
+              f"max {max(ms, default=0.0):.1f} ms)", flush=True)
+        check(left and durable, f"[ckpt] {what}: nothing was left to resume")
+        check(bool(ms), f"[ckpt] {what}: the resumed run cut no snapshot")
+        del eng
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    total = time.perf_counter() - t_phase
+    print(f"[ckpt] phase took {total:.1f} s (limit {CKPT_PHASE_S} s) | "
+          f"{nvidia_smi_line()}", flush=True)
+    check(total <= CKPT_PHASE_S, f"the checkpoint phase took {total:.1f} s")
 
 
 def attention_readings(dev, seed: int) -> list[dict]:
@@ -557,7 +813,7 @@ def k3_bound(b, hq, hkv, t, d, causal=True, peak=PEAK_BF16_OPS_S,
 
 
 def attention_phase(dev, seed: int) -> tuple[dict, dict]:
-    """Phase 8: K3 against its plain version at every shape of ATTN_SHAPES
+    """Phase 10: K3 against its plain version at every shape of ATTN_SHAPES
     in bf16 and float32, then both kernels and SDPA timed in turns at the
     model's layer shape and at T = 32768. Returns the Hopper kernel's entry
     of the kernels line, without its launches, and the mma.sync kernel's
@@ -644,7 +900,7 @@ def attention_phase(dev, seed: int) -> tuple[dict, dict]:
 
 
 def mma_path_phase(dev, seed: int) -> dict:
-    """Phase 11: the mma.sync kernel's path, the reduced config's prefill step
+    """Phase 13: the mma.sync kernel's path, the reduced config's prefill step
     (float32, head_dim 16) on the card, with its launches counted, the
     forward held against its plain-attention run, and the kernel timed at
     that attention shape. Returns the kernel's entry of the kernels line."""
@@ -771,7 +1027,7 @@ def lm_agreement(model, tokens) -> tuple[dict, "torch.Tensor"]:
 
 
 def lm_phase(dev, seed: int) -> int:
-    """Phases 9-10: the LM serving path at full width. Returns the Hopper
+    """Phases 11-12: the LM serving path at full width. Returns the Hopper
     kernel's launches in the main-path run (one prefill step)."""
     import torch
     from repro_torch.configs import ARCHS
@@ -879,7 +1135,7 @@ def lm_phase(dev, seed: int) -> int:
     del model, got, want, outs
     torch.cuda.empty_cache()
 
-    # ---- 10. the serve launcher ---------------------------------------------
+    # ---- 12. the serve launcher ---------------------------------------------
     t0 = time.perf_counter()
     outputs = serve.main(["--arch", LM_ARCH, "--requests", "8",
                           "--batch-slots", "4", "--prompt-len", "16",
@@ -1151,9 +1407,16 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---- 7. the solve engine ----------------------------------------------
-    engine_phase(dev, args.seed)
+    uninterrupted = engine_phase(dev, args.seed)
 
-    # ---- 8-11. K3 and the LM serving path ---------------------------------
+    # ---- 8. float64 solves --------------------------------------------------
+    f64_phase(dev)
+
+    # ---- 9. kill, fsck and resume ------------------------------------------
+    ckpt_phase(dev, uninterrupted)
+    del uninterrupted
+
+    # ---- 10-13. K3 and the LM serving path --------------------------------
     k3, mma_model = attention_phase(dev, args.seed)
     k3["launches"] = lm_phase(dev, args.seed)
     k3_mma = mma_path_phase(dev, args.seed)
@@ -1164,7 +1427,7 @@ def main() -> None:
     check(not foreign, f"the smoke imported {foreign[:5]}: JAX, the JAX "
           "package or its benchmarks")
 
-    # ---- 12. kernels line ---------------------------------------------------
+    # ---- 14. kernels line ---------------------------------------------------
     kernels.append({
         "name": "sweep_pass", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sweep_pass.cu",
@@ -1185,7 +1448,7 @@ def main() -> None:
     kernels.append(k3_mma)
     print(json.dumps({"kernels": kernels}))
 
-    # ---- 13. result -----------------------------------------------------------
+    # ---- 15. result -----------------------------------------------------------
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

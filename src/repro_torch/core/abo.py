@@ -253,13 +253,14 @@ def effective_config(cfg: ABOConfig, n: int) -> ABOConfig:
 
 
 def abo_make_state(obj: SeparableObjective, x: torch.Tensor, n_valid,
-                   cfg: ABOConfig, *, agg_dtype=torch.float32) -> ABOState:
-    """Pass-0 state from a (padded) start vector."""
-    aggs = obj.aggregates(x, n_valid, agg_dtype=agg_dtype)
+                   cfg: ABOConfig, *, agg_dtype=None) -> ABOState:
+    """Pass-0 state from a (padded) start vector. The aggregates and the
+    history are ``agg_dtype``, by default ``x``'s dtype."""
+    aggs = obj.aggregates(x, n_valid, agg_dtype=agg_dtype or x.dtype)
     return ABOState(
         x=x,
         aggs=aggs,
-        hist=torch.zeros((cfg.n_passes,), dtype=agg_dtype, device=x.device),
+        hist=torch.zeros((cfg.n_passes,), dtype=aggs.dtype, device=x.device),
         pass_idx=torch.zeros((), dtype=torch.int32, device=x.device),
         n_valid=torch.as_tensor(n_valid, dtype=torch.int32, device=x.device),
     )
@@ -427,14 +428,15 @@ def _init_x(obj, n, n_pad, x0, dtype, seed, bounds, device):
 
 def abo_init(obj: SeparableObjective, n: int, *, config: ABOConfig | None = None,
              x0=None, dtype=torch.float32, seed: int | None = None,
-             bounds=None, device=None):
+             bounds=None, device=None, agg_dtype=None):
     """Build the pass-0 state for a solve: ``(state, cfg, padded_bounds)``,
-    where ``cfg`` is the effective config every ``abo_pass_step`` takes."""
+    where ``cfg`` is the effective config every ``abo_pass_step`` takes.
+    ``agg_dtype`` as in :func:`abo_minimize`."""
     dev = resolve_device(device)
     cfg = effective_config(config or ABOConfig(), n)
     n_pad = -(-n // cfg.block_size) * cfg.block_size
     x, bnds = _init_x(obj, n, n_pad, x0, dtype, seed, bounds, dev)
-    return abo_make_state(obj, x, n, cfg), cfg, bnds
+    return abo_make_state(obj, x, n, cfg, agg_dtype=agg_dtype), cfg, bnds
 
 
 def abo_pass_step(obj: SeparableObjective, state: ABOState, *,
@@ -461,7 +463,7 @@ def abo_pass_step(obj: SeparableObjective, state: ABOState, *,
 def abo_minimize(obj: SeparableObjective, n: int, *,
                  config: ABOConfig | None = None, x0=None,
                  dtype=torch.float32, seed: int | None = None, bounds=None,
-                 device=None) -> ABOResult:
+                 device=None, agg_dtype=None) -> ABOResult:
     """Minimize a separable objective with ABO on ``device`` (the card by
     default).
 
@@ -469,8 +471,14 @@ def abo_minimize(obj: SeparableObjective, n: int, *,
     plus an O(block_size × samples_per_pass) probe tile. The start is the
     golden-section point unless ``x0`` or ``seed`` is given.
     ``config.use_kernel`` runs each pass as the CUDA sweep (Griewank,
-    uniform bounds, no span decomposition; ``seed`` is ignored there, as in
-    the reference).
+    uniform bounds, no span decomposition; ``seed`` and ``agg_dtype`` are
+    ignored there, as in the reference, whose kernel route is float32).
+
+    The aggregates, the history and the final re-evaluation are
+    ``agg_dtype``, by default ``dtype``: a float64 solve is the reference's
+    under x64, a float32 one the reference's without it. ``agg_dtype=
+    torch.float64`` with float32 ``x`` is the reference under x64 with
+    ``dtype=jnp.float32`` (the paper's single-precision rows at large n).
     """
     dev = resolve_device(device)
     cfg = effective_config(config or ABOConfig(), n)
@@ -491,12 +499,13 @@ def abo_minimize(obj: SeparableObjective, n: int, *,
 
     n_pad = -(-n // cfg.block_size) * cfg.block_size
     x, bnds = _init_x(obj, n, n_pad, x0, dtype, seed, bounds, dev)
-    state = abo_make_state(obj, x, n, cfg)
+    state = abo_make_state(obj, x, n, cfg, agg_dtype=agg_dtype)
     for _ in range(cfg.n_passes):
         state = abo_pass_step(obj, state, config=cfg, bounds=bnds)
     # One exact O(N) re-evaluation so the reported optimum carries no
     # accumulated-delta rounding.
-    fun = obj.combine(obj.aggregates(state.x, state.n_valid))
+    fun = obj.combine(obj.aggregates(state.x, state.n_valid,
+                                     agg_dtype=state.aggs.dtype))
     fe = cfg.n_passes * cfg.samples_per_pass * n
     # repro: allow[RPR001] solve is complete; returning fun to the caller is
     # the designed end-of-run sync

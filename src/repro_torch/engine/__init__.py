@@ -7,8 +7,10 @@ Port of :mod:`repro.engine` (see ``batched`` for the pool layout and
 job's fun/x are bit-identical to the port's ``abo_minimize`` at any
 layout. Pool memory is elastic; failed lanes quarantine to FAILED;
 admission control rejects with typed errors; the fault-injection registry
-arms failpoints for chaos tests. Checkpointing, sharded pools and spanning
-lanes are not ported yet (ROADMAP.md, queue 1)."""
+arms failpoints for chaos tests; snapshots, the journal and
+``SolveEngine.resume`` make the engine's state durable across a kill.
+Sharded pools and spanning lanes are not ported yet (ROADMAP.md, queue
+1)."""
 from repro_torch.engine.faults import (NULL_FAULTS, Fault, FaultRegistry,
                                        InjectedFault, parse_fault_spec)
 from repro_torch.engine.jobs import (CANCELLED, DONE, FAILED, QUEUED,

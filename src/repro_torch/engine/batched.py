@@ -68,10 +68,6 @@ DEFAULT_MAX_PAD_WASTE = 0.35
 # reads are exact zeros.
 SCRATCH_PAGE = 0
 
-# The aggregates are float32, as the port's solver carries them.
-AGG_DTYPE = torch.float32
-
-
 def pad_ladder(n: int, block: int,
                max_pad_waste: float = DEFAULT_MAX_PAD_WASTE) -> int:
     """Canonical padded size for a count of ``n`` in units of ``block``.
@@ -126,6 +122,13 @@ def key_dtype(key: tuple) -> torch.dtype:
     return getattr(torch, key[2])
 
 
+def key_agg_dtype(key: tuple) -> torch.dtype:
+    """The family's aggregate (and history) dtype: the solution's, as the
+    port's ``abo_minimize`` carries them by default — float64 solves are
+    the reference's under x64, float32 ones the reference's without it."""
+    return key_dtype(key)
+
+
 def pages_for(n: int, block: int) -> int:
     """Pages a lane with true n occupies — its real footprint."""
     return -(-n // block)
@@ -171,12 +174,12 @@ def zeros_pool_state(obj: SeparableObjective, key: tuple, lanes: int,
     frozen."""
     cfg = key_config(key)
     dev = torch.device(device)
+    agg_dt = key_agg_dtype(key)
     return PoolState(
         pool=torch.zeros((pages, cfg.block_size), dtype=key_dtype(key),
                          device=dev),
-        aggs=torch.zeros((lanes + 1, obj.n_aggs), dtype=AGG_DTYPE,
-                         device=dev),
-        hist=torch.zeros((lanes + 1, cfg.n_passes), dtype=AGG_DTYPE,
+        aggs=torch.zeros((lanes + 1, obj.n_aggs), dtype=agg_dt, device=dev),
+        hist=torch.zeros((lanes + 1, cfg.n_passes), dtype=agg_dt,
                          device=dev),
         pass_idx=torch.zeros((lanes + 1,), dtype=torch.int32, device=dev),
         n_valid=torch.zeros((lanes + 1,), dtype=torch.int32, device=dev),
@@ -243,8 +246,9 @@ class PoolOps:
         self.shapes: set[tuple] = set()
         cfg, dt, dev = self.cfg, self.dtype, self.device
         # the solver's per-block constants, made once on the device (no
-        # host value crosses per row): the grid offsets, the float32 pass
-        # schedule tables of core.abo.pass_schedule, and the uniform bounds
+        # host value crosses per row): the grid offsets, the pass schedule
+        # tables of core.abo.pass_schedule in the family's aggregate dtype,
+        # and the uniform bounds
         # as 0-d tensors, so the grid's arithmetic is the solver's op for op
         self._offs = _linspace_offsets(cfg.samples_per_pass - 1, dt, dev)
         ps = np.arange(cfg.n_passes, dtype=np.float64)
@@ -252,8 +256,9 @@ class PoolOps:
         lam = (ps / (cfg.n_passes - 1)
                if cfg.coupling_schedule == "linear" and cfg.n_passes > 1
                else np.ones_like(ps))
-        self._hw_tab = upload(hw.astype(np.float32), dev)
-        self._lam_tab = upload(lam.astype(np.float32), dev)
+        agg_np = np.dtype(dtype_name(key_agg_dtype(key)))
+        self._hw_tab = upload(hw.astype(agg_np), dev)
+        self._lam_tab = upload(lam.astype(agg_np), dev)
         self._lo = torch.full((), obj.lower, dtype=dt, device=dev)
         self._hi = torch.full((), obj.upper, dtype=dt, device=dev)
         self._span = self._hi - self._lo
@@ -438,7 +443,8 @@ class PoolOps:
         finishing lanes. Reads the state, changes nothing."""
         self._note(st, "final", pages.shape[1], pages.shape[0])
         xrow = self._gather_rows(st, pages)
-        ag = self.obj.row_aggregates(xrow, st.n_valid.index_select(0, lanes))
+        ag = self.obj.row_aggregates(xrow, st.n_valid.index_select(0, lanes),
+                                     agg_dtype=st.aggs.dtype)
         return (self.obj.combine(ag), xrow,
                 st.hist.index_select(0, lanes))
 

@@ -3,8 +3,8 @@
 The port's own copy of :mod:`repro.engine.faults`: the same sites, the
 same ``REPRO_INJECT_FAULTS`` grammar and the same deterministic schedules.
 The port's engine arms ``pool_resize``, ``fused_step`` and
-``objective_eval``; the durable-state and serving sites wait for the
-modules that own them.
+``objective_eval``, its checkpoint manager ``snapshot_write`` and
+``journal_append``; the serving sites wait for ``serve/``.
 
 The registry names a small catalog of *failpoints* — places where the
 engine touches durable state or numerical results — and lets a test (or

@@ -145,6 +145,11 @@ class JobState:
     t_place: float | None = None
     t_done: float | None = None
     t_fetch: float | None = None
+    # the dtype of the job's aggregates and history ("float32" or
+    # "float64"), set by the engine from the job's family. Not written by
+    # to_dict, so the aux job table stays the reference's; a resumed
+    # engine sets it again from its own dtype.
+    agg_dtype: str = "float32"
 
     @property
     def n_passes(self) -> int:
@@ -168,10 +173,14 @@ class JobState:
                 f"job {self.job_id} is {self.status}, not {DONE}")
         self.fetched = True              # later snapshots drop x (see to_dict)
         cfg = self.spec.config
-        return ABOResult(x=torch.from_numpy(self.x), fun=self.fun,
+        # x is None only for a result delivered before a kill, or one too
+        # large for the snapshot's aux (see to_dict)
+        x = None if self.x is None else torch.from_numpy(self.x)
+        return ABOResult(x=x, fun=self.fun,
                          fe=cfg.n_passes * cfg.samples_per_pass * self.spec.n,
-                         history=torch.tensor(self.history,
-                                              dtype=torch.float32),
+                         history=torch.tensor(
+                             self.history,
+                             dtype=getattr(torch, self.agg_dtype)),
                          n=self.spec.n, config=cfg)
 
     # ---- checkpoint (de)serialization -----------------------------------

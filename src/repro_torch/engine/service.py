@@ -120,6 +120,8 @@ class SolveService:
                "retain_done": eng.retain_done,
                **eng.pad_stats(), **eng.memory_stats(),
                "metrics": snap}
+        if eng.ckpt is not None and eng.journal_every is not None:
+            out["journal"] = eng.ckpt.journal_stats()
         return out
 
     def prometheus(self) -> str:

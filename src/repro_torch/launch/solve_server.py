@@ -13,6 +13,17 @@ drains the queue with continuous lane refill, and prints the reference's
 summary line (jobs/s and probe-FE/s). ``--retain-done``,
 ``--pool-high-water``, ``--trace``, ``--metrics-out``, ``--inject``,
 ``--max-queue`` and ``--memory-budget`` behave as in the reference.
+
+Checkpointing, as in the reference: ``--ckpt-dir DIR`` cuts a snapshot
+at submit, every ``--ckpt-every`` steps and at the end;
+``--journal-every K`` journals client inputs and cuts bases every K steps
+instead; ``--resume`` (with ``--ckpt-dir``) resumes the directory's jobs
+instead of submitting new ones. SIGTERM/SIGINT stop the drain at the next
+step boundary, cut a final snapshot and exit 0. A kill at a durable-state
+failpoint (``REPRO_INJECT_FAULTS="snapshot_write:kind=kill:nth=2"`` or
+``--inject``) exits 137 with the directory torn as a crash leaves it;
+``python -m repro_torch.checkpoint.fsck DIR [--repair]`` reports and
+repairs it, and ``--resume`` finishes the durable jobs.
 ``--sanitize`` runs every step under ``repro_torch.analysis``'s sync guard
 (CUDA's sync debug mode on the card) and checks that each step updates the
 pool in place; ``--compile-budget N`` fails the run if the drain builds
@@ -20,10 +31,8 @@ more than N pool shapes (eager PyTorch compiles nothing; shapes are what
 the budget counts). ``--device`` picks the device (default: the card).
 
 Not ported yet, each exiting non-zero with a message: ``--http`` and
-``--workers`` (the serving tier), ``--ckpt-dir``, ``--resume`` and
-``--journal-every`` (checkpointing), ``--devices`` and ``--span``
-(sharded and spanning pools). ROADMAP.md, queue 1, says which PR brings
-each.
+``--workers`` (the serving tier), ``--devices`` and ``--span`` (sharded
+and spanning pools). ROADMAP.md, queue 1, says which PR brings each.
 """
 from __future__ import annotations
 
@@ -34,15 +43,13 @@ import time
 
 from repro_torch.core.abo import ABOConfig
 from repro_torch.engine.faults import parse_fault_spec
-from repro_torch.engine.jobs import JobSpec
+from repro_torch.engine.jobs import DONE, JobSpec
 from repro_torch.engine.scheduler import SolveEngine
 
 # flags of the reference that the port does not take yet, and the ROADMAP
 # item (queue 1) that brings them
 NOT_PORTED = {
     "http": "item 9, serve/", "workers": "item 9, serve/",
-    "ckpt_dir": "item 7, checkpoint/", "resume": "item 7, checkpoint/",
-    "journal_every": "item 7, checkpoint/",
     "devices": "item 10, multi-device", "span": "item 10, multi-device",
 }
 
@@ -107,13 +114,21 @@ def _parser() -> argparse.ArgumentParser:
                     metavar="BYTES",
                     help="reject submissions whose projected pool bytes "
                          "would exceed BYTES")
+    ap.add_argument("--journal-every", type=int, default=None,
+                    metavar="STEPS",
+                    help="incremental checkpointing: append client inputs "
+                         "to a journal as they happen and cut a whole-"
+                         "state base snapshot (compacting the journal) "
+                         "only every STEPS steps; requires --ckpt-dir")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=1)
+    ap.add_argument("--resume", action="store_true",
+                    help="resume in-flight jobs from --ckpt-dir")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' runs the "
                          "same engine on the CPU)")
-    for flag in ("--http", "--workers", "--ckpt-dir", "--journal-every",
-                 "--devices", "--span"):
+    for flag in ("--http", "--workers", "--devices", "--span"):
         ap.add_argument(flag, default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--resume", action="store_true", help=argparse.SUPPRESS)
     return ap
 
 
@@ -139,6 +154,16 @@ def run(argv=None) -> tuple[dict, SolveEngine]:
         ap.error(f"--max-queue must be >= 1, got {args.max_queue}")
     if args.memory_budget is not None and args.memory_budget < 1:
         ap.error(f"--memory-budget must be >= 1, got {args.memory_budget}")
+    if args.journal_every is not None:
+        if args.journal_every < 1:
+            ap.error("--journal-every must be >= 1, got "
+                     f"{args.journal_every}")
+        if not args.ckpt_dir:
+            ap.error("--journal-every requires --ckpt-dir (the journal is "
+                     "an incremental layer over base snapshots)")
+    if args.resume and not args.ckpt_dir:
+        ap.error("--resume requires --ckpt-dir (without it there is no "
+                 "checkpoint to resume from and nothing would be saved)")
     faults = None
     if args.inject:
         try:
@@ -153,18 +178,31 @@ def run(argv=None) -> tuple[dict, SolveEngine]:
     if not ns:
         ap.error(f"--n must be an int or comma list of ints, got {args.n!r}")
 
-    engine = SolveEngine(lanes=args.lanes, retain_done=args.retain_done,
-                         pool_high_water=high_water,
-                         max_queue=args.max_queue,
-                         memory_budget_bytes=args.memory_budget,
-                         sanitize=args.sanitize, faults=faults,
-                         device=args.device)
+    engine_kw = dict(retain_done=args.retain_done,
+                     pool_high_water=high_water,
+                     journal_every=args.journal_every,
+                     max_queue=args.max_queue,
+                     memory_budget_bytes=args.memory_budget,
+                     sanitize=args.sanitize, faults=faults,
+                     device=args.device)
+    if args.resume:
+        # the flags only shape a FRESH engine (an empty directory); a
+        # checkpoint's recorded lanes and knobs win, so the resumed run
+        # cannot diverge from the uninterrupted one
+        engine = SolveEngine.resume(args.ckpt_dir,
+                                    ckpt_every=args.ckpt_every,
+                                    lanes=args.lanes, **engine_kw)
+    else:
+        engine = SolveEngine(lanes=args.lanes, checkpoint_dir=args.ckpt_dir,
+                             ckpt_every=args.ckpt_every, **engine_kw)
     if args.trace:
         engine.trace(args.trace)
     cfg = ABOConfig(samples_per_pass=args.samples, n_passes=args.passes,
                     block_size=args.block)
-    engine.submit_many(_mixed_specs(args.jobs, objectives, ns, cfg))
-    # SIGTERM/SIGINT stop the drain at the next step boundary
+    # SIGTERM/SIGINT stop the drain at the next step boundary; the final
+    # snapshot below then lands a consistent image and the run exits 0.
+    # Installed before the submissions, so a signal during them stops the
+    # run the same way.
     stop_flag = threading.Event()
 
     def on_signal(signum):
@@ -174,6 +212,12 @@ def run(argv=None) -> tuple[dict, SolveEngine]:
 
     prev = _install_signal_handlers(on_signal)
     try:
+        if not args.resume:
+            engine.submit_many(_mixed_specs(args.jobs, objectives, ns, cfg))
+            if args.ckpt_dir:
+                engine.snapshot()    # a kill in warm-up can't lose the queue
+        done_before = {j for j, r in engine.jobs.items()
+                       if r.status == DONE}
         t0 = time.time()
         if args.compile_budget is not None:
             from repro_torch.analysis import compile_guard
@@ -190,8 +234,18 @@ def run(argv=None) -> tuple[dict, SolveEngine]:
     finally:
         for sig, handler in prev.items():
             signal.signal(sig, handler)
+    if args.ckpt_dir:
+        # a final base: in journal mode the last results may postdate the
+        # last in-run base, and a batch run never fetches them — without
+        # it a --resume after a clean finish would re-derive the tail
+        engine.snapshot()
+        if stop_flag.is_set():
+            print("[solve_server] final snapshot cut", flush=True)
+    # FE of the jobs THIS run finished (on --resume their specs may differ
+    # from this invocation's flags)
     fe = sum(r.spec.config.n_passes * r.spec.config.samples_per_pass
-             * r.spec.n for r in engine.jobs.values() if r.status == "done")
+             * r.spec.n for j, r in engine.jobs.items()
+             if r.status == DONE and j not in done_before)
     waste = engine.pad_stats()["swept_waste"]
     stats = {"done": done, "steps": engine.step_count, "dt_s": dt,
              "jobs_per_s": done / dt, "fe_per_s": fe / dt,
@@ -203,7 +257,9 @@ def run(argv=None) -> tuple[dict, SolveEngine]:
         stats["compiles"] = cg.count
         stats["compile_budget"] = args.compile_budget
     if stop_flag.is_set():
-        stats["interrupted"] = True
+        stats["interrupted"] = True      # drained partially, snapshot cut
+    if engine.ckpt is not None and engine.journal_every is not None:
+        stats["journal"] = engine.ckpt.journal_stats()
     print(f"[solve_server] {done} jobs in {dt:.2f}s over "
           f"{engine.step_count} steps "
           f"({stats['families_created']} executable families, "

@@ -16,13 +16,17 @@ where long rows make every output small.
 
 The solve engine runs no kernel; its contracts on the card are that a
 tile's sum does not depend on the slab it is reduced in, that every job's
-fun, x and history equal the port's ``abo_minimize`` bit for bit, and that
-a steady-state step does not synchronise with the host.
+fun, x and history equal the port's ``abo_minimize`` bit for bit (float64
+jobs too), that a steady-state step does not synchronise with the host,
+and that a snapshot resumes to the uninterrupted run's bits, also with
+``sanitize=True``; the checkpoint manager's host copy of a card tensor is
+the value at the save, whatever the tensor holds after it.
 """
 import pytest
 import torch
 
 from repro_torch.analysis.sanitize import HostSyncError, sync_guard
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import ARCHS, reduced
 from repro_torch.core import ABOConfig, abo_minimize
 from repro_torch.engine import JobSpec, SolveEngine
@@ -430,3 +434,57 @@ def test_engine_steady_state_steps_do_not_sync(cuda):
     assert sane.run() == 3                           # every step guarded
     for a, b in zip(ids, sane_ids):
         assert eng.result(a).fun == sane.result(b).fun
+
+
+def test_engine_snapshot_resumes_bit_for_bit_sanitized(cuda, tmp_path):
+    specs = _engine_specs()[:6]
+    ref = SolveEngine(lanes=3, device=cuda)
+    ref_ids = ref.submit_many(specs)
+    ref.run()
+    eng = SolveEngine(lanes=3, max_fuse=1, checkpoint_dir=tmp_path,
+                      sanitize=True, device=cuda)
+    ids = eng.submit_many(specs)
+    eng.snapshot()
+    eng.step()
+    eng.step()                                       # snapshot at step 2
+    del eng
+    res = SolveEngine.resume(tmp_path, sanitize=True, device=cuda)
+    assert res.pending() and res.sanitize
+    res.run()
+    for a, b in zip(ref_ids, ids):
+        want, got = ref.result(a), res.result(b)
+        assert got.fun == want.fun
+        assert torch.equal(got.history, want.history)
+        if res.jobs[b].x is not None:
+            assert torch.equal(got.x, want.x)
+
+
+def test_engine_float64_job_equals_abo_minimize(cuda):
+    cfg = ABOConfig(samples_per_pass=12, n_passes=3, block_size=256)
+    specs = [JobSpec("griewank", 3000, cfg, seed=3),
+             JobSpec("rastrigin", 1500, cfg, seed=4)]
+    eng = SolveEngine(lanes=2, dtype=torch.float64, device=cuda)
+    ids = eng.submit_many(specs)
+    eng.run()
+    for spec, jid in zip(specs, ids):
+        got = eng.result(jid)
+        solo = abo_minimize(OBJECTIVES[spec.objective], spec.n, config=cfg,
+                            seed=spec.seed, dtype=torch.float64, device=cuda)
+        assert got.history.dtype == torch.float64
+        assert got.fun == solo.fun
+        assert torch.equal(got.x, solo.x.cpu())
+        assert torch.equal(got.history, solo.history.cpu())
+
+
+def test_checkpoint_host_copy_of_a_card_tensor(cuda, tmp_path):
+    t = torch.arange(1 << 20, dtype=torch.float32, device=cuda)
+    want = t.cpu().numpy().copy()
+    mgr = CheckpointManager(tmp_path)
+    mgr.save(1, {"t": t}, blocking=False)
+    t.mul_(-1)                                       # in place, after the save
+    mgr.wait()
+    out = mgr.restore(1, {"t": t})["t"]
+    assert out.device.type == "cpu"
+    assert (out.numpy() == want).all()
+    back = mgr.restore(1, {"t": t}, device=cuda)["t"]
+    assert back.device.type == "cuda" and torch.equal(back.cpu(), out)

@@ -34,25 +34,34 @@ Phases, in order; any failure exits non-zero before the result line:
      13th journal append; fsck reports and repairs each directory; the
      engine resumes here, and every durable job ends DONE with phase 7's
      fun and history (and x, where the snapshot keeps it) bit for bit;
- 10. K3 (flash attention, two kernels) against its plain version in bf16
+ 10. the serving tier, each server in a child process on the card: (a)
+     the port's ``solve_server --http`` takes phase 7's 24 jobs over
+     ``/submit`` and delivers them over ``/result?wait=`` with phase 7's
+     fun, history and x bit for bit (wall, jobs/s, submit latency, reply
+     bytes and ms by n, ``/healthz`` latency while the steps run); (b) the
+     router over 2 workers, worker 0 killed at its 2nd step with acked
+     jobs pending: zero lost jobs, only deliberate 503s, w0 restarted
+     (time to recover printed), and every fun and history bit for bit
+     (w1's phase 7's, w0's ``abo_minimize``'s);
+ 11. K3 (flash attention, two kernels) against its plain version in bf16
      and float32 at the shapes of ``ATTN_SHAPES`` (max abs and per row),
      each shape through the kernel that ``choose_kernel`` gives it; the
      Hopper kernel (``flash_attention_sm90``), the mma.sync kernel
      (``flash_attention_mma``) and ``scaled_dot_product_attention`` timed in
      turns at the model's layer shape (T = 8192) and at T = 32768, beside
      the plain version and the bound;
- 11. the LM serving path at full width: ``mistral-nemo-12b``'s prefill step
+ 12. the LM serving path at full width: ``mistral-nemo-12b``'s prefill step
      on one T = 8192 request (40 launches, all of the Hopper kernel; wall
      time, tokens/s, peak memory); the forward against the same forward with
      the plain attention, K3 held per row on every layer's own q, k, v and
      the logits at every position; prefill + 8 decode steps against the
      forward;
- 12. the serve launcher at full width (8 requests, 4 slots);
- 13. the mma.sync kernel's path: the reduced ``mistral-nemo-12b`` (float32,
+ 13. the serve launcher at full width (8 requests, 4 slots);
+ 14. the mma.sync kernel's path: the reduced ``mistral-nemo-12b`` (float32,
      head_dim 16) prefill step on the card, against its plain-attention run,
      and that kernel timed at its attention shape;
- 14. one JSON line with every kernel's launches, error and times;
- 15. the last line, ``{"ok": true, "device": {...}}``.
+ 15. one JSON line with every kernel's launches, error and times;
+ 16. the last line, ``{"ok": true, "device": {...}}``.
 
 Imports torch and the port only. Exits non-zero, printing no result, when
 no CUDA device is present or the port's sources are not beside this file.
@@ -219,6 +228,23 @@ F64_PHASE_S = 150
 CKPT_SNAPSHOT_KILL = "snapshot_write:kind=kill:nth=2"
 CKPT_JOURNAL_KILL = "journal_append:kind=kill:nth=13"
 CKPT_PHASE_S = 150
+# Phase 10, the serving tier on the card, each server in a child process.
+# (a) One worker: the port's solve_server --http with phase 7's 8 lanes
+# takes phase 7's 24-job mix over /submit (job i: objective i mod 3 at
+# size i mod 3 from seed i, phase 7's sampling and block) and delivers it
+# over /result?wait=; every fun and history, and x, must be phase 7's bit
+# for bit. (b) The router over 2 workers of 2 lanes each, worker 0 killed
+# by its own stepper at its 2nd step. crc32(objective) % 2 puts
+# shifted_sphere on w0 and griewank, sphere and rastrigin on w1, so w0
+# takes HTTP_W0_JOBS and w1 phase 7's jobs 0-5.
+HTTP_CFG = {"samples_per_pass": 50, "n_passes": 5, "block_size": 4096}
+HTTP_MIX = (("griewank", 100000), ("sphere", 1000000),
+            ("rastrigin", 4000000))
+HTTP_JOBS = [HTTP_MIX[i % 3] + (i,) for i in range(24)]
+HTTP_W0_JOBS = [("shifted_sphere", 10**6, s) for s in range(6)]
+HTTP_W1_JOBS = HTTP_JOBS[:6]
+HTTP_INJECT = "0:worker_crash:nth=2:kind=kill"
+HTTP_PHASE_S = 150
 
 
 def fail(msg: str) -> None:
@@ -626,10 +652,12 @@ def f64_phase(dev) -> None:
     check(total <= F64_PHASE_S, f"the float64 phase took {total:.1f} s")
 
 
-# Run in each [ckpt] child: refuses JAX, the JAX package and its
-# benchmarks at import, then runs the port's solve_server with the rest
-# of the arguments (the first is the port's source directory).
-CKPT_CHILD = r"""
+# Run in each [ckpt] and [http] child: refuses JAX, the JAX package and
+# its benchmarks at import, then runs the ``main`` of the port's module
+# named by the second argument (the port's solve_server or router) with
+# the rest of the arguments (the first is the port's source directory).
+PORT_CHILD = r"""
+import importlib
 import sys
 FOREIGN = ("jax", "jaxlib", "repro", "benchmarks")
 
@@ -643,20 +671,24 @@ class NoForeign:
 
 sys.meta_path.insert(0, NoForeign())
 sys.path.insert(0, sys.argv[1])
-from repro_torch.launch import solve_server
-solve_server.main(sys.argv[2:])
+importlib.import_module(sys.argv[2]).main(sys.argv[3:])
 foreign = sorted(m for m in sys.modules if m.split(".")[0] in FOREIGN)
 if foreign:
     raise SystemExit(f"a chip_smoke child imported {foreign[:5]}")
 """
 
 
+def port_child(module: str, argv: list) -> list:
+    """The command line of a PORT_CHILD running ``module``'s main."""
+    return [sys.executable, "-c", PORT_CHILD, os.path.join(ROOT, "src"),
+            module, *argv]
+
+
 def ckpt_child(argv: list, inject: str, timeout: float):
     """The port's solve_server with ``argv`` in a child process under
     ``REPRO_INJECT_FAULTS=inject``; killed at ``timeout``."""
     env = dict(os.environ, REPRO_INJECT_FAULTS=inject)
-    return subprocess.run([sys.executable, "-c", CKPT_CHILD,
-                           os.path.join(ROOT, "src"), *argv],
+    return subprocess.run(port_child("repro_torch.launch.solve_server", argv),
                           capture_output=True, text=True, env=env,
                           timeout=timeout)
 
@@ -766,6 +798,419 @@ def ckpt_phase(dev, uninterrupted: dict) -> None:
     print(f"[ckpt] phase took {total:.1f} s (limit {CKPT_PHASE_S} s) | "
           f"{nvidia_smi_line()}", flush=True)
     check(total <= CKPT_PHASE_S, f"the checkpoint phase took {total:.1f} s")
+
+
+# Polls a server's /healthz from its own process (so the parent's JSON
+# parsing cannot delay a probe) until the stop file appears, then writes
+# what it saw to the out file. "healthz": each probe's latency (ms; None
+# for a failure). "router": the wall-clock time w0's first listener stops
+# answering (connection refused or reset: the kill) and the time a later
+# w0, at the port the router's /healthz names, first answers /healthz 200.
+HTTP_PROBE = r"""
+import http.client, json, os, sys, time
+port, mode, stop, out = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
+first = int(sys.argv[5]) if len(sys.argv) > 5 else None
+
+
+def get(p, path):
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", p, timeout=10)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        body = resp.read()
+        return resp.status, body, 1e3 * (time.perf_counter() - t0)
+    finally:
+        conn.close()
+
+
+lat, dead, up = [], None, None
+while not os.path.exists(stop):
+    if mode == "healthz":
+        try:
+            lat.append(get(port, "/healthz")[2])
+        except (OSError, http.client.HTTPException):
+            lat.append(None)
+    elif dead is None:
+        try:
+            get(first, "/healthz")
+        except (ConnectionError, http.client.HTTPException):
+            dead = time.time()
+        except OSError:
+            pass
+    elif up is None:
+        try:
+            w0 = json.loads(get(port, "/healthz")[1])["workers"]["w0"]
+            if w0["port"] not in (None, first) \
+                    and get(w0["port"], "/healthz")[0] == 200:
+                up = time.time()
+        except (OSError, http.client.HTTPException, ValueError):
+            pass
+    time.sleep(0.02)
+with open(out, "w") as fh:
+    json.dump({"ms": lat, "dead": dead, "up": up}, fh)
+"""
+
+
+def http_call(port: int, method: str, path: str, body=None,
+              timeout: float = 120.0):
+    """One request on its own connection: (status, body bytes, headers,
+    ms from the request to the reply's last byte)."""
+    import http.client
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, body=body,
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        data = resp.read()
+        return (resp.status, data, dict(resp.getheaders()),
+                1e3 * (time.perf_counter() - t0))
+    finally:
+        conn.close()
+
+
+def retry_after_s(headers: dict) -> float:
+    """How long a client waits before it retries a 503: the reply's
+    Retry-After, at most 1 s, as the reference's chaos test waits (the
+    router sizes it from its restarts' mean time, 5 s before the first)."""
+    return min(float(headers.get("Retry-After", 1)), 1.0)
+
+
+def http_submit(port: int, rec: dict, t_end: float, retry: tuple) -> None:
+    """Submits ``rec["job"]`` (objective, n, seed) with HTTP_CFG, retrying
+    a 503 whose code is in ``retry`` after its Retry-After. Adds to
+    ``rec`` every (status, code) seen and, once accepted, the job id, the
+    wall-clock time of the ack and the accepted call's ms."""
+    name, n, seed = rec["job"]
+    body = json.dumps({"objective": name, "n": n, "seed": seed,
+                       "config": HTTP_CFG})
+    while time.perf_counter() < t_end:
+        st, data, hdrs, ms = http_call(port, "POST", "/submit", body)
+        out = json.loads(data)
+        rec["statuses"].append((st, out.get("code")))
+        if st == 200:
+            rec.update(jid=out["job_id"], t_ack=time.time(), submit_ms=ms)
+            return
+        if st != 503 or out.get("code") not in retry:
+            return
+        time.sleep(retry_after_s(hdrs))
+
+
+def http_result(port: int, rec: dict, t_end: float, retry: tuple) -> None:
+    """Long-polls the result of ``rec``'s job (``/result?wait=30``) until a
+    200, retrying 202s and the 503s whose code is in ``retry``; adds the
+    statuses seen, the 200's raw body, its bytes and ms, and the wall-
+    clock time it arrived."""
+    path = f"/result?job_id={rec['jid']}&wait=30"
+    while time.perf_counter() < t_end:
+        st, data, hdrs, ms = http_call(port, "GET", path)
+        if st == 200:
+            rec["statuses"].append((st, None))
+            rec.update(raw=data, bytes=len(data), ms=ms, t_done=time.time())
+            return
+        code = json.loads(data).get("code")
+        rec["statuses"].append((st, code))
+        if st == 503 and code in retry:
+            time.sleep(retry_after_s(hdrs))
+        elif st != 202:
+            return
+
+
+def parse_result(rec: dict) -> None:
+    """Replaces ``rec``'s raw reply with its payload without x (``out``)
+    and x as float64 (``x``, None where the reply carries none)."""
+    import numpy as np
+    out = json.loads(rec.pop("raw"))
+    x = out.pop("x", None)
+    rec.update(out=out, x=None if x is None else np.asarray(x, np.float64))
+
+
+def in_threads(fn, recs: list, t_end: float) -> float:
+    """``fn(rec)`` for every record, each on a thread of its own, all
+    started together; the seconds until the last one ended. An exception
+    is kept as the record's ``error``."""
+    import threading
+
+    def one(rec):
+        try:
+            fn(rec)
+        except Exception as e:     # noqa: BLE001 — the caller checks it
+            rec["error"] = repr(e)
+
+    threads = [threading.Thread(target=one, args=(rec,), daemon=True)
+               for rec in recs]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=max(t_end - time.perf_counter(), 1.0))
+    check(not any(t.is_alive() for t in threads),
+          "[http] a client did not end")
+    return time.perf_counter() - t0
+
+
+def wait_port_file(path: str, proc, timeout: float) -> int:
+    """The port a child publishes in ``path``; fails if it exits first."""
+    t_end = time.monotonic() + timeout
+    while time.monotonic() < t_end:
+        check(proc.poll() is None, f"[http] a child exited "
+              f"{proc.returncode} before it listened")
+        try:
+            with open(path) as fh:
+                return int(fh.read().strip())
+        except (FileNotFoundError, ValueError):
+            time.sleep(0.05)
+    fail(f"[http] no port in {path} after {timeout} s")
+
+
+def pct(values: list, q: float) -> float:
+    s = sorted(values)
+    return s[min(len(s) - 1, int(q * len(s)))]
+
+
+def stop_child(proc, timeout: float = 60.0) -> int:
+    """SIGTERM (a server's clean exit: final snapshot, exit 0), then its
+    exit code; its whole process group is killed after ``timeout``."""
+    import signal
+    proc.send_signal(signal.SIGTERM)
+    try:
+        return proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait(timeout=30)
+        return -9
+
+
+def http_phase(dev, uninterrupted: dict) -> None:
+    """Phase 10: the serving tier on the card (see HTTP_CFG); each server
+    runs in a child process, and each job has a client thread of its own
+    (``client``). ``uninterrupted`` is phase 7's results."""
+    import shutil
+    import signal
+
+    import numpy as np
+    import torch
+    from repro_torch.core import ABOConfig, abo_minimize
+    from repro_torch.objectives import OBJECTIVES
+
+    t_phase = time.perf_counter()
+    t_end = t_phase + HTTP_PHASE_S
+    root = os.path.join(ROOT, "build", "http_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    torch.cuda.empty_cache()
+    # the router's workers run ``-m repro_torch.serve.worker``
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src")] + [p for p in [os.environ.get(
+            "PYTHONPATH")] if p]))
+    procs, logs = [], []
+
+    def start(cmd, name):
+        logs.append(open(os.path.join(root, f"{name}.log"), "w"))
+        # a group of its own: the router's workers go down with it
+        p = subprocess.Popen(cmd, stdout=logs[-1], stderr=subprocess.STDOUT,
+                             env=env, start_new_session=True)
+        procs.append(p)
+        return p
+
+    def tail(name: str) -> str:
+        with open(os.path.join(root, f"{name}.log")) as fh:
+            return fh.read()[-3000:]
+
+    def client(port: int, retry: tuple):
+        def run(rec):
+            http_submit(port, rec, t_end, retry)
+            if "jid" in rec:
+                http_result(port, rec, t_end, retry)
+            if "raw" in rec:
+                parse_result(rec)
+        return run
+
+    def held(rec: dict, fun, hist, x) -> bool:
+        """The client's result is (fun, hist), bit for bit, and x too
+        where both sides have it."""
+        out = rec["out"]
+        same = out.get("status") == "done" and out["fun"] == fun \
+            and out["history"] == list(hist)
+        if x is not None and rec["x"] is not None:
+            same = same and np.array_equal(rec["x"],
+                                           np.asarray(x, np.float64))
+        return same
+
+    def probe_readings(probe, stop: str, out: str) -> dict:
+        open(stop, "w").close()
+        check(probe.wait(timeout=60) == 0, "[http] a probe failed")
+        with open(out) as fh:
+            return json.load(fh)
+
+    try:
+        # ---- (a) one worker ---------------------------------------------
+        t0 = time.perf_counter()
+        pf = os.path.join(root, "a.port")
+        trace = os.path.join(root, "a.trace.json")
+        child = start(port_child("repro_torch.launch.solve_server",
+                                 ["--http", "0", "--port-file", pf,
+                                  "--lanes", "8", "--trace", trace]), "a")
+        # (b)'s fleet starts now too and idles through (a): a worker steps,
+        # and w0's fault can fire, only once (b) sends it work
+        pf_b = os.path.join(root, "b.port")
+        router = start(port_child(
+            "repro_torch.serve.router",
+            ["--workers", "2", "--lanes", "2", "--ckpt-dir",
+             os.path.join(root, "cluster"), "--port-file", pf_b,
+             "--inject-worker", HTTP_INJECT]), "b")
+        # (b)'s references, on the card while the children start
+        solo = {seed: abo_minimize(OBJECTIVES[name], n,
+                                   config=ABOConfig(**HTTP_CFG), seed=seed,
+                                   device=dev)
+                for name, n, seed in HTTP_W0_JOBS}
+        t_solo = time.perf_counter() - t0
+        port = wait_port_file(pf, child, 120)
+        t_ready = time.perf_counter() - t0
+        stop_a, probe_a = (os.path.join(root, f"a.{s}")
+                           for s in ("stop", "probe.json"))
+        probe = start([sys.executable, "-c", HTTP_PROBE, str(port),
+                       "healthz", stop_a, probe_a], "a.probe")
+        # the 24 submissions arrive as one burst, as phase 7 submits them
+        # all before its drain, and each client long-polls its own job
+        recs = [{"job": job, "statuses": []} for job in HTTP_JOBS]
+        t0 = time.time()
+        in_threads(client(port, ()), recs, t_end)
+        wall = max(rec.get("t_done", math.inf) for rec in recs) - t0
+        steps = json.loads(http_call(port, "GET", "/stats")[1])["steps"]
+        lat = probe_readings(probe, stop_a, probe_a)["ms"]
+        # one more /result a size with the engine idle: what building and
+        # sending x costs, apart from waiting for the job
+        again = {n: http_call(port, "GET", f"/result?job_id={rec['jid']}")
+                 for rec in recs[:len(HTTP_MIX)]
+                 for n in [rec["job"][1]]}
+        rc = stop_child(child)
+        ok_lat = [v for v in lat if v is not None]
+        statuses = sorted({s for rec in recs for s in rec["statuses"]})
+        check(not any("error" in rec for rec in recs), f"[http] (a) a "
+              f"client raised: {[r['error'] for r in recs if 'error' in r]}")
+        check(all("out" in rec for rec in recs)
+              and {s for s, _ in statuses} <= {200, 202},
+              f"[http] (a) statuses {statuses}")
+        for rec in recs:
+            name, n, seed = rec["job"]
+            fun, hist, x = uninterrupted[f"job-{seed:06d}"]
+            check(held(rec, fun, hist, x)
+                  and (x is None or rec["x"] is not None),
+                  f"[http] (a) {rec['jid']} ({name} n={n} seed {seed}) "
+                  "differs from phase 7's run")
+        check(len(ok_lat) == len(lat) and ok_lat, f"[http] (a) {len(lat)} "
+              f"/healthz probes, {len(lat) - len(ok_lat)} failed")
+        check(rc == 0, f"[http] (a) exited {rc} on SIGTERM: {tail('a')}")
+        with open(trace) as fh:
+            spans = [e for e in json.load(fh)["traceEvents"]
+                     if e["name"] == "step"]
+        submit_ms = [rec["submit_ms"] for rec in recs]
+        print(f"[http] (a) solve_server --http --lanes 8: listening "
+              f"{t_ready:.1f} s after the spawn (beside (b)'s fleet "
+              f"starting, and the parent running (b)'s 6 references on the "
+              f"card, {t_solo:.1f} s); "
+              f"{len(recs)} jobs from the first submit to the last result "
+              f"in {wall:.3f} s, {len(recs) / wall:.4f} jobs/s over {steps} "
+              f"engine steps ({1e-6 * sum(e['dur'] for e in spans):.3f} s "
+              f"in their trace spans); submit latency p50 "
+              f"{pct(submit_ms, 0.5):.2f} ms p99 {pct(submit_ms, 0.99):.2f} "
+              f"ms; statuses {statuses}; every fun, history and x bit for "
+              f"bit phase 7's; SIGTERM: exit {rc}", flush=True)
+        for size, (st, data, _, ms) in sorted(again.items()):
+            check(st == 200, f"[http] (a) /result again at n={size}: {st}")
+            rs = [r["ms"] for r in recs if r["job"][1] == size]
+            print(f"[http] (a) /result at n={size}: {len(data)} B, "
+                  f"{ms:.1f} ms from the request to the last byte with the "
+                  f"engine idle; the burst's {len(rs)} long-polls "
+                  f"{sum(rs) / len(rs):.1f} ms (mean; max {max(rs):.1f} ms, "
+                  f"waiting for the job included)", flush=True)
+        print(f"[http] (a) /healthz while the steps ran: {len(ok_lat)} "
+              f"probes, 0 failed, p50 {pct(ok_lat, 0.5):.2f} ms, max "
+              f"{max(ok_lat):.2f} ms", flush=True)
+
+        # ---- (b) the router, worker 0 killed -------------------------------
+        rport = wait_port_file(pf_b, router, 60)
+        # the router serves once both workers listen
+        st, data, _, _ = http_call(rport, "GET", "/healthz", timeout=150)
+        health = json.loads(data)
+        check(st == 200 and health["status"] == "ok", f"[http] (b) the "
+              f"router is not healthy: {st} {health}")
+        stop_b, probe_b = (os.path.join(root, f"b.{s}")
+                           for s in ("stop", "probe.json"))
+        probe = start([sys.executable, "-c", HTTP_PROBE, str(rport),
+                       "router", stop_b, probe_b,
+                       str(health["workers"]["w0"]["port"])], "b.probe")
+        ok_503 = ("worker_unavailable", "shutting_down")
+        recs = [{"job": job, "statuses": []}
+                for job in HTTP_W0_JOBS + HTTP_W1_JOBS]
+        wall = in_threads(client(rport, ok_503), recs, t_end)
+        seen = probe_readings(probe, stop_b, probe_b)
+        health = json.loads(http_call(rport, "GET", "/healthz")[1])
+        st_m, metrics, _, _ = http_call(rport, "GET", "/metrics")
+        rc = stop_child(router)
+        statuses = [s for rec in recs for s in rec["statuses"]]
+        errors = [rec["error"] for rec in recs if "error" in rec]
+        lost = [rec["job"] for rec in recs if "out" not in rec]
+        restarts = {w: health["workers"][w]["restarts"] for w in ("w0", "w1")}
+        dead, up = seen["dead"], seen["up"]
+        at_risk = sum(1 for rec in recs
+                      if rec.get("jid", "").startswith("w0:")
+                      and dead is not None and rec["t_ack"] < dead
+                      and rec.get("t_done", math.inf) > dead)
+        print(f"[http] (b) router --workers 2 --lanes 2 --inject-worker "
+              f"{HTTP_INJECT}: {len(recs)} jobs in {wall:.3f} s; statuses "
+              f"{sorted(set(statuses))}; {len(lost)} lost; restarts "
+              f"{restarts}; w0's acked jobs pending at the kill: {at_risk}; "
+              f"time to recover (kill to w0's first healthy probe) "
+              f"{'not seen' if None in (dead, up) else f'{up - dead:.3f} s'}"
+              f"; SIGTERM: exit {rc}", flush=True)
+        check(not errors, f"[http] (b) a client raised: {errors[:3]}")
+        check(not lost, f"[http] (b) acked jobs lost: {lost}")
+        check({s for s, _ in statuses} <= {200, 202, 503}
+              and all(c in ok_503 for s, c in statuses if s == 503),
+              f"[http] (b) undeliberate statuses {sorted(set(statuses))}")
+        check(restarts["w0"] >= 1 and restarts["w1"] == 0,
+              f"[http] (b) restarts {restarts}")
+        check(st_m == 200 and b'router_worker_restarts_total{worker="w0"}'
+              in metrics, "[http] (b) /metrics lacks w0's restarts")
+        check(None not in (dead, up), "[http] (b) the probe did not see "
+              "w0 die and come back")
+        check(at_risk >= 1, "[http] (b) the kill landed with no acked job "
+              "of w0 pending")
+        check(rc == 0, f"[http] (b) the router exited {rc} on SIGTERM: "
+              f"{tail('b')}")
+        with_x = {"w0": 0, "w1": 0}
+        for rec in recs:
+            name, n, seed = rec["job"]
+            w = rec["jid"].split(":")[0]
+            if w == "w1":
+                fun, hist, x = uninterrupted[f"job-{seed:06d}"]
+            else:
+                fun, hist, x = solo[seed].fun, solo[seed].history.tolist(), \
+                    solo[seed].x.cpu().numpy()
+            check(held(rec, fun, hist, x), f"[http] (b) {rec['jid']} "
+                  f"({name} n={n} seed {seed}) differs from "
+                  f"{'phase 7' if w == 'w1' else 'abo_minimize'}")
+            with_x[w] += rec["x"] is not None
+        print(f"[http] (b) every fun and history bit for bit (w1's phase "
+              f"7's, w0's abo_minimize's on the card); replies with x, held "
+              f"too: {with_x} of 6 each", flush=True)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                with contextlib.suppress(ProcessLookupError):
+                    os.killpg(p.pid, signal.SIGKILL)
+                p.wait(timeout=30)
+        for log in logs:
+            log.close()
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    total = time.perf_counter() - t_phase
+    print(f"[http] phase took {total:.1f} s (limit {HTTP_PHASE_S} s) | "
+          f"{nvidia_smi_line()}", flush=True)
+    check(total <= HTTP_PHASE_S, f"the serving phase took {total:.1f} s")
 
 
 def attention_readings(dev, seed: int) -> list[dict]:
@@ -1135,7 +1580,7 @@ def lm_phase(dev, seed: int) -> int:
     del model, got, want, outs
     torch.cuda.empty_cache()
 
-    # ---- 12. the serve launcher ---------------------------------------------
+    # ---- 13. the serve launcher ---------------------------------------------
     t0 = time.perf_counter()
     outputs = serve.main(["--arch", LM_ARCH, "--requests", "8",
                           "--batch-slots", "4", "--prompt-len", "16",
@@ -1414,9 +1859,12 @@ def main() -> None:
 
     # ---- 9. kill, fsck and resume ------------------------------------------
     ckpt_phase(dev, uninterrupted)
+
+    # ---- 10. the serving tier ---------------------------------------------
+    http_phase(dev, uninterrupted)
     del uninterrupted
 
-    # ---- 10-13. K3 and the LM serving path --------------------------------
+    # ---- 11-14. K3 and the LM serving path --------------------------------
     k3, mma_model = attention_phase(dev, args.seed)
     k3["launches"] = lm_phase(dev, args.seed)
     k3_mma = mma_path_phase(dev, args.seed)
@@ -1427,7 +1875,7 @@ def main() -> None:
     check(not foreign, f"the smoke imported {foreign[:5]}: JAX, the JAX "
           "package or its benchmarks")
 
-    # ---- 14. kernels line ---------------------------------------------------
+    # ---- 15. kernels line ---------------------------------------------------
     kernels.append({
         "name": "sweep_pass", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sweep_pass.cu",
@@ -1448,7 +1896,7 @@ def main() -> None:
     kernels.append(k3_mma)
     print(json.dumps({"kernels": kernels}))
 
-    # ---- 15. result -----------------------------------------------------------
+    # ---- 16. result -------------------------------------------------------
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -4,7 +4,8 @@ The port's own copy of :mod:`repro.engine.faults`: the same sites, the
 same ``REPRO_INJECT_FAULTS`` grammar and the same deterministic schedules.
 The port's engine arms ``pool_resize``, ``fused_step`` and
 ``objective_eval``, its checkpoint manager ``snapshot_write`` and
-``journal_append``; the serving sites wait for ``serve/``.
+``journal_append``, and ``repro_torch.serve``'s front door the serving
+sites ``http_reply``, ``worker_crash`` and ``slow_client``.
 
 The registry names a small catalog of *failpoints* — places where the
 engine touches durable state or numerical results — and lets a test (or
@@ -74,7 +75,7 @@ SITES = (
     "pool_resize",
     "fused_step",
     "objective_eval",
-    # serving-layer sites (repro.serve): the same registry chaos-tests
+    # serving-layer sites (repro_torch.serve): the same registry chaos-tests
     # the wire tier — a worker killed mid-traffic, a torn HTTP reply, a
     # client that trickles its body — with the same determinism contract
     "http_reply",

@@ -2,11 +2,11 @@
 
 Port of :mod:`repro.engine.service`: the same payloads and error codes.
 This is the boundary a wire protocol (CLI, HTTP, RPC) talks to: every
-method takes and returns JSON-serializable payloads, never tensors. The
-port's HTTP front door waits for ``serve/`` (ROADMAP, queue 1 item 9).
+method takes and returns JSON-serializable payloads, never tensors; the
+port's HTTP front door, ``repro_torch.serve.frontend``, serves it.
 
 Error payloads follow the serving tier's standard envelope
-(``repro.serve.errors``): every miss carries a machine-readable
+(``repro_torch.serve.errors``): every miss carries a machine-readable
 ``code`` (``unknown_job`` / ``not_done`` / ``conflict``) next to the
 human ``error`` string, plus ``status`` when the job exists — an HTTP
 front-end maps codes to statuses via ``errors.status_for`` without

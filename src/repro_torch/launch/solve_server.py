@@ -1,27 +1,42 @@
-"""Solve-service launcher, batch mode: queue many ABO jobs through the engine.
+"""Solve-service launcher: queue many ABO jobs through the engine, or serve
+them over HTTP.
 
-Port of :mod:`repro.launch.solve_server`'s batch mode, on one device:
+Port of :mod:`repro.launch.solve_server`, on one device:
 
     PYTHONPATH=src python -m repro_torch.launch.solve_server --jobs 24 \\
         --lanes 8 --n 100000,1000000,4000000      # on the card
     PYTHONPATH=src python -m repro_torch.launch.solve_server --jobs 12 \\
         --lanes 4 --n 400 --samples 20 --passes 4 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.solve_server --http 0 \\
+        --port-file pf --lanes 8                  # HTTP, on the card
+    PYTHONPATH=src python -m repro_torch.launch.solve_server --http 0 \\
+        --workers 2 --ckpt-dir cluster --port-file pf   # router + 2 workers
 
-It submits the reference's synthetic mix — job i solves objective
+Batch mode submits the reference's synthetic mix — job i solves objective
 ``i mod len(--objectives)`` at size ``i mod len(--n)`` from seed i —
 drains the queue with continuous lane refill, and prints the reference's
 summary line (jobs/s and probe-FE/s). ``--retain-done``,
 ``--pool-high-water``, ``--trace``, ``--metrics-out``, ``--inject``,
 ``--max-queue`` and ``--memory-budget`` behave as in the reference.
 
+``--http PORT`` serves submit/poll/result/cancel/stats/healthz/metrics as
+JSON over HTTP on localhost instead (``repro_torch.serve.frontend``, the
+reference's endpoints, codes and envelopes); ``--auth``, ``--max-body``,
+``--max-inflight``, ``--deadline``, ``--wait-max``, ``--max-n``,
+``--port-file`` and ``--verbose`` shape the front door as in the
+reference. ``--workers N`` (with ``--http`` and ``--ckpt-dir``) makes this
+process the supervising router (``repro_torch.serve.router``) over N
+``repro_torch.serve.worker`` processes, each on ``--device``.
+
 Checkpointing, as in the reference: ``--ckpt-dir DIR`` cuts a snapshot
 at submit, every ``--ckpt-every`` steps and at the end;
 ``--journal-every K`` journals client inputs and cuts bases every K steps
 instead; ``--resume`` (with ``--ckpt-dir``) resumes the directory's jobs
-instead of submitting new ones. SIGTERM/SIGINT stop the drain at the next
-step boundary, cut a final snapshot and exit 0. A kill at a durable-state
-failpoint (``REPRO_INJECT_FAULTS="snapshot_write:kind=kill:nth=2"`` or
-``--inject``) exits 137 with the directory torn as a crash leaves it;
+instead of submitting new ones. SIGTERM/SIGINT stop the drain (or the
+server) at the next step boundary, cut a final snapshot and exit 0. A
+kill at a durable-state failpoint
+(``REPRO_INJECT_FAULTS="snapshot_write:kind=kill:nth=2"`` or ``--inject``)
+exits 137 with the directory torn as a crash leaves it;
 ``python -m repro_torch.checkpoint.fsck DIR [--repair]`` reports and
 repairs it, and ``--resume`` finishes the durable jobs.
 ``--sanitize`` runs every step under ``repro_torch.analysis``'s sync guard
@@ -30,9 +45,9 @@ pool in place; ``--compile-budget N`` fails the run if the drain builds
 more than N pool shapes (eager PyTorch compiles nothing; shapes are what
 the budget counts). ``--device`` picks the device (default: the card).
 
-Not ported yet, each exiting non-zero with a message: ``--http`` and
-``--workers`` (the serving tier), ``--devices`` and ``--span`` (sharded
-and spanning pools). ROADMAP.md, queue 1, says which PR brings each.
+Not ported yet, each exiting non-zero with a message: ``--devices`` and
+``--span`` (sharded and spanning pools). ROADMAP.md, queue 1, says which
+PR brings them.
 """
 from __future__ import annotations
 
@@ -45,19 +60,32 @@ from repro_torch.core.abo import ABOConfig
 from repro_torch.engine.faults import parse_fault_spec
 from repro_torch.engine.jobs import DONE, JobSpec
 from repro_torch.engine.scheduler import SolveEngine
+from repro_torch.engine.service import SolveService
 
 # flags of the reference that the port does not take yet, and the ROADMAP
 # item (queue 1) that brings them
-NOT_PORTED = {
-    "http": "item 9, serve/", "workers": "item 9, serve/",
-    "devices": "item 10, multi-device", "span": "item 10, multi-device",
-}
+NOT_PORTED = {"devices": "item 10, multi-device",
+              "span": "item 10, multi-device"}
 
 
 def _mixed_specs(n_jobs, objectives, ns, cfg, seed0=0):
     return [JobSpec(objectives[i % len(objectives)], ns[i % len(ns)], cfg,
                     seed=seed0 + i)
             for i in range(n_jobs)]
+
+
+def _build_server(service: SolveService, port: int, poll_s: float = 0.01,
+                  verbose: bool = False, config=None):
+    """Build a :class:`repro_torch.serve.frontend.Frontend` and return
+    ``(httpd, stepper_thread)``, as the reference's shim does (tests drive
+    ``serve_forever`` from their own thread and ``shutdown()`` it). The
+    Frontend rides along as ``httpd._frontend``; pass ``config`` (a
+    FrontendConfig) to harden beyond the defaults."""
+    from repro_torch.serve.frontend import Frontend, FrontendConfig
+    if config is None:
+        config = FrontendConfig(poll_s=poll_s, verbose=verbose)
+    fe = Frontend(service, port, config)
+    return fe.httpd, fe.stepper_thread
 
 
 def _install_signal_handlers(on_signal):
@@ -70,6 +98,24 @@ def _install_signal_handlers(on_signal):
         prev[sig] = signal.signal(
             sig, lambda signum, frame: on_signal(signum))
     return prev
+
+
+def _serve_http(service: SolveService, port: int, poll_s: float = 0.01,
+                verbose: bool = False, config=None,
+                port_file: str | None = None):
+    """The hardened JSON-over-HTTP front door; blocks until SIGTERM or
+    SIGINT, then lets in-flight replies finish, cuts a final snapshot
+    (when checkpointing is on) and returns for a clean exit 0."""
+    from repro_torch.serve.frontend import Frontend, FrontendConfig
+    if config is None:
+        config = FrontendConfig(poll_s=poll_s, verbose=verbose)
+    fe = Frontend(service, port, config)
+    if port_file:
+        from repro_torch.serve.worker import _write_port_file
+        _write_port_file(port_file, fe.httpd.server_address[1])
+    _install_signal_handlers(
+        lambda signum: fe.begin_shutdown(f"signal {signum}"))
+    fe.serve()
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -94,26 +140,27 @@ def _parser() -> argparse.ArgumentParser:
                          "1; 0 disables shrinking)")
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="enable span tracing and export Chrome-trace JSON "
-                         "to PATH when the run ends")
+                         "to PATH when the run (or server) ends")
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
-                    help="write a final Prometheus text snapshot to PATH")
+                    help="write a final Prometheus text snapshot to PATH "
+                         "after a batch run")
     ap.add_argument("--sanitize", action="store_true",
                     help="run every step under the host-sync guard and "
                          "check that each step updates the pool in place")
     ap.add_argument("--compile-budget", type=int, default=None, metavar="N",
-                    help="fail the run if the drain builds more than N "
-                         "pool shapes")
+                    help="batch mode: fail the run if the drain builds "
+                         "more than N pool shapes")
     ap.add_argument("--inject", default=None, metavar="SPEC",
                     help="arm deterministic fault injection: "
                          "site[:key=val]*[;site...] (e.g. "
                          "'objective_eval:every=4:seed=7')")
     ap.add_argument("--max-queue", type=int, default=None, metavar="N",
-                    help="bounded admission: reject submissions once N "
-                         "jobs are queued")
+                    help="bounded admission: reject submissions (HTTP "
+                         "429) once N jobs are queued")
     ap.add_argument("--memory-budget", type=int, default=None,
                     metavar="BYTES",
-                    help="reject submissions whose projected pool bytes "
-                         "would exceed BYTES")
+                    help="reject submissions (HTTP 503) whose projected "
+                         "pool bytes would exceed BYTES")
     ap.add_argument("--journal-every", type=int, default=None,
                     metavar="STEPS",
                     help="incremental checkpointing: append client inputs "
@@ -124,18 +171,55 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-every", type=int, default=1)
     ap.add_argument("--resume", action="store_true",
                     help="resume in-flight jobs from --ckpt-dir")
+    ap.add_argument("--http", type=int, default=None, metavar="PORT",
+                    help="serve submit/poll/result over HTTP instead of "
+                         "running a synthetic batch (0 = ephemeral "
+                         "port; see --port-file)")
+    ap.add_argument("--workers", type=int, default=None, metavar="N",
+                    help="with --http and --ckpt-dir: become a "
+                         "supervisor/router over N engine worker "
+                         "processes (repro_torch.serve.router) — per-"
+                         "family routing, crash respawn with journal "
+                         "resume")
+    ap.add_argument("--auth", default=None, metavar="SPEC",
+                    help="bearer-token tenants: token[:key=val]*[;...] "
+                         "with keys name, rate (req/s token bucket), "
+                         "burst, quota (lifetime job budget); missing/"
+                         "unknown tokens answer 401, over-rate 429")
+    ap.add_argument("--max-body", type=int, default=1 << 20,
+                    metavar="BYTES",
+                    help="reject request bodies larger than BYTES with "
+                         "413 (Content-Length is required: 411 without "
+                         "it, 400 when malformed)")
+    ap.add_argument("--max-n", type=int, default=None, metavar="N",
+                    help="reject submissions with n > N at the door "
+                         "(schema'd 400)")
+    ap.add_argument("--deadline", type=float, default=30.0, metavar="S",
+                    help="per-request engine-access budget: a request "
+                         "that cannot reach the engine within S seconds "
+                         "answers 503 with Retry-After")
+    ap.add_argument("--wait-max", type=float, default=60.0, metavar="S",
+                    help="cap on ?wait= long-polls (/result, /poll)")
+    ap.add_argument("--max-inflight", type=int, default=64, metavar="N",
+                    help="bounded request queue: past N concurrent "
+                         "requests the front door sheds 503 saturated")
+    ap.add_argument("--port-file", default=None, metavar="PATH",
+                    help="write the bound HTTP port to PATH (atomic) "
+                         "once listening")
+    ap.add_argument("--verbose", action="store_true",
+                    help="HTTP access logging: one structured JSON line "
+                         "per request (method, path, status, duration_ms)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' runs the "
                          "same engine on the CPU)")
-    for flag in ("--http", "--workers", "--devices", "--span"):
+    for flag in ("--devices", "--span"):
         ap.add_argument(flag, default=None, help=argparse.SUPPRESS)
     return ap
 
 
-def run(argv=None) -> tuple[dict, SolveEngine]:
-    """Parse ``argv``, run the batch and print the summary line; returns
-    the stats dict (what :func:`main` returns) and the drained engine,
-    whose job records hold every result."""
+def _parse(argv) -> argparse.Namespace:
+    """Parse and validate ``argv`` with the reference's usage errors (exit
+    2); adds ``faults``, ``tenants``, ``high_water`` and ``ns``."""
     ap = _parser()
     args = ap.parse_args(argv)
     for name, item in NOT_PORTED.items():
@@ -144,16 +228,12 @@ def run(argv=None) -> tuple[dict, SolveEngine]:
                      f"repro_torch yet (ROADMAP.md, queue 1, {item})")
     if args.retain_done is not None and args.retain_done < 0:
         ap.error(f"--retain-done must be >= 0, got {args.retain_done}")
-    high_water = args.pool_high_water
-    if high_water == 0:
-        high_water = None                # 0 = never shrink
-    elif high_water < 1:
+    args.high_water = args.pool_high_water
+    if args.high_water == 0:
+        args.high_water = None           # 0 = never shrink
+    elif args.high_water < 1:
         ap.error("--pool-high-water must be >= 1 (or 0 to disable), got "
                  f"{args.pool_high_water}")
-    if args.max_queue is not None and args.max_queue < 1:
-        ap.error(f"--max-queue must be >= 1, got {args.max_queue}")
-    if args.memory_budget is not None and args.memory_budget < 1:
-        ap.error(f"--memory-budget must be >= 1, got {args.memory_budget}")
     if args.journal_every is not None:
         if args.journal_every < 1:
             ap.error("--journal-every must be >= 1, got "
@@ -161,29 +241,66 @@ def run(argv=None) -> tuple[dict, SolveEngine]:
         if not args.ckpt_dir:
             ap.error("--journal-every requires --ckpt-dir (the journal is "
                      "an incremental layer over base snapshots)")
+    if args.max_queue is not None and args.max_queue < 1:
+        ap.error(f"--max-queue must be >= 1, got {args.max_queue}")
+    if args.memory_budget is not None and args.memory_budget < 1:
+        ap.error(f"--memory-budget must be >= 1, got {args.memory_budget}")
+    args.faults = None
+    if args.inject:
+        try:
+            args.faults = parse_fault_spec(args.inject)
+        except ValueError as e:
+            ap.error(f"--inject: {e}")
+    if args.max_body < 1:
+        ap.error(f"--max-body must be >= 1, got {args.max_body}")
+    if args.deadline <= 0:
+        ap.error(f"--deadline must be > 0, got {args.deadline}")
+    if args.wait_max < 0:
+        ap.error(f"--wait-max must be >= 0, got {args.wait_max}")
+    if args.max_inflight < 1:
+        ap.error(f"--max-inflight must be >= 1, got {args.max_inflight}")
+    if args.max_n is not None and args.max_n < 1:
+        ap.error(f"--max-n must be >= 1, got {args.max_n}")
+    args.tenants = None
+    if args.auth:
+        from repro_torch.serve.limits import TenantTable
+        try:
+            args.tenants = TenantTable.from_spec(args.auth)
+        except ValueError as e:
+            ap.error(f"--auth: {e}")
+    if args.workers is not None:
+        if args.workers < 1:
+            ap.error(f"--workers must be >= 1, got {args.workers}")
+        if args.http is None:
+            ap.error("--workers requires --http (the router IS an HTTP "
+                     "front door)")
+        if not args.ckpt_dir:
+            ap.error("--workers requires --ckpt-dir (each worker owns a "
+                     "journaled subdirectory; without one a worker "
+                     "crash would lose acked jobs)")
+        if args.inject:
+            ap.error("--inject with --workers is ambiguous; use "
+                     "python -m repro_torch.serve.router --inject-worker "
+                     "IDX:SPEC to arm one worker")
     if args.resume and not args.ckpt_dir:
         ap.error("--resume requires --ckpt-dir (without it there is no "
                  "checkpoint to resume from and nothing would be saved)")
-    faults = None
-    if args.inject:
-        try:
-            faults = parse_fault_spec(args.inject)
-        except ValueError as e:
-            ap.error(f"--inject: {e}")
-    objectives = [o for o in args.objectives.split(",") if o]
     try:
-        ns = [int(v) for v in str(args.n).split(",") if v.strip()]
+        args.ns = [int(v) for v in str(args.n).split(",") if v.strip()]
     except ValueError:
-        ns = []
-    if not ns:
+        args.ns = []
+    if not args.ns:
         ap.error(f"--n must be an int or comma list of ints, got {args.n!r}")
+    return args
 
+
+def _engine(args) -> SolveEngine:
     engine_kw = dict(retain_done=args.retain_done,
-                     pool_high_water=high_water,
+                     pool_high_water=args.high_water,
                      journal_every=args.journal_every,
                      max_queue=args.max_queue,
                      memory_budget_bytes=args.memory_budget,
-                     sanitize=args.sanitize, faults=faults,
+                     sanitize=args.sanitize, faults=args.faults,
                      device=args.device)
     if args.resume:
         # the flags only shape a FRESH engine (an empty directory); a
@@ -197,8 +314,49 @@ def run(argv=None) -> tuple[dict, SolveEngine]:
                              ckpt_every=args.ckpt_every, **engine_kw)
     if args.trace:
         engine.trace(args.trace)
+    return engine
+
+
+def _serve_router(args) -> None:
+    """Router mode: this process supervises ``--workers`` worker
+    processes and never builds an engine of its own."""
+    from repro_torch.serve.router import serve_router
+    worker_args = ["--lanes", str(args.lanes),
+                   "--journal-every", str(args.journal_every or 8)]
+    if args.retain_done is not None:
+        worker_args += ["--retain-done", str(args.retain_done)]
+    if args.max_queue is not None:
+        worker_args += ["--max-queue", str(args.max_queue)]
+    if args.memory_budget is not None:
+        worker_args += ["--memory-budget", str(args.memory_budget)]
+    if args.sanitize:
+        worker_args += ["--sanitize"]
+    if args.device is not None:
+        worker_args += ["--device", args.device]
+    if args.verbose:
+        worker_args += ["--verbose"]
+    serve_router(args.workers, args.http, args.ckpt_dir,
+                 worker_args=worker_args, tenants=args.tenants,
+                 max_body_bytes=args.max_body,
+                 port_file=args.port_file, verbose=args.verbose)
+
+
+def run(argv=None) -> tuple[dict, SolveEngine]:
+    """Batch mode: parse ``argv``, run the batch and print the summary
+    line; returns the stats dict (what :func:`main` returns) and the
+    drained engine, whose job records hold every result. ``--http`` and
+    ``--workers`` serve instead: :func:`main` runs them."""
+    args = _parse(argv)
+    if args.http is not None or args.workers is not None:
+        raise ValueError("run() drives batch mode; main() serves --http "
+                         "and --workers")
+    return _batch(args, _engine(args))
+
+
+def _batch(args, engine: SolveEngine) -> tuple[dict, SolveEngine]:
     cfg = ABOConfig(samples_per_pass=args.samples, n_passes=args.passes,
                     block_size=args.block)
+    objectives = [o for o in args.objectives.split(",") if o]
     # SIGTERM/SIGINT stop the drain at the next step boundary; the final
     # snapshot below then lands a consistent image and the run exits 0.
     # Installed before the submissions, so a signal during them stops the
@@ -213,7 +371,8 @@ def run(argv=None) -> tuple[dict, SolveEngine]:
     prev = _install_signal_handlers(on_signal)
     try:
         if not args.resume:
-            engine.submit_many(_mixed_specs(args.jobs, objectives, ns, cfg))
+            engine.submit_many(_mixed_specs(args.jobs, objectives, args.ns,
+                                            cfg))
             if args.ckpt_dir:
                 engine.snapshot()    # a kill in warm-up can't lose the queue
         done_before = {j for j, r in engine.jobs.items()
@@ -277,7 +436,25 @@ def run(argv=None) -> tuple[dict, SolveEngine]:
 
 
 def main(argv=None):
-    return run(argv)[0]
+    """Batch mode returns its stats dict; ``--http`` and ``--workers``
+    serve until SIGTERM/SIGINT and return None."""
+    args = _parse(argv)
+    if args.workers is not None:
+        _serve_router(args)
+        return None
+    engine = _engine(args)
+    if args.http is None:
+        return _batch(args, engine)[0]
+    from repro_torch.serve.frontend import FrontendConfig
+    cfg = FrontendConfig(verbose=args.verbose,
+                         max_body_bytes=args.max_body,
+                         deadline_s=args.deadline,
+                         wait_max_s=args.wait_max,
+                         max_inflight=args.max_inflight,
+                         max_n=args.max_n, tenants=args.tenants)
+    _serve_http(SolveService(engine), args.http, config=cfg,
+                port_file=args.port_file)
+    return None
 
 
 if __name__ == "__main__":

@@ -292,6 +292,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             ".__init__")
         for p in (SRC / "repro_torch").rglob("*.py"))
     assert "repro_torch.kernels.coord_sweep.ops" in mods
+    assert {f"repro_torch.serve.{m}" for m in (
+        "errors", "validate", "limits", "frontend", "worker",
+        "router")} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "

@@ -382,14 +382,17 @@ def test_solve_server_batch_summary(tmp_path, capsys):
 
 
 # The flags that are not ported exit 2 with "not ported"; the checkpoint
-# flags, ported since, exit 2 with the reference's usage errors when
-# misused (each keeps its case's place in the list).
+# and serving flags, ported since, exit 2 with the reference's usage
+# errors when misused (each keeps its case's place in the list).
 FLAG_ERRORS = {"--ckpt-dir": "--journal-every must be >= 1",
                "--resume": "--resume requires --ckpt-dir",
-               "--journal-every": "--journal-every requires --ckpt-dir"}
+               "--journal-every": "--journal-every requires --ckpt-dir",
+               "--http": "--max-body must be >= 1",
+               "--workers": "--workers requires --http"}
 
 
-@pytest.mark.parametrize("flag", [["--http", "0"], ["--workers", "2"],
+@pytest.mark.parametrize("flag", [["--http", "0", "--max-body", "0"],
+                                  ["--workers", "2"],
                                   ["--ckpt-dir", "d", "--journal-every", "0"],
                                   ["--resume"], ["--journal-every", "2"],
                                   ["--devices", "2"], ["--span", "8"]])

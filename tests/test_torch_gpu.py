@@ -20,7 +20,9 @@ fun, x and history equal the port's ``abo_minimize`` bit for bit (float64
 jobs too), that a steady-state step does not synchronise with the host,
 and that a snapshot resumes to the uninterrupted run's bits, also with
 ``sanitize=True``; the checkpoint manager's host copy of a card tensor is
-the value at the save, whatever the tensor holds after it.
+the value at the save, whatever the tensor holds after it. Over HTTP, an
+in-process front door whose stepper runs the engine on its own thread
+delivers the same bits.
 """
 import pytest
 import torch
@@ -488,3 +490,57 @@ def test_checkpoint_host_copy_of_a_card_tensor(cuda, tmp_path):
     assert (out.numpy() == want).all()
     back = mgr.restore(1, {"t": t}, device=cuda)["t"]
     assert back.device.type == "cuda" and torch.equal(back.cpu(), out)
+
+
+@pytest.mark.parametrize("sanitize", [False, True])
+def test_http_front_door_on_the_card_equals_abo_minimize(cuda, sanitize):
+    """An in-process Frontend over an engine on the card, its stepper on
+    its own thread: three jobs over HTTP, each fun, x and history bit for
+    bit abo_minimize on the card. Sanitized, CUDA's sync debug mode is
+    process-wide while the stepper steps; the handlers' threads must not
+    trip it."""
+    import http.client
+    import json
+    import threading
+
+    from repro_torch.engine import SolveService
+    from repro_torch.serve.frontend import Frontend, FrontendConfig
+
+    def req(port, method, path, body=None):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        try:
+            conn.request(method, path, body=body)
+            resp = conn.getresponse()
+            return resp.status, json.loads(resp.read())
+        finally:
+            conn.close()
+
+    cfg = {"samples_per_pass": 12, "n_passes": 3, "block_size": 256}
+    plan = [("griewank", 3000, 0), ("sphere", 4096 * 3 + 5, 1),
+            ("rastrigin", 700, 2)]
+    fe = Frontend(SolveService(lanes=2, sanitize=sanitize, device=cuda), 0,
+                  FrontendConfig(poll_s=0.005))
+    server = threading.Thread(target=fe.httpd.serve_forever, daemon=True)
+    server.start()
+    fe.stepper_thread.start()
+    port = fe.httpd.server_address[1]
+    try:
+        ids = []
+        for name, n, seed in plan:
+            st, out = req(port, "POST", "/submit", json.dumps(
+                {"objective": name, "n": n, "seed": seed, "config": cfg}))
+            assert st == 200, out
+            ids.append(out["job_id"])
+        for jid, (name, n, seed) in zip(ids, plan):
+            st, out = req(port, "GET", f"/result?job_id={jid}&wait=60")
+            assert st == 200 and out["status"] == "done", out
+            solo = abo_minimize(OBJECTIVES[name], n, config=ABOConfig(**cfg),
+                                seed=seed, device=cuda)
+            assert out["fun"] == solo.fun
+            assert out["history"] == solo.history.cpu().tolist()
+            assert torch.equal(torch.tensor(out["x"], dtype=torch.float64),
+                               solo.x.cpu().double())
+    finally:
+        fe.begin_shutdown("test done")
+        fe.finalize()
+        server.join(timeout=30)

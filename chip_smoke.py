@@ -60,8 +60,17 @@ Phases, in order; any failure exits non-zero before the result line:
  14. the mma.sync kernel's path: the reduced ``mistral-nemo-12b`` (float32,
      head_dim 16) prefill step on the card, against its plain-attention run,
      and that kernel timed at its attention shape;
- 15. one JSON line with every kernel's launches, error and times;
- 16. the last line, ``{"ok": true, "device": {...}}``.
+ 15. the LM training path (``[train]``, TRAIN_ARGS): K3-bwd against its
+     plain version and timed beside SDPA's backward; P (ABO-ZO's
+     perturbation) bit for bit its plain version and timed over the whole
+     model; ABO-ZO on the whole ``mistral-nemo-12b`` through
+     ``launch.train.main`` (wall a step, 400 Hopper K3 launches a step, P's
+     launches, peak memory over the parameter bytes); AdamW at full width
+     cut to 4 layers (step 1 against the plain attention, 3 timed steps,
+     K3 and K3-bwd in every layer, the 40-layer memory arithmetic); the
+     reduced config's resume, bit for bit;
+ 16. one JSON line with every kernel's launches, error and times;
+ 17. the last line, ``{"ok": true, "device": {...}}``.
 
 Imports torch and the port only. Exits non-zero, printing no result, when
 no CUDA device is present or the port's sources are not beside this file.
@@ -245,6 +254,57 @@ HTTP_W0_JOBS = [("shifted_sphere", 10**6, s) for s in range(6)]
 HTTP_W1_JOBS = HTTP_JOBS[:6]
 HTTP_INJECT = "0:worker_crash:nth=2:kind=kill"
 HTTP_PHASE_S = 150
+# Phase 15, the LM training path at full width (mistral-nemo-12b, bf16,
+# random weights from seed 0 as the launcher draws them), batch 8 of 512
+# tokens from BigramStream: (a) K3-bwd against autograd through the plain
+# attention at TRAIN_BWD_SHAPES (the AdamW shape, the reduced config's at
+# 512 and at (e)'s 128 tokens, a ragged sq and a window;
+# tests/test_torch_gpu.py's BWD_SHAPES), held as
+# max |got - want| over the tensor's max |want|, overall and per row, then
+# timed at the AdamW shape in turns with SDPA's backward; (b) P against its
+# plain version bit for bit (P_CASES, then the whole model), timed over the
+# whole model; (c) ABO-ZO on the whole model through launch.train.main
+# (ABO_STEPS steps); (d) AdamW through make_train_step at full width cut to
+# ADAMW_LAYERS of 40 layers (all 40 need 16 bytes a parameter, ~196 GB),
+# step 1's loss and gradients held against the plain attention's; (e) the
+# reduced config (float32: the mma kernel and K3-bwd's float32 path)
+# through the launcher, 8 steps against 4 plus a resume to 8, bit for bit.
+TRAIN_BWD_SHAPES = [
+    (8, 32, 8, 512, 512, 128, True, None, "bfloat16"),   # the AdamW shape
+    (4, 4, 2, 512, 512, 16, True, None, "float32"),      # the reduced config
+    (4, 4, 2, 128, 128, 16, True, None, "float32"),      # (e)'s resume
+    (2, 4, 2, 200, 200, 64, True, None, "bfloat16"),     # ragged sq
+    (2, 4, 2, 200, 200, 64, True, None, "float32"),
+    (2, 4, 4, 256, 256, 64, True, 96, "bfloat16"),       # window
+    (2, 4, 4, 256, 256, 64, True, 96, "float32"),
+]
+BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+BWD_ROW_TOL = {"bfloat16": 1e-1, "float32": 1e-3}
+BWD_ROW_FLOOR = 5e-2      # see grad_row_err
+# P: (elements, leaf offset, dtype): a ragged leaf, a stacked leaf's
+# offset, the counter's high word, a float32 leaf
+P_CASES = [(1_000_003, 0, "bfloat16"), (777_777, 3 * 2**31 + 5, "float32"),
+           (5 * 2**20 + 3, 2**32 - 1000, "bfloat16"),
+           (4096, 7 * 4096, "float32")]
+# P's own instructions an element (benchmarks_torch/p_sass.py "function"):
+# threefry's rotations and xors and the sign's xor run only on the integer
+# ALU pipe; the adds may go to the ALU or the FMA pipe; all of them issue.
+# The build's loop issues P_SASS_LOOP (p_sass.py "loop_total", NVIDIA H100
+# 80GB HBM3, 700.00 W), printed beside the bound.
+P_FN = {"alu_only": 41, "int_add": 35, "other": 2, "fp32": 1, "conv": 1}
+P_SASS_LOOP = 88
+TRAIN_T, TRAIN_B = 512, 8
+TRAIN_ARGS = ["--arch", LM_ARCH, "--seq-len", str(TRAIN_T), "--batch",
+              str(TRAIN_B)]
+ABO_STEPS = 2
+ADAMW_LAYERS = 4
+ADAMW_STEPS = 3
+# AdamW's step 1 with K3 against the plain attention, bf16 (PERF.md has
+# the readings): the loss, relative; each gradient tensor, max |diff| over
+# max |plain|
+ADAMW_LOSS_TOL = 1e-2
+ADAMW_GRAD_TOL = 5e-2     # tests/test_torch_gpu.py's MODEL_GRAD_TOL
+TRAIN_PHASE_S = 300
 
 
 def fail(msg: str) -> None:
@@ -1595,6 +1655,432 @@ def lm_phase(dev, seed: int) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the LM training path
+# ---------------------------------------------------------------------------
+def grad_row_err(got, want) -> float:
+    """Max over rows of the row's max |got - want| over the row's max
+    |want|, floored at BWD_ROW_FLOOR of the tensor's max |want|. A
+    gradient row can vanish (causal query row 0's dQ is exactly 0), and a
+    small dQ row is a cancellation, P·(dP - rowsum(dO·O)), that bf16 O
+    and bf16 dP round differently in the kernel and the plain version
+    (PERF.md): such rows are held in absolute terms at that floor."""
+    diff = (got.float() - want.float()).abs().amax(-1)
+    w = want.float().abs()
+    den = w.amax(-1).clamp_min(BWD_ROW_FLOOR * float(w.max()))
+    return float((diff / den).max())
+
+
+def _model_layout(t):
+    """t as a (b, h, s, d) view of a (b, s, h, d) buffer: the layout of the
+    model's projections, which K3 and K3-bwd read."""
+    return t.transpose(1, 2).contiguous().transpose(1, 2)
+
+
+def bwd_bound(b, hq, hkv, t, d, causal=True, peak=PEAK_BF16_OPS_S,
+              itemsize=2) -> tuple[float, str]:
+    """Least time for K3's backward at (b, hq/hkv, t, d): q, k, v, O, dO and
+    the lse read once, dQ, dK, dV written once; five products of 2·d FLOP a
+    kept (query, key) pair (S recomputed, dP, dV, dK, dQ)."""
+    pairs = t * (t + 1) / 2 if causal else t * t
+    return bound_ms(itemsize * (4 * b * hq * t * d + 4 * b * hkv * t * d)
+                    + 4 * b * hq * t, 10 * d * b * hq * pairs, peak)
+
+
+def p_bound(n: int, itemsize: int) -> tuple[float, str, dict]:
+    """Least time for P over n elements: each read and written once,
+    against the function's own instructions (P_FN): its shifts and logic
+    at the integer ALU pipe's rate, all of them at the issue rate."""
+    lanes = SMS * CLOCK_HZ
+    t_alu = n * P_FN["alu_only"] / (PIPE_RATE["alu"] * lanes)
+    t_issue = n * sum(P_FN.values()) / (ISSUE_LANES * lanes)
+    t_bytes = 2 * itemsize * n / PEAK_BYTES_S
+    t_ops = max(t_alu, t_issue)
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return 1e3 * max(t_ops, t_bytes), by, {
+        "alu_ms": 1e3 * t_alu, "issue_ms": 1e3 * t_issue,
+        "bytes_ms": 1e3 * t_bytes,
+        "build_issue_ms": 1e3 * n * P_SASS_LOOP / (ISSUE_LANES * lanes)}
+
+
+def train_bwd_readings(dev, seed: int) -> list[dict]:
+    """(a) K3-bwd against autograd through the plain attention at each
+    shape of TRAIN_BWD_SHAPES: per case the max |got - want| over the
+    tensor's max |want| and per row for dQ, dK and dV, the max abs error,
+    whether one backward launch was counted and a second run gave the same
+    bits."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_plain)
+    out = []
+    for shape in TRAIN_BWD_SHAPES:
+        b, hq, hkv, sq, sk, d, causal, window, name = shape
+        dtype = getattr(torch, name)
+        q, k, v = (_model_layout(t).requires_grad_(True)
+                   for t in _qkv(dev, seed, b, hq, hkv, sq, sk, d, dtype))
+        g = torch.Generator(device=dev).manual_seed(seed + 7)
+        dout = torch.randn((b, hq, sq, d), generator=g, device=dev).to(dtype)
+        before = flash_attention_bwd.launches
+        got = torch.autograd.grad(
+            flash_attention(q, k, v, causal=causal, window=window),
+            (q, k, v), dout)
+        launched = flash_attention_bwd.launches == before + 1
+        again = torch.autograd.grad(
+            flash_attention(q, k, v, causal=causal, window=window),
+            (q, k, v), dout)
+        want = flash_attention_bwd_plain(q, k, v, dout, causal=causal,
+                                         window=window)
+        torch.cuda.synchronize()
+        rel = {n: float((a.float() - w.float()).abs().max()
+                        / w.float().abs().max())
+               for n, a, w in zip(("dq", "dk", "dv"), got, want)}
+        row = {n: grad_row_err(a, w)
+               for n, a, w in zip(("dq", "dk", "dv"), got, want)}
+        err = max(float((a.float() - w.float()).abs().max())
+                  for a, w in zip(got, want))
+        same = all(torch.equal(a, c) for a, c in zip(got, again))
+        out.append({"shape": shape[:8], "dtype": name, "rel": rel, "row": row,
+                    "abs": err, "same_bits": same, "ok": (
+                        launched and same
+                        and all(bool(torch.isfinite(a).all()) for a in got)
+                        and max(rel.values()) < BWD_TOL[name]
+                        and max(row.values()) < BWD_ROW_TOL[name])})
+        del q, k, v, dout, got, again, want
+    return out
+
+
+def train_phase(dev, seed: int) -> list[dict]:
+    """Phase 15, the LM training path (see TRAIN_ARGS): (a) K3-bwd, (b) P,
+    (c) ABO-ZO on the whole mistral-nemo-12b, (d) AdamW at full width cut
+    to ADAMW_LAYERS layers, (e) the reduced config's resume on the card.
+    Returns the entries of the kernels line for K3-bwd and P."""
+    import dataclasses
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.synthetic import BigramStream, StreamConfig
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.perturb.ops import (abo_zo_perturb,
+                                                 abo_zo_perturb_plain)
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import leaf_map
+    from repro_torch.train import abo_zo, steps as steps_mod
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg = ARCHS[LM_ARCH]
+
+    # ---- (a) K3-bwd against its plain version, then timed ---------------
+    for r in train_bwd_readings(dev, seed):
+        print(f"[train] (a) K3-bwd {r['shape']} {r['dtype']}: max |err| / "
+              f"max |want| {r['rel']} (limit {BWD_TOL[r['dtype']]}), per row "
+              f"{r['row']} (limit {BWD_ROW_TOL[r['dtype']]}), max abs "
+              f"{r['abs']:.4g}; a second run the same bits {r['same_bits']}",
+              flush=True)
+        check(r["ok"], f"K3-bwd disagrees with its plain version at "
+              f"{r['shape']} {r['dtype']}, gave other bits on a repeat, or "
+              "did not launch")
+        if r["shape"] == TRAIN_BWD_SHAPES[0][:8]:
+            bwd_main = r
+    b, hq, hkv, d = TRAIN_B, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    t = TRAIN_T
+    q, k, v = (_model_layout(x) for x in _qkv(dev, seed, b, hq, hkv, t, t, d,
+                                               torch.bfloat16))
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+    dout = torch.randn((b, hq, t, d), generator=g, device=dev).to(
+        torch.bfloat16)
+    lse = torch.empty((b, hq, t), dtype=torch.float32, device=dev)
+    o = fa.flash_attention_sm90(q, k, v, lse=lse)
+    qs, ks, vs = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    o_sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                            enable_gqa=True)
+    runs = {"kernel": lambda: fa.flash_attention_bwd(q, k, v, o, dout, lse),
+            "sdpa": lambda: torch.autograd.grad(o_sdpa, (qs, ks, vs), dout,
+                                                retain_graph=True)}
+    for fn in runs.values():
+        fn()                                              # warm-up
+    ms = {n: [] for n in runs}
+    for n in ("kernel", "sdpa", "sdpa", "kernel"):        # in turns
+        ms[n].append(cuda_ms(runs[n], 20))
+    bwd_ms = sum(ms["kernel"]) / 2
+    sdpa_ms = sum(ms["sdpa"]) / 2
+    bwd_plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, dout),
+                           3)
+    bwd_b, bwd_by = bwd_bound(b, hq, hkv, t, d)
+    print(f"[train] (a) K3-bwd at ({b}, {hq}/{hkv}, {t}, {d}) bf16 causal, "
+          f"in turns: kernel {ms['kernel']} ms, SDPA's backward {ms['sdpa']} "
+          f"ms ({bwd_ms / sdpa_ms:.3f}x its time), plain {bwd_plain_ms:.3f} "
+          f"ms, bound {bwd_b:.4f} ms ({bwd_by}), {bwd_b / bwd_ms:.1%} of it",
+          flush=True)
+    del q, k, v, dout, lse, o, qs, ks, vs, o_sdpa, runs
+    torch.cuda.empty_cache()
+
+    # ---- (b) P against its plain version, bit for bit -------------------
+    key = (123456789, 987654321)
+    for n, offset, name in P_CASES:
+        dtype = getattr(torch, name)
+        g = torch.Generator(device=dev).manual_seed(n)
+        src = torch.randn(n, generator=g, device=dev).to(dtype)
+        got = abo_zo_perturb(torch.empty_like(src), src, key, offset, 0.0123)
+        want = abo_zo_perturb_plain(torch.empty_like(src), src, key, offset,
+                                    0.0123)
+        view = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        same = bool(torch.equal(got.view(view), want.view(view)))
+        print(f"[train] (b) P on {n} {name} elements at leaf offset {offset}:"
+              f" bit for bit its plain version {same}", flush=True)
+        check(same, f"P differs from its plain version at n={n}, "
+              f"offset={offset}, {name}")
+    del src, got, want
+    # over the whole model: the kernel into the probe buffer, timed, then
+    # the plain version tensor by tensor against it
+    model = Model(cfg, device=dev).init(seed)
+    params = dict(model.named_parameters())
+    n_par = sum(p.numel() for p in params.values())
+    probe = {n: torch.empty_like(p) for n, p in params.items()}
+    leaves = leaf_map(cfg)
+    dir_key = abo_zo.fold_in(abo_zo.prng_key(1), 0)
+    scale = np.float32(0.25) * np.float32(0.01)
+    abo_zo.perturb_(probe, params, leaves, dir_key, scale)     # warm-up
+    p_ms = cuda_ms(lambda: abo_zo.perturb_(probe, params, leaves, dir_key,
+                                           scale), 3)
+    p_plain_ms, p_same, p_err = 0.0, True, 0.0
+    for n, p in params.items():
+        leaf, offset = leaves[n]
+        want = torch.empty_like(p)
+        p_plain_ms += cuda_ms(lambda: abo_zo_perturb_plain(
+            want, p, abo_zo.split_key(dir_key, leaf), offset, scale), 1)
+        p_same &= bool(torch.equal(want.view(torch.int16),
+                                   probe[n].view(torch.int16)))
+        p_err = max(p_err, float((probe[n].float() - want.float()).abs()
+                                 .max()))
+        del want
+    p_b, p_by, p_parts = p_bound(n_par, 2)
+    print(f"[train] (b) P over the whole {LM_ARCH} ({n_par} bf16 parameters, "
+          f"{len(params)} tensors): kernel {p_ms:.3f} ms, plain "
+          f"{p_plain_ms:.1f} ms, bound {p_b:.3f} ms ({p_by}; {p_parts}), "
+          f"{p_b / p_ms:.1%} of it; bit for bit the plain version {p_same}",
+          flush=True)
+    check(p_same, "P over the whole model differs from its plain version")
+    del model, params, probe
+    torch.cuda.empty_cache()
+
+    # ---- (c) ABO-ZO on the whole model through the launcher --------------
+    records = []
+    make = steps_mod.make_train_step
+
+    def recording(*a, **kw):
+        step = make(*a, **kw)
+
+        def timed(*args):
+            torch.cuda.synchronize()
+            before = {w: w.launches for w in counted}
+            t0 = time.perf_counter()
+            out = step(*args)
+            torch.cuda.synchronize()
+            records.append({"wall": time.perf_counter() - t0,
+                            "launches": {w.__name__: w.launches - before[w]
+                                         for w in counted},
+                            "metrics": {k: float(x)
+                                        for k, x in out[1].items()}})
+            return out
+        return timed
+
+    counted = (fa.flash_attention_sm90, fa.flash_attention_mma,
+               fa.flash_attention_bwd, abo_zo_perturb)
+    torch.cuda.reset_peak_memory_stats()
+    for w in counted:
+        w.launches = 0
+    steps_mod.make_train_step = recording
+    log = io.StringIO()
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            final = train_launch.main(TRAIN_ARGS + [
+                "--optimizer", "abo_zo", "--steps", str(ABO_STEPS),
+                "--log-every", "1"])
+        abo_wall = time.perf_counter() - t0
+    finally:
+        steps_mod.make_train_step = make
+    peak = torch.cuda.max_memory_allocated()
+    launches_abo = {w.__name__: w.launches for w in counted}
+    for line in log.getvalue().splitlines():
+        print(f"[train] (c) {line}", flush=True)
+    for i, r in enumerate(records):
+        m = r["metrics"]
+        print(f"[train] (c) ABO-ZO step {i + 1}: wall {r['wall']:.3f} s, loss "
+              f"{m['loss']:.6f} (incumbent {m['incumbent']:.6f}, candidate "
+              f"{int(m['best'])} won), launches {r['launches']}", flush=True)
+        check(math.isfinite(m["loss"]) and m["loss"] <= m["incumbent"],
+              f"ABO-ZO step {i + 1}: loss {m['loss']} not finite or above "
+              f"its incumbent {m['incumbent']}")
+        check(r["launches"]["flash_attention_sm90"]
+              == (abo_zo.ABOZOConfig().m_candidates + 1) * cfg.n_layers
+              and r["launches"]["flash_attention_mma"] == 0
+              and r["launches"]["flash_attention_bwd"] == 0
+              and r["launches"]["abo_zo_perturb"] > 0,
+              f"ABO-ZO step {i + 1} launched {r['launches']}")
+    param_bytes = 2 * n_par
+    print(f"[train] (c) ABO-ZO on the whole {LM_ARCH}, {ABO_STEPS} steps of "
+          f"{TRAIN_B} x {TRAIN_T} tokens: main() {abo_wall:.2f} s with the "
+          f"draw, final loss {final:.6f}; step 2's loss {records[-1]['metrics']['loss']:.6f}"
+          f" vs step 1's incumbent {records[0]['metrics']['incumbent']:.6f} "
+          f"(two batches); peak device memory {peak} B = "
+          f"{peak / param_bytes:.4f} x the bf16 parameter bytes "
+          f"{param_bytes} (limit 2.5); launches {launches_abo}", flush=True)
+    check(len(records) == ABO_STEPS and math.isfinite(final),
+          "ABO-ZO did not run its steps to a finite loss")
+    check(peak < 2.5 * param_bytes, f"ABO-ZO's peak {peak} B is not under "
+          f"2.5 x the parameter bytes")
+    torch.cuda.empty_cache()
+
+    # ---- (d) AdamW at full width, ADAMW_LAYERS layers --------------------
+    cfg4 = dataclasses.replace(cfg, n_layers=ADAMW_LAYERS)
+    model = Model(cfg4, device=dev).init(seed).requires_grad_(True)
+    n4 = sum(p.numel() for p in model.parameters())
+    stream = BigramStream(StreamConfig(vocab_size=cfg4.vocab_size,
+                                       seq_len=TRAIN_T, global_batch=TRAIN_B))
+
+    def loss_and_grads(batch):
+        for p in model.parameters():
+            p.grad = None
+        loss = model.loss(batch, remat=True)[0]
+        loss.backward()
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        for p in model.parameters():
+            p.grad = None
+        return float(loss.detach()), grads
+
+    batch0 = {"tokens": stream.torch_batch(0, dev)}
+    loss_k3, g_k3 = loss_and_grads(batch0)
+    with plain_attention([]):
+        loss_plain, g_plain = loss_and_grads(batch0)
+    grad_rel = {n: float((g_k3[n].float() - g_plain[n].float()).abs().max()
+                         / g_plain[n].float().abs().max()) for n in g_k3}
+    qkv_zero = [n for n in g_k3 if n.split(".")[-1] in ("wq", "wk", "wv")
+                and float(g_k3[n].abs().max()) == 0.0]
+    worst = max(grad_rel, key=grad_rel.get)
+    loss_rel = abs(loss_k3 - loss_plain) / abs(loss_plain)
+    print(f"[train] (d) {LM_ARCH} cut to {ADAMW_LAYERS} of {cfg.n_layers} "
+          f"layers ({n4} parameters): step 1's loss with K3 {loss_k3:.6f}, "
+          f"with the plain attention {loss_plain:.6f} (relative "
+          f"{loss_rel:.3g}, limit {ADAMW_LOSS_TOL}); gradients, max |diff| / "
+          f"max |plain| per tensor: worst {worst} {grad_rel[worst]:.4g} "
+          f"(limit {ADAMW_GRAD_TOL}), wq/wk/wv "
+          f"{max(v for n, v in grad_rel.items() if n.split('.')[-1] in ('wq', 'wk', 'wv')):.4g};"
+          f" zero attention gradients {qkv_zero}", flush=True)
+    check(loss_rel <= ADAMW_LOSS_TOL and grad_rel[worst] <= ADAMW_GRAD_TOL
+          and not qkv_zero, "AdamW's step 1 with K3 disagrees with the plain "
+          "attention's, or a projection's gradient is zero")
+    del g_k3, g_plain
+    step = steps_mod.make_train_step(model, optimizer="adamw", remat=True)
+    state = steps_mod.init_opt_state(model)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for w in counted:
+        w.launches = 0
+    walls, losses = [], []
+    for s in range(ADAMW_STEPS):
+        batch = {"tokens": stream.torch_batch(s, dev)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(met["loss"]))
+    launches_adamw = {w.__name__: w.launches for w in counted}
+    peak = torch.cuda.max_memory_allocated()
+    n40 = cfg.n_params()
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"[train] (d) AdamW, {ADAMW_STEPS} steps of {TRAIN_B} x {TRAIN_T} "
+          f"tokens, remat: wall per step {[round(w, 4) for w in walls]} s, "
+          f"losses {losses}; launches {launches_adamw} "
+          f"({ADAMW_STEPS} steps); peak device memory {peak} B = "
+          f"{peak / (2 * n4):.3f} x the bf16 parameter bytes; 16 bytes a "
+          f"parameter (bf16 params and grads, fp32 master, m, v) for all "
+          f"{cfg.n_layers} layers: {16 * n40} B against the card's {total} B",
+          flush=True)
+    check(all(math.isfinite(x) for x in losses), "AdamW's loss not finite")
+    check(launches_adamw["flash_attention_sm90"] >= ADAMW_STEPS * ADAMW_LAYERS
+          and launches_adamw["flash_attention_bwd"]
+          == ADAMW_STEPS * ADAMW_LAYERS
+          and launches_adamw["flash_attention_mma"] == 0,
+          f"AdamW's steps launched {launches_adamw}: K3 and K3-bwd not in "
+          "every layer")
+    del model, step, state, met
+    torch.cuda.empty_cache()
+
+    # ---- (e) resume on the card, bit for bit -----------------------------
+    root = os.path.join(ROOT, "build", "train_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    common = ["--arch", LM_ARCH, "--reduced", "--seq-len", "128", "--batch",
+              "4", "--ckpt-every", "4", "--log-every", "100"]
+    for w in counted:
+        w.launches = 0
+    with contextlib.redirect_stdout(io.StringIO()):
+        full = train_launch.main(common + ["--steps", "8", "--ckpt-dir",
+                                           os.path.join(root, "a")])
+        train_launch.main(common + ["--steps", "4", "--ckpt-dir",
+                                    os.path.join(root, "b")])
+        resumed = train_launch.main(common + ["--steps", "8", "--ckpt-dir",
+                                              os.path.join(root, "b")])
+    launches_e = {w.__name__: w.launches for w in counted}
+    leaves_of = {}
+    for run in ("a", "b"):
+        d8 = os.path.join(root, run, f"step_{8:012d}")
+        leaves_of[run] = [np.load(os.path.join(d8, f))
+                          for f in sorted(os.listdir(d8)) if f.endswith(".npy")]
+    same = (len(leaves_of["a"]) == len(leaves_of["b"]) > 0
+            and all(x.dtype == y.dtype and np.array_equal(x, y)
+                    for x, y in zip(leaves_of["a"], leaves_of["b"])))
+    print(f"[train] (e) reduced {LM_ARCH} (float32) 8 AdamW steps vs 4 + a "
+          f"resume to 8: final loss {full!r} vs {resumed!r}; parameters and "
+          f"optimizer state bit for bit {same} ({len(leaves_of['a'])} "
+          f"leaves); launches {launches_e}", flush=True)
+    check(same and full == resumed, "the resumed run differs from the "
+          "uninterrupted one")
+    check(launches_e["flash_attention_mma"] > 0
+          and launches_e["flash_attention_bwd"] > 0,
+          "the reduced run did not go through the mma kernel and K3-bwd")
+    shutil.rmtree(root, ignore_errors=True)
+
+    total_s = time.perf_counter() - t_phase
+    print(f"[train] phase took {total_s:.1f} s (limit {TRAIN_PHASE_S} s) | "
+          f"{nvidia_smi_line()}", flush=True)
+    check(total_s <= TRAIN_PHASE_S, f"the training phase took {total_s:.1f} s")
+    return [
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+         "replaces": None,
+         "note": "port only: stands for the autodiff of "
+                 "src/repro/kernels/flash_attention/ref.py::attention_ref",
+         "launches": launches_adamw["flash_attention_bwd"],
+         "max_abs_err": bwd_main["abs"], "ms": bwd_ms,
+         "plain_ms": bwd_plain_ms, "bound_ms": bwd_b, "bound_by": bwd_by,
+         "library_ms": sdpa_ms,
+         "launches_of": f"{ADAMW_STEPS} AdamW steps, {LM_ARCH} at "
+                        f"{ADAMW_LAYERS} layers",
+         "max_abs_err_of": f"bf16 at ({b}, {hq}/{hkv}, {t}, {d}), causal",
+         "max_rel_err": bwd_main["rel"], "row_rel_err": bwd_main["row"],
+         "library": "scaled_dot_product_attention's backward"},
+        {"name": "abo_zo_perturb", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/abo_zo_perturb.cu",
+         "replaces": None,
+         "note": "port only: stands for src/repro/train/abo_zo.py:37 "
+                 "(_perturb)",
+         "launches": launches_abo["abo_zo_perturb"], "max_abs_err": p_err,
+         "ms": p_ms, "plain_ms": p_plain_ms, "bound_ms": p_b,
+         "bound_by": p_by, "library_ms": None,
+         "launches_of": f"{ABO_STEPS} ABO-ZO steps on the whole {LM_ARCH}",
+         "ms_of": f"the whole {LM_ARCH}, {n_par} bf16 parameters"},
+    ]
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1870,12 +2356,15 @@ def main() -> None:
     k3_mma = mma_path_phase(dev, args.seed)
     k3_mma.update(mma_model)
 
+    # ---- 15. the LM training path -------------------------------------------
+    train_kernels = train_phase(dev, args.seed)
+
     foreign = sorted(m for m in sys.modules if m.split(".")[0]
                      in ("jax", "jaxlib", "repro", "benchmarks"))
     check(not foreign, f"the smoke imported {foreign[:5]}: JAX, the JAX "
           "package or its benchmarks")
 
-    # ---- 15. kernels line ---------------------------------------------------
+    # ---- 16. kernels line ---------------------------------------------------
     kernels.append({
         "name": "sweep_pass", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sweep_pass.cu",
@@ -1894,9 +2383,10 @@ def main() -> None:
         "bound_by": k2_by, "library_ms": None})
     kernels.append(k3)
     kernels.append(k3_mma)
+    kernels.extend(train_kernels)
     print(json.dumps({"kernels": kernels}))
 
-    # ---- 16. result -------------------------------------------------------
+    # ---- 17. result -------------------------------------------------------
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -44,6 +44,9 @@
 //   * A masked score contributes exactly 0 to the sums, so a query row with
 //     no valid key comes out as zeros (the reference's docstring; see
 //     ROADMAP, K3, for how the reference's own versions differ there).
+//   * Optional: each query row's log-sum-exp, m + log(l) in natural units
+//     of s · sm_scale, for the backward kernel (flash_attention_bwd.cu); it
+//     is written after the output and moves none of its bits.
 //
 // Bound on an H100 at the model's shape (b = 1, 32 query / 8 kv heads,
 // T = 8192, d = 128, causal): operations. 4·b·hq·d·T(T+1)/2 = 5.5e11
@@ -172,7 +175,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_attn_bf16(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v,
-                __nv_bfloat16* __restrict__ o, Geom g, int vec16) {
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                Geom g, int vec16) {
   constexpr int kLdq = DP + 8;     // +16 bytes a row: conflict-free fragments
   constexpr int kLdv = kBN + 8;
   constexpr int kKSteps = DP / 16;
@@ -302,6 +306,11 @@ flash_attn_bf16(const __nv_bfloat16* __restrict__ q,
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   if (l0 == 0.0f) l0 = 1.0f;
   if (l1 == 0.0f) l1 = 1.0f;
+  if (lse != nullptr && tg == 0) {
+    float* lp = lse + static_cast<long long>(bh) * g.sq;
+    if (row0 < g.sq) lp[row0] = m0 + logf(l0);
+    if (row1 < g.sq) lp[row1] = m1 + logf(l1);
+  }
   __nv_bfloat16* op = o + b * g.o_sb + h * g.o_sh;
 #pragma unroll
   for (int nt = 0; nt < kTilesO; ++nt) {
@@ -318,7 +327,8 @@ flash_attn_bf16(const __nv_bfloat16* __restrict__ q,
 
 template <int DP>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
-                const Geom& g, int batch, int vec16, cudaStream_t stream) {
+                float* lse, const Geom& g, int batch, int vec16,
+                cudaStream_t stream) {
   constexpr int kSmem = (kBM * (DP + 8) + kBN * (DP + 8) + DP * (kBN + 8)) *
                         static_cast<int>(sizeof(__nv_bfloat16));
   cudaError_t err = cudaFuncSetAttribute(
@@ -327,8 +337,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((g.sq + kBM - 1) / kBM, batch * g.hq);
   flash_attn_bf16<DP><<<grid, kThreads, kSmem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), g,
-      vec16);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse,
+      g, vec16);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -341,7 +351,8 @@ constexpr int kFDims = 128 / kFLanes;   // dimensions a thread, at most
 
 __global__ void __launch_bounds__(kFThreads)
 flash_attn_f32(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, float* __restrict__ o, Geom g) {
+               const float* __restrict__ v, float* __restrict__ o,
+               float* __restrict__ lse, Geom g) {
   extern __shared__ float fsm[];
   float* ks = fsm;                      // [kFBN][d]
   float* vs = fsm + kFBN * g.d;         // [kFBN][d]
@@ -418,6 +429,8 @@ flash_attn_f32(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
   if (l == 0.0f) l = 1.0f;
+  if (lse != nullptr && part == 0 && row < g.sq)
+    lse[static_cast<long long>(bh) * g.sq + row] = m + logf(l);
   if (row < g.sq) {
     float* orow = o + b * g.o_sb + h * g.o_sh + row * g.o_ss;
 #pragma unroll
@@ -427,7 +440,7 @@ flash_attn_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 int launch_f32(const void* q, const void* k, const void* v, void* o,
-               const Geom& g, int batch, cudaStream_t stream) {
+               float* lse, const Geom& g, int batch, cudaStream_t stream) {
   const int smem = 2 * kFBN * g.d * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
       flash_attn_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -435,7 +448,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((g.sq + kFRows - 1) / kFRows, batch * g.hq);
   flash_attn_f32<<<grid, kFThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), g);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, g);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -446,8 +459,10 @@ extern "C" {
 // q (b, hq, sq, d), k and v (b, hkv, sk, d), o (b, hq, sq, d), each with
 // its (batch, head, sequence) strides in elements and the last dimension
 // contiguous. dtype: 0 float32, 1 bfloat16. window <= 0: none. vec16: every
-// bf16 row start is 16-byte aligned (16-byte loads). Returns the cudaError_t
-// of the launch (0 on success); the wrapper checks shapes and types.
+// bf16 row start is 16-byte aligned (16-byte loads). lse: null, or a
+// contiguous (b, hq, sq) float32 buffer for each row's log-sum-exp. Returns
+// the cudaError_t of the launch (0 on success); the wrapper checks shapes
+// and types.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int dtype, int batch, int hq, int hkv,
                            int sq, int sk, int d, long long q_sb,
@@ -455,14 +470,16 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                            long long k_sh, long long k_ss, long long v_sb,
                            long long v_sh, long long v_ss, long long o_sb,
                            long long o_sh, long long o_ss, int causal,
-                           int window, float scale, int vec16, void* stream) {
+                           int window, float scale, int vec16, void* lse,
+                           void* stream) {
   Geom g{q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
          o_sb, o_sh, o_ss, hq, hq / hkv, sq, sk, d, causal, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_f32(q, k, v, o, g, batch, s);
-  if (d <= 32) return launch_bf16<32>(q, k, v, o, g, batch, vec16, s);
-  if (d <= 64) return launch_bf16<64>(q, k, v, o, g, batch, vec16, s);
-  return launch_bf16<128>(q, k, v, o, g, batch, vec16, s);
+  float* l = static_cast<float*>(lse);
+  if (dtype == 0) return launch_f32(q, k, v, o, l, g, batch, s);
+  if (d <= 32) return launch_bf16<32>(q, k, v, o, l, g, batch, vec16, s);
+  if (d <= 64) return launch_bf16<64>(q, k, v, o, l, g, batch, vec16, s);
+  return launch_bf16<128>(q, k, v, o, l, g, batch, vec16, s);
 }
 
 const char* kernel_error_string(int code) {

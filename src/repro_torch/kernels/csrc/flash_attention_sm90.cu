@@ -45,6 +45,10 @@
 //     is on the tensor cores, and the accumulator is rescaled after it.
 //   * Blocks wholly past the causal diagonal or before the window are
 //     skipped; only blocks that cross a mask edge compute the mask.
+//   * Optional: each query row's log-sum-exp in natural units of
+//     s · sm_scale, (m + log2(l)) · ln 2, for the backward kernel
+//     (flash_attention_bwd.cu); written after the output, it moves none of
+//     its bits.
 //
 // Bound on an H100 at the model's shape (b = 1, 32 query / 8 kv heads,
 // T = 8192, d = 128, causal): operations. 4·b·hq·d·T(T+1)/2 = 5.5e11 bf16
@@ -242,7 +246,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_attn_sm90(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv,
-                __nv_bfloat16* __restrict__ o, Geom g) {
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                Geom g) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
   unsigned char* smem = smem_raw + ((1024 - (raw & 1023)) & 1023);
@@ -449,6 +454,12 @@ flash_attn_sm90(const __grid_constant__ CUtensorMap tq,
     l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
     if (l0 == 0.0f) l0 = 1.0f;
     if (l1 == 0.0f) l1 = 1.0f;
+    if (lse != nullptr && tg == 0) {
+      constexpr float kLn2 = 0.693147180559945309f;
+      float* lp = lse + static_cast<long long>(bh) * g.sq;
+      if (row0 < g.sq) lp[row0] = (m0 + log2f(l0)) * kLn2;
+      if (row1 < g.sq) lp[row1] = (m1 + log2f(l1)) * kLn2;
+    }
     __nv_bfloat16* op = o + b * g.o_sb + h * g.o_sh;
 #pragma unroll
     for (int nt = 0; nt < 16; ++nt) {
@@ -523,7 +534,9 @@ extern "C" {
 // each with its (batch, head, sequence) strides in elements and the last
 // dimension contiguous; d is 120 or 128; every base pointer is 16-byte
 // aligned and every stride a multiple of 8 elements. window <= 0: none.
-// scale_log2 is sm_scale · log2(e): the softmax runs in base 2.
+// scale_log2 is sm_scale · log2(e): the softmax runs in base 2. lse: null,
+// or a contiguous (b, hq, sq) float32 buffer for each row's log-sum-exp in
+// natural units.
 // Returns 0 on success, the cudaError_t of the launch, or kEncodeError plus
 // the CUresult of a failed tensor-map encoding; the wrapper checks shapes,
 // types and alignment.
@@ -534,7 +547,7 @@ int flash_attention_sm90_launch(const void* q, const void* k, const void* v,
                                 long long k_ss, long long v_sb, long long v_sh,
                                 long long v_ss, long long o_sb, long long o_sh,
                                 long long o_ss, int causal, int window,
-                                float scale_log2, void* stream) {
+                                float scale_log2, void* lse, void* stream) {
   CUtensorMap tq, tk, tv;
   int err = encode(&tq, q, batch, hq, sq, d, q_sb, q_sh, q_ss);
   if (err == 0) err = encode(&tk, k, batch, hkv, sk, d, k_sb, k_sh, k_ss);
@@ -547,7 +560,7 @@ int flash_attention_sm90_launch(const void* q, const void* k, const void* v,
          scale_log2};
   const dim3 grid((sq + kBM - 1) / kBM, batch * hq);
   flash_attn_sm90<<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), g);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), g);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -18,6 +18,22 @@ There is no device probe, and no fallback from one kernel to the other or
 to the plain version. Each kernel wrapper counts its own launches
 (``flash_attention_sm90.launches``, ``flash_attention_mma.launches``);
 ``flash_attention.launches`` counts the op's launches of either.
+
+The gradient. Where grad mode is on and q, k or v requires grad, the op
+on a CUDA tensor is a ``torch.autograd.Function``: its forward is the
+kernel ``choose_kernel`` names, which also writes each query row's
+log-sum-exp (``lse``, float32, natural log of the sum of exp(s·sm_scale)),
+and its backward is ``flash_attention_bwd``, the port-only kernel of
+``csrc/flash_attention_bwd.cu`` (dQ, dK and dV from q, k, v, O, dO and the
+lse; no atomics). The reference has no backward kernel: its gradient
+through attention is autodiff of ``attention_ref``, so the plain version
+of the backward is autograd through ``flash_attention_plain``, and on a
+CPU tensor the op is the plain version, autograd and all. Where the
+backward kernel does not take the inputs (a dtype other than float32 and
+bfloat16, head_dim not a multiple of 8 up to 128), the op raises rather
+than fall back. ``flash_attention_bwd.launches`` counts calls of its
+wrapper: one call, one layer's backward, runs three CUDA kernels (the
+``rowsum(dO·O)`` pre-pass, dK and dV, dQ).
 """
 from __future__ import annotations
 
@@ -44,7 +60,7 @@ def _launcher():
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                    + [ctypes.c_longlong] * 12
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                      ctypes.c_int, ctypes.c_void_p])
+                      ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib, fn
 
@@ -56,7 +72,19 @@ def _launcher_sm90():
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                    + [ctypes.c_longlong] * 12
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                      ctypes.c_void_p])
+                      ctypes.c_void_p, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+@functools.cache
+def _launcher_bwd():
+    lib = _build.load("flash_attention_bwd")
+    fn = lib.flash_attention_bwd_launch
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+                   + [ctypes.c_longlong] * 24
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib, fn
 
@@ -123,8 +151,8 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None):
 
 
 def _new_out(q):
-    """A (b, hq, sq, d) view of a (b, sq, hq, d) buffer, so the caller's
-    merge of the heads is free."""
+    """A (b, h, s, d) view of a (b, s, h, d) buffer, so the caller's merge
+    of the heads (or split, for a gradient) is free."""
     b, hq, sq, d = q.shape
     return torch.empty((b, sq, hq, d), dtype=q.dtype,
                        device=q.device).transpose(1, 2)
@@ -134,10 +162,25 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def flash_attention_mma(q, k, v, *, causal=True, window=None):
+def _lse_ptr(lse, q) -> int | None:
+    """The pointer of an optional (b, hq, sq) contiguous float32 lse
+    output, checked."""
+    if lse is None:
+        return None
+    b, hq, sq, _ = q.shape
+    if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, hq, sq)
+            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError(f"lse must be a contiguous float32 ({b}, {hq}, {sq}) "
+                         f"tensor on {q.device}")
+    return lse.data_ptr()
+
+
+def flash_attention_mma(q, k, v, *, causal=True, window=None, lse=None):
     """The kernel of ``csrc/flash_attention.cu`` on CUDA tensors (float32
     or bfloat16, d a multiple of 8 up to 128, any strides with the last
-    dimension contiguous); returns ``_new_out(q)`` filled."""
+    dimension contiguous); returns ``_new_out(q)`` filled. ``lse``, if
+    given, receives each row's log-sum-exp; the output's bits are the same
+    either way."""
     b, hq, hkv, sk, d = _check(q, k, v, window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_mma runs on cuda, not {q.device}")
@@ -152,26 +195,33 @@ def flash_attention_mma(q, k, v, *, causal=True, window=None):
         raise ValueError(f"batch x heads = {b * hq} exceeds the grid's 65535")
     sq = q.shape[2]
     out = _new_out(q)
+    lse_ptr = _lse_ptr(lse, q)
     if sq == 0 or b * hq == 0:
         return out
-    vec16 = all(t.data_ptr() % 16 == 0
-                and all(s % 8 == 0 for s in t.stride()[:3])
-                for t in (q, k, v))
+    vec16 = _vec16(q, k, v)
     lib, fn = _launcher()
     with torch.cuda.device(q.device):
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   _DTYPES[q.dtype], b, hq, hkv, sq, sk, d,
                   *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                   *out.stride()[:3], int(bool(causal)), int(window or 0),
-                  d ** -0.5, int(vec16), _stream(q))
+                  d ** -0.5, int(vec16), lse_ptr, _stream(q))
     _build.check(lib, code, "flash_attention")
     flash_attention_mma.launches += 1
     return out
 
 
-def flash_attention_sm90(q, k, v, *, causal=True, window=None):
+def _vec16(*ts) -> bool:
+    """Every base pointer 16-byte aligned and every (b, h, s) stride a
+    multiple of 8 elements: the kernels' 16-byte loads."""
+    return all(t.data_ptr() % 16 == 0
+               and all(st % 8 == 0 for st in t.stride()[:3]) for t in ts)
+
+
+def flash_attention_sm90(q, k, v, *, causal=True, window=None, lse=None):
     """The kernel of ``csrc/flash_attention_sm90.cu`` on CUDA tensors that
-    ``choose_kernel`` sends to it; raises on any other."""
+    ``choose_kernel`` sends to it; raises on any other. ``lse`` as in
+    ``flash_attention_mma``."""
     b, hq, hkv, sk, d = _check(q, k, v, window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_sm90 runs on cuda, not {q.device}")
@@ -187,6 +237,7 @@ def flash_attention_sm90(q, k, v, *, causal=True, window=None):
         raise ValueError(f"batch x heads = {b * hq} exceeds the grid's 65535")
     sq = q.shape[2]
     out = _new_out(q)
+    lse_ptr = _lse_ptr(lse, q)
     if sq == 0 or b * hq == 0:
         return out
     lib, fn = _launcher_sm90()
@@ -194,7 +245,8 @@ def flash_attention_sm90(q, k, v, *, causal=True, window=None):
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   b, hq, hkv, sq, sk, d, *_tma_strides(q), *_tma_strides(k),
                   *_tma_strides(v), *out.stride()[:3], int(bool(causal)),
-                  int(window or 0), d ** -0.5 * math.log2(math.e), _stream(q))
+                  int(window or 0), d ** -0.5 * math.log2(math.e), lse_ptr,
+                  _stream(q))
     _build.check(lib, code, "flash_attention_sm90")
     flash_attention_sm90.launches += 1
     return out
@@ -202,6 +254,102 @@ def flash_attention_sm90(q, k, v, *, causal=True, window=None):
 
 _KERNELS = {"flash_attention_sm90": flash_attention_sm90,
             "flash_attention_mma": flash_attention_mma}
+
+
+# ---------------------------------------------------------------- backward
+def check_bwd(q) -> None:
+    """Raise unless the backward kernel takes q's dtype and head_dim."""
+    d = q.shape[-1]
+    if q.dtype not in _DTYPES or d % 8 or d > 128:
+        raise ValueError(
+            f"flash_attention's backward kernel takes float32 or bfloat16 "
+            f"with head_dim a multiple of 8 up to 128, not {q.dtype} with "
+            f"head_dim {d}: no gradient is taken through K3 here")
+
+
+def flash_attention_bwd_plain(q, k, v, dout, *, causal=True, window=None):
+    """The plain version of the backward: autograd through
+    ``flash_attention_plain`` (the reference's gradient through
+    ``attention_ref``). Returns (dq, dk, dv)."""
+    with torch.enable_grad():
+        qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+        out = flash_attention_plain(qq, kk, vv, causal=causal, window=window)
+        return torch.autograd.grad(out, (qq, kk, vv), dout)
+
+
+def flash_attention_bwd(q, k, v, out, dout, lse, *, causal=True,
+                        window=None):
+    """dQ, dK and dV of K3's function by the kernel of
+    ``csrc/flash_attention_bwd.cu``: a pre-pass for each row's
+    ``rowsum(dO·O)``, one CTA per (batch, kv head, kv block) for dK and dV
+    over the group's query heads and every q block in order, one CTA per
+    (batch, query head, q block) for dQ. Deterministic: no atomics.
+
+    q (b, hq, sq, d), k and v (b, hkv, sk, d), ``out`` and ``dout`` (b,
+    hq, sq, d), any strides with the last dimension contiguous, float32 or
+    bfloat16, d a multiple of 8 up to 128; ``lse`` the forward's (b, hq,
+    sq) float32 log-sum-exp. Returns (dq, dk, dv) in q's dtype, each a
+    (b, h, s, d) view of a (b, s, h, d) buffer. On CPU tensors it is
+    ``flash_attention_bwd_plain`` (``out`` and ``lse`` unused)."""
+    b, hq, hkv, sk, d = _check(q, k, v, window)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, dout, causal=causal,
+                                         window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd runs on cuda or cpu, not "
+                         f"{q.device}")
+    check_bwd(q)
+    sq = q.shape[2]
+    for name, t in (("out", out), ("dout", dout)):
+        if tuple(t.shape) != tuple(q.shape) or t.dtype != q.dtype:
+            raise ValueError(f"{name} must match q: {tuple(t.shape)} "
+                             f"{t.dtype}")
+    _lse_ptr(lse, q)
+    if any(t.stride(-1) != 1 for t in (q, k, v, out, dout)):
+        raise ValueError("the kernel needs the last dimension contiguous")
+    if b * hq > 65535:
+        raise ValueError(f"batch x heads = {b * hq} exceeds the grid's 65535")
+    dq, dk, dv = _new_out(q), _new_out(k), _new_out(v)
+    if sq == 0 or sk == 0 or b * hq == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    lib, fn = _launcher_bwd()
+    with torch.cuda.device(q.device):
+        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                  _DTYPES[q.dtype], b, hq, hkv, sq, sk, d,
+                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                  *out.stride()[:3], *dout.stride()[:3], *dq.stride()[:3],
+                  *dk.stride()[:3], *dv.stride()[:3], int(bool(causal)),
+                  int(window or 0), d ** -0.5,
+                  int(_vec16(q, k, v, out, dout)), _stream(q))
+    _build.check(lib, code, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K3 on CUDA tensors with its backward kernel as the gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        b, hq, sq, _ = q.shape
+        lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+        out = _KERNELS[choose_kernel(q, k, v)](q, k, v, causal=causal,
+                                                window=window, lse=lse)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        if dout.stride(-1) != 1:
+            dout = dout.contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse,
+                                         causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q, k, v, *, causal=True, window=None):
@@ -216,15 +364,21 @@ def flash_attention(q, k, v, *, causal=True, window=None):
     strides with the last dimension contiguous) the kernel that
     ``choose_kernel`` names runs and returns a (b, hq, sq, d) view of a
     (b, sq, hq, d) buffer, so the caller's merge of the heads is free. Rows
-    with no valid key come out as zeros there.
+    with no valid key come out as zeros there. Where grad mode is on and an
+    input requires grad, the kernel also keeps each row's log-sum-exp and
+    the gradient is ``flash_attention_bwd``'s (the module docstring).
     """
     _check(q, k, v, window)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
-    out = _KERNELS[choose_kernel(q, k, v)](q, k, v, causal=causal,
-                                            window=window)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        check_bwd(q)
+        out = _FlashAttention.apply(q, k, v, causal, window)
+    else:
+        out = _KERNELS[choose_kernel(q, k, v)](q, k, v, causal=causal,
+                                                window=window)
     flash_attention.launches += 1
     return out
 
@@ -232,3 +386,4 @@ def flash_attention(q, k, v, *, causal=True, window=None):
 flash_attention.launches = 0
 flash_attention_mma.launches = 0
 flash_attention_sm90.launches = 0
+flash_attention_bwd.launches = 0

@@ -5,6 +5,7 @@ Port of :mod:`repro.models.model` for the dense decoders, as an
 
   model = Model(cfg).init(seed)            # on the card unless device= given
   logits, aux = model.forward(tokens)
+  loss, metrics = model.loss(batch, remat=True)
   logits, cache = model.prefill(tokens, max_len=...)
   cache = model.init_cache(batch, max_len)
   logits, cache = model.decode_step(tokens, cache, pos)
@@ -13,7 +14,14 @@ Port of :mod:`repro.models.model` for the dense decoders, as an
 ``cfg.param_dtype``; ``init`` draws them there from a ``torch.Generator``
 one tensor at a time, so a full-width model never has a float32 or host
 copy. ``models.params.params_from_jax`` fills one from the reference's
-parameters instead. ``loss``, ``encode`` and ``fill_cross_cache`` wait for
+parameters instead.
+
+``forward`` and ``loss`` are differentiable: the AdamW route turns the
+parameters' gradients on with ``model.requires_grad_(True)`` (every
+parameter is made with ``requires_grad=False``, so serving builds no
+graph), and K3's gradient is its backward kernel
+(``kernels.flash_attention.ops``). ``prefill`` and ``decode_step`` run
+under ``torch.no_grad()``. ``encode`` and ``fill_cross_cache`` wait for
 later slices; M-RoPE and encoder-decoder configs raise.
 """
 from __future__ import annotations
@@ -86,17 +94,35 @@ class Model(nn.Module):
         return positions
 
     # ------------------------------------------------------------- forward
-    @torch.no_grad()
-    def forward(self, tokens, *, positions=None, last_only=False):
+    def forward(self, tokens, *, positions=None, last_only=False,
+                remat=False):
         """Full-sequence logits (b, t, V), or (b, 1, V) of the last position
-        with ``last_only``. Returns (logits, aux)."""
+        with ``last_only``. Returns (logits, aux). ``remat`` recomputes each
+        pattern unit of the layer groups in the backward pass
+        (``transformer.stack_apply``)."""
         x = self._embed(tokens)
         x, aux = tfm.stack_apply(self.decoder, self.cfg, x,
                                  positions=self._positions(tokens, positions),
-                                 causal=True)
+                                 causal=True, remat=remat)
         if last_only:
             x = x[:, -1:]
         return self._logits(x), aux
+
+    # ------------------------------------------------------------------ loss
+    def loss(self, batch, *, remat=False):
+        """Next-token cross-entropy on float32 logits. batch: tokens (b,
+        t+1) [+ positions]. Returns (loss, {"ce", "aux"}); MoE configs
+        (which add ``0.01·aux``) raise at construction."""
+        tokens = batch["tokens"]
+        inputs, labels = tokens[:, :-1], tokens[:, 1:]
+        logits, aux = self.forward(inputs, positions=batch.get("positions"),
+                                   remat=remat)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        del logits
+        ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]
+        ce = -ll.mean()
+        loss = ce + 0.01 * aux if self.cfg.n_experts > 0 else ce
+        return loss, {"ce": ce, "aux": aux}
 
     # ----------------------------------------------------------------- cache
     def init_cache(self, batch, max_len, dtype=None):

@@ -6,7 +6,9 @@ copies (``jax.lax.scan``); the port keeps one module per layer in an
 ``nn.ModuleList`` in layer index order (the reference's head, groups
 unit-major and tail, concatenated) and loops over them. Caches are a list
 in the same order, one dict per layer. ``stack_layout`` remains for
-``models.params``, which unstacks the reference's groups.
+``models.params``, which unstacks the reference's groups. With ``remat``,
+``stack_apply`` checkpoints each pattern unit of the groups (the units the
+reference scans), not the head or tail layers, as the reference does.
 
 Mixers ``attn``/``swa`` and dense MLPs only. RG-LRU, RWKV6, MoE and
 cross-attention raise ``NotImplementedError`` (ROADMAP queue 1, item 11).
@@ -17,6 +19,7 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as _checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
@@ -130,16 +133,49 @@ def stack_init(cfg: ArchConfig, dtype, device) -> nn.ModuleList:
                           for i in range(cfg.n_layers)])
 
 
+def _remat_wrap(fn, remat):
+    """remat: False | True (full) | "save_collectives".
+
+    True recomputes ``fn`` in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant). The reference's
+    "save_collectives" keeps only the outputs of its cross-device
+    collectives; on one device there is none to keep, so it is full
+    remat here."""
+    if not remat:
+        return fn
+    if remat not in (True, "save_collectives"):
+        raise ValueError(f"remat must be False, True or 'save_collectives', "
+                         f"not {remat!r}")
+
+    def wrapped(*args):
+        return _checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return wrapped
+
+
 def stack_apply(layers, cfg: ArchConfig, x, *, positions, causal=True,
-                cross_kv=None):
-    """Full-sequence stack. Returns (x, aux)."""
+                cross_kv=None, remat=False):
+    """Full-sequence stack. Returns (x, aux). ``remat`` recomputes each
+    pattern unit of the groups in the backward pass (``_remat_wrap``)."""
+    head, n_groups, unit, tail = stack_layout(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, lp in enumerate(layers):
-        x, a = layer_apply(lp, cfg, cfg.mixer_kind(i), cfg.mlp_kind(i), x,
-                           positions=positions, causal=causal,
-                           cross_kv=cross_kv)
+
+    def run(x, first, count):
+        a_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(first, first + count):
+            x, a = layer_apply(layers[i], cfg, cfg.mixer_kind(i),
+                               cfg.mlp_kind(i), x, positions=positions,
+                               causal=causal, cross_kv=cross_kv)
+            a_sum = a_sum + a
+        return x, a_sum
+
+    unit_apply = _remat_wrap(lambda x, first: run(x, first, unit), remat)
+    x, a = run(x, 0, len(head))
+    aux = aux + a
+    for g in range(n_groups):
+        x, a = unit_apply(x, cfg.first_dense + g * unit)
         aux = aux + a
-    return x, aux
+    x, a = run(x, len(head) + n_groups * unit, len(tail))
+    return x, aux + a
 
 
 def stack_prefill(layers, cfg: ArchConfig, x, *, positions, max_len):

@@ -23,6 +23,14 @@ and that a snapshot resumes to the uninterrupted run's bits, also with
 the value at the save, whatever the tensor holds after it. Over HTTP, an
 in-process front door whose stepper runs the engine on its own thread
 delivers the same bits.
+
+The training path's kernels (port only): K3-bwd's dQ, dK and dV against
+autograd through the plain attention, each held as max |got - want| over
+the tensor's max |want| and per row (BWD_TOL, BWD_ROW_TOL), two runs giving
+the same bits; K3's forward keeping its output bits when it also writes the
+log-sum-exp; P (ABO-ZO's perturbation) equal to its plain version bit for
+bit; and a gradient through ``Model.loss`` on the card that reaches q, k
+and v (the attention's projections), equal to the plain attention's.
 """
 import pytest
 import torch
@@ -38,9 +46,13 @@ from repro_torch.kernels.coord_sweep.ref import (abo_minimize_kernel_ref,
                                                  sweep_pass_ref)
 from repro_torch.kernels.flash_attention.ops import (choose_kernel,
                                                      flash_attention,
+                                                     flash_attention_bwd,
+                                                     flash_attention_bwd_plain,
                                                      flash_attention_mma,
                                                      flash_attention_plain,
                                                      flash_attention_sm90)
+from repro_torch.kernels.perturb.ops import (abo_zo_perturb,
+                                             abo_zo_perturb_plain)
 from repro_torch.kernels.griewank.ops import (griewank_aggregates,
                                               griewank_shortcut_mismatches)
 from repro_torch.kernels.griewank.ref import griewank_aggregates_ref
@@ -68,6 +80,27 @@ SM90_SHAPES = [s for s in ATTN_SHAPES if s[5] in (120, 128)]
 ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-3}
 ATTN_ROW_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-3}
 AGG_TOL = 1e-3     # times (1 + |a_in|)
+# K3-bwd: the shapes chip_smoke.py checks (the AdamW training shape, the
+# reduced config's at 512 and at the resume's 128 tokens, a ragged sq and a
+# window), and its limits: max |got -
+# want| over the tensor's max |want|, overall and per row (PERF.md has the
+# readings)
+BWD_SHAPES = [
+    (8, 32, 8, 512, 512, 128, True, None, torch.bfloat16),
+    (4, 4, 2, 512, 512, 16, True, None, torch.float32),
+    (4, 4, 2, 128, 128, 16, True, None, torch.float32),
+    (2, 4, 2, 200, 200, 64, True, None, torch.bfloat16),
+    (2, 4, 2, 200, 200, 64, True, None, torch.float32),
+    (2, 4, 4, 256, 256, 64, True, 96, torch.bfloat16),
+    (2, 4, 4, 256, 256, 64, True, 96, torch.float32),
+]
+BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+BWD_ROW_TOL = {torch.bfloat16: 1e-1, torch.float32: 1e-3}
+BWD_ROW_FLOOR = 5e-2      # see _grad_row_err
+# a model's gradients with K3 and K3-bwd against the plain attention's, per
+# tensor, max |diff| over max |plain| (bf16: the plain attention rounds
+# Q·Kᵀ to bf16, the kernels keep it float32)
+MODEL_GRAD_TOL = {"bfloat16": 5e-2, "float32": 1e-4}
 
 pytestmark = pytest.mark.gpu
 
@@ -544,3 +577,159 @@ def test_http_front_door_on_the_card_equals_abo_minimize(cuda, sanitize):
         fe.begin_shutdown("test done")
         fe.finalize()
         server.join(timeout=30)
+
+
+# ---------------------------------------------------------------------------
+# the training path: K3-bwd, K3's lse, P
+# ---------------------------------------------------------------------------
+def _model_layout(t):
+    """t as a (b, h, s, d) view of a (b, s, h, d) buffer, the layout of the
+    model's projections."""
+    return t.transpose(1, 2).contiguous().transpose(1, 2)
+
+
+def _grad_row_err(got, want):
+    """Max over rows of the row's max |got - want| over the row's max
+    |want|, floored at BWD_ROW_FLOOR of the tensor's max |want| (a
+    gradient row can vanish: causal query row 0's dQ is exactly 0; and a
+    small dQ row is a cancellation that bf16 rounds differently in the
+    kernel and the plain version)."""
+    diff = (got.float() - want.float()).abs().amax(-1)
+    w = want.float().abs()
+    den = w.amax(-1).clamp_min(BWD_ROW_FLOOR * float(w.max()))
+    return float((diff / den).max())
+
+
+def _bwd_case(shape, dev, seed=0):
+    b, hq, hkv, sq, sk, d, causal, window, dtype = shape
+    q, k, v = (_model_layout(t).requires_grad_(True)
+               for t in _qkv((b, hq, hkv, sq, sk, d), dtype, dev, seed))
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+    dout = torch.randn((b, hq, sq, d), generator=g, device=dev).to(dtype)
+    return q, k, v, dout, causal, window
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_flash_attention_bwd_matches_plain(cuda, shape):
+    q, k, v, dout, causal, window = _bwd_case(shape, cuda)
+    dtype = shape[-1]
+    before = flash_attention_bwd.launches
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    want = flash_attention_bwd_plain(q, k, v, dout, causal=causal,
+                                     window=window)
+    for name, a, w in zip("qkv", got, want):
+        assert a.shape == w.shape and a.dtype == dtype
+        assert bool(torch.isfinite(a).all())
+        err = float((a.float() - w.float()).abs().max()
+                    / w.float().abs().max())
+        assert err < BWD_TOL[dtype], (name, err)
+        assert _grad_row_err(a, w) < BWD_ROW_TOL[dtype], name
+    again = torch.autograd.grad(
+        flash_attention(q, k, v, causal=causal, window=window), (q, k, v),
+        dout)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)           # no atomics: the same bits
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 2, 256, 256, 128, True, None),
+                                   (1, 4, 2, 200, 200, 64, True, None),
+                                   (1, 32, 8, 333, 333, 120, True, 96),
+                                   (2, 4, 2, 100, 300, 16, False, None)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_lse_keeps_the_output_bits(cuda, shape, dtype):
+    """Both forward kernels give the same output with the log-sum-exp on,
+    and the lse is the plain logsumexp of the masked, scaled scores."""
+    causal, window = shape[6], shape[7]
+    q, k, v = _qkv(shape, dtype, cuda)
+    kernel = globals()[choose_kernel(q, k, v)]
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=cuda)
+    plain = kernel(q, k, v, causal=causal, window=window)
+    with_lse = kernel(q, k, v, causal=causal, window=window, lse=lse)
+    assert torch.equal(plain, with_lse)
+    kk = k.float().repeat_interleave(q.shape[1] // k.shape[1], 1)
+    s = q.float() @ kk.transpose(-1, -2) * q.shape[-1] ** -0.5
+    qp = torch.arange(q.shape[2], device=cuda)[:, None]
+    kp = torch.arange(k.shape[2], device=cuda)[None]
+    keep = torch.ones_like(s, dtype=torch.bool)
+    if causal:
+        keep &= qp >= kp
+    if window:
+        keep &= (qp - kp) < window
+    want = torch.logsumexp(torch.where(keep, s, -torch.inf), -1)
+    assert float((lse - want).abs().max()) < 1e-5
+
+
+def test_flash_attention_grad_raises_where_the_backward_does_not_serve(cuda):
+    q, k, v = (t.requires_grad_(True) for t in _qkv(
+        (1, 2, 2, 64, 64, 136, True, None), torch.float32, cuda))
+    with pytest.raises(ValueError, match="backward kernel"):
+        flash_attention(q, k, v)
+    q, k, v = (t.requires_grad_(True) for t in _qkv(
+        (1, 2, 2, 64, 64, 64, True, None), torch.float16, cuda))
+    with pytest.raises(ValueError, match="backward kernel"):
+        flash_attention(q, k, v)
+    with torch.no_grad():                    # no gradient: the forward only
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            flash_attention(q, k, v)
+
+
+@pytest.mark.parametrize("n,offset,dtype", [
+    (1_000_003, 0, torch.bfloat16),            # ragged
+    (777_777, 3 * 2**31 + 5, torch.float32),   # a stacked leaf's offset
+    (5 * 2**20 + 3, 2**32 - 1000, torch.bfloat16),   # the counter's high word
+    (4096, 7 * 4096, torch.float32)])
+def test_abo_zo_perturb_matches_plain(cuda, n, offset, dtype):
+    g = torch.Generator(device=cuda).manual_seed(n)
+    src = torch.randn(n, generator=g, device=cuda).to(dtype)
+    key = (123456789, 987654321)
+    before = abo_zo_perturb.launches
+    got = abo_zo_perturb(torch.empty_like(src), src, key, offset, 0.0123)
+    assert abo_zo_perturb.launches == before + 1
+    want = abo_zo_perturb_plain(torch.empty_like(src), src, key, offset,
+                                0.0123)
+    view = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(view), want.view(view))
+    abo_zo_perturb(src, src, key, offset, 0.0123)              # in place
+    assert torch.equal(src.view(view), want.view(view))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_model_loss_gradient_reaches_qkv_on_the_card(cuda, dtype):
+    """The attention's gradient on the card is K3-bwd's: the projections'
+    gradients are nonzero and equal to those with the plain attention
+    (the silent zero that a forward-only kernel would leave)."""
+    import dataclasses
+    from repro_torch.models import attention
+    cfg = reduced(ARCHS["mistral-nemo-12b"])
+    if dtype == "bfloat16":     # head_dim 128: the Hopper forward kernel
+        cfg = dataclasses.replace(cfg, dtype="bfloat16", head_dim=128,
+                                  d_model=256)
+    model = Model(cfg, device=cuda).init(0).requires_grad_(True)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 129),
+                                     generator=g, device=cuda)}
+
+    def grads():
+        for p in model.parameters():
+            p.grad = None
+        model.loss(batch, remat=True)[0].backward()
+        return {n: p.grad.float().clone() for n, p in model.named_parameters()}
+
+    before = flash_attention_bwd.launches
+    got = grads()
+    assert flash_attention_bwd.launches == before + cfg.n_layers
+    saved = attention.flash_attention
+    attention.flash_attention = flash_attention_plain
+    try:
+        want = grads()
+    finally:
+        attention.flash_attention = saved
+    tol = MODEL_GRAD_TOL[dtype]
+    for n in got:
+        if n.split(".")[-1] in ("wq", "wk", "wv"):
+            assert float(got[n].abs().max()) > 0, n
+        err = float((got[n] - want[n]).abs().max() / want[n].abs().max())
+        assert err < tol, (n, err)

@@ -8,9 +8,12 @@ aggregates, one sweep pass of the kernel route's plain version against the
 JAX oracle, seeded starts (float32, and float64 with 64-bit seeds under
 x64), whole solves of both routes at ``--n-solve`` (default 1e6) for
 Griewank and the sphere, the plain attention against the JAX package's
-interpreted kernel and plain version, and the reduced dense models with the
-reference's weights carried across. The tolerances in the tests and in
-PERF.md come from these numbers. ``--only NAME ...`` runs some sections.
+interpreted kernel and plain version, the reduced dense models with the
+reference's weights carried across, and their training path (the loss and
+its gradients, ABO-ZO's candidate losses, AdamW's update with clipping on
+and whole AdamW steps, on tests/test_torch_train.py's inputs). The
+tolerances in the tests and in PERF.md come from these numbers. ``--only
+NAME ...`` runs some sections.
 """
 from __future__ import annotations
 
@@ -172,6 +175,62 @@ def models_report() -> dict:
     return out
 
 
+def training_report() -> dict:
+    """tests/test_torch_train.py's comparisons, measured: the largest
+    discrepancy each holds to a tolerance."""
+    import test_torch_train as TT
+    out = {"loss": 0.0, "grad_rel": 0.0, "candidate_loss": 0.0}
+    for arch in TT.DENSE:
+        jm, params, tm = TT._pair(arch)
+        toks = TT._batch(tm.cfg)
+        (lj, _), gj = jax.value_and_grad(
+            lambda p: jm.loss(p, {"tokens": jnp.asarray(toks)}),
+            has_aux=True)(params)
+        tm.requires_grad_(True)
+        lt, _ = tm.loss({"tokens": torch.from_numpy(toks)})
+        lt.backward()
+        out["loss"] = max(out["loss"], abs(float(lt.detach()) - float(lj)))
+        want = TT.named_from_jax(tm.cfg, jax.tree.map(np.asarray, gj))
+        for n, p in tm.named_parameters():
+            out["grad_rel"] = max(out["grad_rel"], float(
+                np.abs(p.grad.numpy() - want[n]).max()
+                / np.abs(want[n]).max()))
+    for arch in ("mistral-nemo-12b", "granite-20b"):
+        jm, params, tm = TT._pair(arch)
+        toks = TT._batch(tm.cfg)
+        key = jax.random.fold_in(jax.random.PRNGKey(1), 2)
+        state = {"step": jnp.asarray(3, jnp.int32),
+                 "window": jnp.asarray(0.05, jnp.float32)}
+        fs, _ = TT._ref_candidates(jm, params, {"tokens": jnp.asarray(toks)},
+                                   key, state, 9)
+        names = dict(tm.named_parameters())
+        probe = {n: torch.empty_like(p) for n, p in names.items()}
+        dk = TT.tabo.fold_in(tuple(int(x) for x in np.asarray(key)), 3)
+        with torch.no_grad():
+            got = [float(tm.loss({"tokens": torch.from_numpy(toks)})[0])]
+            for sc in TT.tabo.base_scales(9):
+                TT.tabo.perturb_(probe, names, TT.leaf_map(tm.cfg), dk,
+                                 sc * np.float32(0.05))
+                with TT.tabo._swapped(names, probe):
+                    got.append(float(tm.loss(
+                        {"tokens": torch.from_numpy(toks)})[0]))
+        out["candidate_loss"] = max(out["candidate_loss"], float(
+            np.abs(np.array(got) - np.array(fs)).max()))
+    steps = {}
+    for arch, remat, mb, n in (("mistral-nemo-12b", False, 1, 3),
+                               ("mistral-nemo-12b", True, 1, 3),
+                               ("h2o-danube-3-4b", True, 2, 2)):
+        runs, err, _ = TT._adamw_runs(arch, remat=remat, microbatches=mb,
+                                      steps=n)
+        steps[f"{arch} remat={remat} microbatches={mb} steps={n}"] = {
+            "param_max": float(err.max()),
+            "share_over_1e-6": float((err > 1e-6).mean()),
+            "loss": max(abs(a - b) for a, b, _, _ in runs),
+            "gnorm_rel": max(abs(c - d) / c for _, _, c, d in runs)}
+    out["adamw_steps"] = steps
+    return out
+
+
 def solves_report(n: int) -> dict:
     out = {}
     for name in ("griewank", "sphere"):
@@ -192,7 +251,8 @@ def main() -> None:
                     ("seeded_start", seeded_report),
                     ("solves", lambda: solves_report(args.n_solve)),
                     ("attention", attention_report),
-                    ("models", models_report)):
+                    ("models", models_report),
+                    ("training", training_report)):
         if args.only is None or key in args.only:
             print(json.dumps({key: fn()}), flush=True)
 

@@ -69,8 +69,23 @@ Phases, in order; any failure exits non-zero before the result line:
      cut to 4 layers (step 1 against the plain attention, 3 timed steps,
      K3 and K3-bwd in every layer, the 40-layer memory arithmetic); the
      reduced config's resume, bit for bit;
- 16. one JSON line with every kernel's launches, error and times;
- 17. the last line, ``{"ok": true, "device": {...}}``.
+ 16. the mixture-of-experts family at full width (``[moe]``): K3 at the
+     MoE models' MHA layer shape and K3-bwd at olmoe's AdamW shape, timed;
+     ``olmoe-1b-7b`` and ``moonshot-v1-16b-a3b`` each: the prefill step on
+     one T = 8192 request (16 and 48 launches, all of the Hopper kernel;
+     wall, tokens/s, peak memory), the lossless forward against its
+     plain-attention run (K3 per row on every layer's own q, k, v, the
+     share of routes that differ, the logits where the routes agree; with
+     the routes pinned, the logits at every position, beside the library
+     attention's), and prefill + 8 decode steps against the lossless
+     forward; the serve
+     launcher on olmoe; P bit for bit on olmoe's float32 router and a
+     stacked expert leaf and timed over the whole model; ABO-ZO on the
+     whole olmoe through ``launch.train.main``; AdamW on olmoe cut to 4
+     layers (step 1 against the plain attention with its routes pinned,
+     aux, K3 and K3-bwd in every layer);
+ 17. one JSON line with every kernel's launches, error and times;
+ 18. the last line, ``{"ok": true, "device": {...}}``.
 
 Imports torch and the port only. Exits non-zero, printing no result, when
 no CUDA device is present or the port's sources are not beside this file.
@@ -153,8 +168,10 @@ ATTN_SHAPES = [
     (1, 4, 2, 200, 200, 64, True, None),         # ragged
     (1, 32, 8, 333, 333, 120, True, 96),         # d = 120, ragged window
     (2, 4, 2, 100, 300, 16, False, None),        # sq != sk, d = 16
+    (1, 16, 16, 8192, 8192, 128, True, None),    # MHA: the MoE models'
     (1, 32, 8, 8192, 8192, 128, True, None),     # the model's layer shape
 ]
+LM_ATTN_SHAPE = ATTN_SHAPES[-1]
 ATTN_TOL = {"bfloat16": 2e-2, "float32": 2e-3}
 ATTN_ROW_TOL = {"bfloat16": 2e-2, "float32": 1e-3}
 LM_ARCH = "mistral-nemo-12b"
@@ -277,6 +294,7 @@ TRAIN_BWD_SHAPES = [
     (2, 4, 2, 200, 200, 64, True, None, "float32"),
     (2, 4, 4, 256, 256, 64, True, 96, "bfloat16"),       # window
     (2, 4, 4, 256, 256, 64, True, 96, "float32"),
+    (8, 16, 16, 512, 512, 128, True, None, "bfloat16"),  # olmoe's AdamW (MHA)
 ]
 BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 BWD_ROW_TOL = {"bfloat16": 1e-1, "float32": 1e-3}
@@ -305,6 +323,58 @@ ADAMW_STEPS = 3
 ADAMW_LOSS_TOL = 1e-2
 ADAMW_GRAD_TOL = 5e-2     # tests/test_torch_gpu.py's MODEL_GRAD_TOL
 TRAIN_PHASE_S = 300
+# Phase 16, the mixture-of-experts family at full width (bf16, random
+# weights from seed 0, as the launchers draw them): olmoe-1b-7b and
+# moonshot-v1-16b-a3b (its 48 layers, the dense head layer and 2 shared
+# experts) each take the prefill step on one LM_T-token request (the
+# config's capacity 1.25, dispatched in chunks of 2048), then a lossless
+# forward (capacity None, the capacity prefill and decode use) with K3
+# against the same forward with the plain attention, and prefill +
+# LM_DECODE decode steps against the lossless forward; the serve launcher
+# on olmoe; then olmoe trained with TRAIN_ARGS' shape: ABO-ZO on the whole
+# model through the launcher, AdamW on the model cut to ADAMW_LAYERS of 16
+# layers (all 16 need 16 bytes a parameter, ~111 GB).
+MOE_ARCHS = ("olmoe-1b-7b", "moonshot-v1-16b-a3b")
+MOE_TRAIN_ARCH = "olmoe-1b-7b"
+# Route flips. A bf16 difference between K3 and the plain attention can
+# reorder a near-tie in a layer's router, and a token that changes experts
+# changes its output far more than the attention error; later layers then
+# see it. So the two runs are compared per (token, layer, slot): a route
+# differs where the slot's expert is not among the other run's top-k of
+# that token and layer (a reordering within the top-k moves nothing). The
+# share of routes that differ is held under MOE_ROUTE_SHARE (a K3 that
+# computed garbage would move ~(1 - k/E) of them, 87.5% on olmoe), and the
+# logits at the positions whose routes agree in every layer to MOE_REL_TOL
+# of the reference's max |logit| at the position (dense mistral-nemo reads
+# 1.8% at every position: PERF.md). On olmoe those positions must be at
+# least MOE_AGREE_MIN of the request. On moonshot they are not: its 47 MoE
+# layers compound the flips until 1 of 8192 positions agrees in every
+# layer (PERF.md, PR 19). Two more runs pin each dispatch to the K3 run's
+# experts, so that no route flips, and are compared with a third pinned
+# run through the plain attention: the K3 run, which on olmoe must match
+# it at every position to MOE_PINNED_TOL (the dense models' limit), and a
+# run through the library's flash attention (scaled_dot_product_attention,
+# a yardstick only), whose distance from it the K3 run's may exceed by no
+# more than MOE_LIBRARY_RATIO, max over positions. Moonshot's pinned K3
+# run reads 0.0992 (PR 19): its 48 layers amplify any one-ulp difference
+# in attention, and the library's run tells how far. Decode steps are
+# held to the lossless forward at the position the prefill ends on and at
+# each decoded position whose routes agree. MOE_ROUTE_SHARE, MOE_AGREE_MIN
+# and MOE_REL_TOL were set before the first run on the card, the pinned
+# runs and their limits after it (PERF.md, PR 19, has the sequence).
+MOE_ROUTE_SHARE = 0.5
+MOE_AGREE_MIN = {"olmoe-1b-7b": 0.01}
+MOE_REL_TOL = 0.1
+MOE_PINNED_TOL = {"olmoe-1b-7b": LM_REL_TOL_PLAIN}
+MOE_LIBRARY_RATIO = 2.0
+# AdamW's step 1 with K3 against the plain attention holds each gradient
+# tensor, the routers' included, to ADAMW_GRAD_TOL and the loss to
+# ADAMW_LOSS_TOL with the plain run's routes pinned to the K3 run's (a
+# route flip is a jump of the loss, not an error of K3; the flips are
+# counted); aux (E·Σ f·p summed over the MoE layers) must reach
+# MOE_AUX_MIN, as tests/test_models.py holds the reference's.
+MOE_AUX_MIN = 1.0 - 1e-3
+MOE_PHASE_S = 240
 
 
 def fail(msg: str) -> None:
@@ -1227,7 +1297,15 @@ def http_phase(dev, uninterrupted: dict) -> None:
               f"{'not seen' if None in (dead, up) else f'{up - dead:.3f} s'}"
               f"; SIGTERM: exit {rc}", flush=True)
         check(not errors, f"[http] (b) a client raised: {errors[:3]}")
-        check(not lost, f"[http] (b) acked jobs lost: {lost}")
+        # what each lost job saw: its id, its last statuses and whether the
+        # phase's time ran out, with the router's and workers' log
+        seen_lost = [(rec["job"], rec.get("jid"), len(rec["statuses"]),
+                      rec["statuses"][-3:]) for rec in recs
+                     if "out" not in rec]
+        check(not lost, f"[http] (b) acked jobs lost: {seen_lost}; "
+              f"{time.perf_counter() - t_end:.1f} s past the phase's end; "
+              f"kill {dead}, w0 back {up}; the router's log ends:\n"
+              f"{tail('b')[-2500:]}")
         check({s for s, _ in statuses} <= {200, 202, 503}
               and all(c in ok_503 for s, c in statuses if s == 503),
               f"[http] (b) undeliberate statuses {sorted(set(statuses))}")
@@ -1335,7 +1413,7 @@ def attention_phase(dev, seed: int) -> tuple[dict, dict]:
               f"{r['row']:.3g} (limit {ATTN_ROW_TOL[r['dtype']]})", flush=True)
         check(r["ok"], f"K3 ({r['kernel']}) disagrees with its plain version "
               f"at {r['shape']} {r['dtype']}, or did not launch")
-        if r["shape"][3] == LM_T:                 # the model's layer shape
+        if r["shape"] == LM_ATTN_SHAPE:
             main_err[r["dtype"]] = (r["abs"], r["row"], r["kernel"])
     check(main_err["bfloat16"][2] == "flash_attention_sm90"
           and main_err["float32"][2] == "flash_attention_mma",
@@ -1480,18 +1558,41 @@ def plain_attention(layer_err: list):
     run of phase 9; the wrapper itself never does that on the card). Each
     layer also runs K3 on the same q, k, v, and its per-row error against
     the plain output is appended to ``layer_err``."""
+    import torch
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention, flash_attention_plain)
     from repro_torch.models import attention
 
     def both(q, k, v, *, causal=True, window=None):
         want = flash_attention_plain(q, k, v, causal=causal, window=window)
-        layer_err.append(row_rel_err(
-            flash_attention(q, k, v, causal=causal, window=window), want))
+        with torch.no_grad():
+            layer_err.append(row_rel_err(
+                flash_attention(q, k, v, causal=causal, window=window), want))
         return want
 
     saved = attention.flash_attention
     attention.flash_attention = both
+    try:
+        yield
+    finally:
+        attention.flash_attention = saved
+
+
+@contextlib.contextmanager
+def library_attention():
+    """Run the model's attention through ``scaled_dot_product_attention``,
+    the library's flash attention: a yardstick for how far another correct
+    bf16 attention moves a deep model's logits (no window)."""
+    import torch.nn.functional as F
+    from repro_torch.models import attention
+
+    def sdpa(q, k, v, *, causal=True, window=None):
+        check(window is None, "the library yardstick takes no window")
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                              enable_gqa=True)
+
+    saved = attention.flash_attention
+    attention.flash_attention = sdpa
     try:
         yield
     finally:
@@ -1749,6 +1850,47 @@ def train_bwd_readings(dev, seed: int) -> list[dict]:
     return out
 
 
+def train_counted() -> tuple:
+    """The kernel wrappers a training step can launch."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.perturb.ops import abo_zo_perturb
+    return (fa.flash_attention_sm90, fa.flash_attention_mma,
+            fa.flash_attention_bwd, abo_zo_perturb)
+
+
+@contextlib.contextmanager
+def recorded_steps(records: list, counted: tuple):
+    """Run with every step that ``train.steps.make_train_step`` builds (the
+    launcher's too) timed: its wall, the launches of each wrapper of
+    ``counted`` and its metrics appended to ``records``."""
+    import torch
+    from repro_torch.train import steps as steps_mod
+    make = steps_mod.make_train_step
+
+    def recording(*a, **kw):
+        step = make(*a, **kw)
+
+        def timed(*args):
+            torch.cuda.synchronize()
+            before = {w: w.launches for w in counted}
+            t0 = time.perf_counter()
+            out = step(*args)
+            torch.cuda.synchronize()
+            records.append({"wall": time.perf_counter() - t0,
+                            "launches": {w.__name__: w.launches - before[w]
+                                         for w in counted},
+                            "metrics": {k: float(x)
+                                        for k, x in out[1].items()}})
+            return out
+        return timed
+
+    steps_mod.make_train_step = recording
+    try:
+        yield
+    finally:
+        steps_mod.make_train_step = make
+
+
 def train_phase(dev, seed: int) -> list[dict]:
     """Phase 15, the LM training path (see TRAIN_ARGS): (a) K3-bwd, (b) P,
     (c) ABO-ZO on the whole mistral-nemo-12b, (d) AdamW at full width cut
@@ -1871,41 +2013,17 @@ def train_phase(dev, seed: int) -> list[dict]:
 
     # ---- (c) ABO-ZO on the whole model through the launcher --------------
     records = []
-    make = steps_mod.make_train_step
-
-    def recording(*a, **kw):
-        step = make(*a, **kw)
-
-        def timed(*args):
-            torch.cuda.synchronize()
-            before = {w: w.launches for w in counted}
-            t0 = time.perf_counter()
-            out = step(*args)
-            torch.cuda.synchronize()
-            records.append({"wall": time.perf_counter() - t0,
-                            "launches": {w.__name__: w.launches - before[w]
-                                         for w in counted},
-                            "metrics": {k: float(x)
-                                        for k, x in out[1].items()}})
-            return out
-        return timed
-
-    counted = (fa.flash_attention_sm90, fa.flash_attention_mma,
-               fa.flash_attention_bwd, abo_zo_perturb)
+    counted = train_counted()
     torch.cuda.reset_peak_memory_stats()
     for w in counted:
         w.launches = 0
-    steps_mod.make_train_step = recording
     log = io.StringIO()
-    try:
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(log):
-            final = train_launch.main(TRAIN_ARGS + [
-                "--optimizer", "abo_zo", "--steps", str(ABO_STEPS),
-                "--log-every", "1"])
-        abo_wall = time.perf_counter() - t0
-    finally:
-        steps_mod.make_train_step = make
+    t0 = time.perf_counter()
+    with recorded_steps(records, counted), contextlib.redirect_stdout(log):
+        final = train_launch.main(TRAIN_ARGS + [
+            "--optimizer", "abo_zo", "--steps", str(ABO_STEPS),
+            "--log-every", "1"])
+    abo_wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     launches_abo = {w.__name__: w.launches for w in counted}
     for line in log.getvalue().splitlines():
@@ -2079,6 +2197,562 @@ def train_phase(dev, seed: int) -> list[dict]:
          "launches_of": f"{ABO_STEPS} ABO-ZO steps on the whole {LM_ARCH}",
          "ms_of": f"the whole {LM_ARCH}, {n_par} bf16 parameters"},
     ]
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the mixture-of-experts family
+# ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def lossless(model):
+    """Run ``model`` with its MoE layers at capacity None (no slot dropped),
+    the capacity its prefill and decode dispatch at."""
+    import dataclasses
+    saved = model.cfg
+    model.cfg = dataclasses.replace(saved, moe_capacity_factor=None)
+    try:
+        yield model
+    finally:
+        model.cfg = saved
+
+
+@contextlib.contextmanager
+def recorded_routes(routes: list, own: list | None = None, pinned=None):
+    """Append each MoE dispatch's experts, (T, k), to ``routes`` in call
+    order. With ``pinned`` (another run's ``routes``), dispatch i goes to
+    ``pinned[i]``'s experts instead, gated by this run's probabilities
+    there as the router gates its own, and the experts this run would have
+    chosen go to ``own``."""
+    from repro_torch.models import moe
+    route = moe.route
+
+    def recording(params, cfg, tokens):
+        probs, gates, idx = route(params, cfg, tokens)
+        if pinned is not None:
+            own.append(idx)
+            idx = pinned[len(routes)]
+            gates = probs.gather(-1, idx)
+            if cfg.renorm_gates:
+                gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+        routes.append(idx)
+        return probs, gates, idx
+
+    moe.route = recording
+    try:
+        yield
+    finally:
+        moe.route = route
+
+
+def route_readings(a: list, b: list):
+    """Two runs' routes, dispatch by dispatch ((T, k) each): the share of
+    (token, dispatch, slot) routes of ``a`` whose expert is not among
+    ``b``'s top-k there (see MOE_ROUTE_SHARE), the share that differ in
+    order only or more, each dispatch's share, and whether each token's
+    routes agree in every dispatch, (T,)."""
+    import torch
+    differ = torch.stack([~(x[:, :, None] == y[:, None, :]).any(-1)
+                          for x, y in zip(a, b)])             # (L, T, k)
+    order = float(torch.stack([x != y for x, y in zip(a, b)]).float().mean())
+    per = [round(float(d.float().mean()), 5) for d in differ]
+    return (float(differ.float().mean()), order, per,
+            ~differ.any(-1).any(0))
+
+
+def logits_rel(full, ref, chunk: int = 512):
+    """Per position of the first sequence: max |full - ref| over the
+    reference's max |logit| there, a chunk of positions at a time."""
+    import torch
+    out = []
+    for a in range(0, ref.shape[1], chunk):
+        x, y = full[0, a:a + chunk].float(), ref[0, a:a + chunk].float()
+        out.append((x - y).abs().amax(-1) / y.abs().amax(-1))
+    return torch.cat(out)
+
+
+def moe_kernel_times(dev, seed: int) -> dict:
+    """K3 at the MoE models' layer shape (1, 16/16, LM_T, 128) bf16 causal
+    (MHA) against its plain version, then K3 and SDPA timed in turns; K3-bwd
+    and SDPA's backward timed in turns at olmoe's AdamW shape (TRAIN_B,
+    16/16, TRAIN_T, 128)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    q, k, v = _qkv(dev, seed, 1, 16, 16, LM_T, LM_T, 128, torch.bfloat16)
+    check(fa.choose_kernel(q, k, v) == "flash_attention_sm90",
+          "the MoE layer shape does not go to flash_attention_sm90")
+    got = fa.flash_attention_sm90(q, k, v)
+    want = fa.flash_attention_plain(q, k, v)
+    err = float((got.float() - want.float()).abs().max())
+    row = row_rel_err(got, want)
+    del got, want
+    runs = {"kernel": lambda: fa.flash_attention_sm90(q, k, v),
+            "sdpa": lambda: F.scaled_dot_product_attention(q, k, v,
+                                                           is_causal=True)}
+    runs["sdpa"]()
+    ms = {n: [] for n in runs}
+    for n in ("kernel", "sdpa", "sdpa", "kernel"):
+        ms[n].append(cuda_ms(runs[n], 20))
+    bound, by = k3_bound(1, 16, 16, LM_T, 128)
+    out = {"k3": {"shape": f"bf16 (1, 16/16, {LM_T}, 128) causal",
+                  "max_abs_err": err, "row_rel_err": row,
+                  "ms": sum(ms["kernel"]) / 2,
+                  "library_ms": sum(ms["sdpa"]) / 2, "bound_ms": bound,
+                  "bound_by": by}}
+    print(f"[moe] K3 at (1, 16/16, {LM_T}, 128) bf16 causal: max abs err "
+          f"{err:.3g} (limit {ATTN_TOL['bfloat16']}), per row {row:.3g} "
+          f"(limit {ATTN_ROW_TOL['bfloat16']}); in turns kernel "
+          f"{ms['kernel']} ms, SDPA {ms['sdpa']} ms; bound {bound:.4f} ms "
+          f"({by})", flush=True)
+    check(err < ATTN_TOL["bfloat16"] and row < ATTN_ROW_TOL["bfloat16"],
+          "K3 disagrees with its plain version at the MoE layer shape")
+    del q, k, v, runs
+
+    b, t = TRAIN_B, TRAIN_T
+    q, k, v = (_model_layout(x) for x in _qkv(dev, seed, b, 16, 16, t, t,
+                                               128, torch.bfloat16))
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+    dout = torch.randn((b, 16, t, 128), generator=g, device=dev).to(
+        torch.bfloat16)
+    lse = torch.empty((b, 16, t), dtype=torch.float32, device=dev)
+    o = fa.flash_attention_sm90(q, k, v, lse=lse)
+    qs, ks, vs = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    o_sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    runs = {"kernel": lambda: fa.flash_attention_bwd(q, k, v, o, dout, lse),
+            "sdpa": lambda: torch.autograd.grad(o_sdpa, (qs, ks, vs), dout,
+                                                retain_graph=True)}
+    for fn in runs.values():
+        fn()                                              # warm-up
+    ms = {n: [] for n in runs}
+    for n in ("kernel", "sdpa", "sdpa", "kernel"):
+        ms[n].append(cuda_ms(runs[n], 20))
+    bound, by = bwd_bound(b, 16, 16, t, 128)
+    out["bwd"] = {"shape": f"bf16 ({b}, 16/16, {t}, 128) causal",
+                  "ms": sum(ms["kernel"]) / 2,
+                  "library_ms": sum(ms["sdpa"]) / 2, "bound_ms": bound,
+                  "bound_by": by}
+    print(f"[moe] K3-bwd at ({b}, 16/16, {t}, 128) bf16 causal, in turns: "
+          f"kernel {ms['kernel']} ms, SDPA's backward {ms['sdpa']} ms; "
+          f"bound {bound:.4f} ms ({by})", flush=True)
+    del q, k, v, dout, lse, o, qs, ks, vs, o_sdpa, runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_serving(dev, seed: int, arch: str) -> int:
+    """(a) and (b) of phase 16 for one config: the prefill step (wall,
+    tokens/s, peak memory, K3's launches); the lossless forward with K3
+    against the same with the plain attention (K3 per row on each layer's
+    own q, k, v; routes; logits where the routes agree); prefill + decode
+    against the lossless forward. Returns the prefill step's launches of
+    the Hopper kernel."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_mma, flash_attention_sm90)
+    from repro_torch.models.model import Model
+    from repro_torch.train.steps import make_prefill_step
+
+    cfg = ARCHS[arch]
+    n_moe = sum(cfg.mlp_kind(i) == "moe" for i in range(cfg.n_layers))
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev).init(seed)
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in model.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"[moe] {arch}: {n_par} parameters ({n_bytes / 1e9:.2f} GB: bf16, "
+          f"the routers float32), {cfg.n_layers} layers of which {n_moe} MoE "
+          f"({cfg.n_experts} experts, top {cfg.top_k}, "
+          f"{cfg.n_shared_experts} shared), {cfg.n_heads}/{cfg.n_kv_heads} "
+          f"heads of {cfg.head_dim}; drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (1, LM_T + LM_DECODE),
+                           generator=gen, device=dev)
+    batch = {"tokens": tokens[:, :LM_T]}
+    step = make_prefill_step(model)
+    step(batch)                                           # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    flash_attention_sm90.launches = flash_attention_mma.launches = 0
+    t0 = time.perf_counter()
+    last = step(batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = flash_attention_sm90.launches
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[moe] {arch} prefill step, 1 x {LM_T} tokens at capacity "
+          f"{cfg.moe_capacity_factor} (chunks of {cfg.moe_dispatch_chunk}): "
+          f"wall {wall:.4f} s, {LM_T / wall:.1f} tokens/s, K3 launches: "
+          f"flash_attention_sm90 {launches}, flash_attention_mma "
+          f"{flash_attention_mma.launches}; peak device memory {peak} B "
+          f"({peak / n_bytes:.4f} x the parameter bytes)", flush=True)
+    check(launches == cfg.n_layers and flash_attention_mma.launches == 0
+          and flash_attention.launches == cfg.n_layers,
+          f"{arch}'s prefill step launched flash_attention_sm90 {launches} "
+          f"times and flash_attention_mma {flash_attention_mma.launches} "
+          f"times, want {cfg.n_layers} and 0")
+    check(tuple(last.shape) == (1, cfg.vocab_size)
+          and bool(torch.isfinite(last).all()),
+          f"{arch}'s prefill-step logits are not finite or of the wrong shape")
+    del last
+    torch.cuda.empty_cache()
+
+    # ---- K3 against the plain attention, lossless ------------------------
+    k3_routes, plain_routes, layer_err = [], [], []
+    pinned_routes, pinned_own = [], []
+    with lossless(model):
+        with recorded_routes(k3_routes):
+            full, _ = model.forward(batch["tokens"])
+        t0 = time.perf_counter()
+        with plain_attention(layer_err), recorded_routes(plain_routes):
+            ref, _ = model.forward(batch["tokens"])
+        torch.cuda.synchronize()
+        plain_wall = time.perf_counter() - t0
+        rel = logits_rel(full, ref)
+        last_equal = int(full[0, -1].argmax()) == int(ref[0, -1].argmax())
+        del ref
+        with plain_attention([]), recorded_routes(
+                pinned_routes, pinned_own, pinned=k3_routes):
+            ref, _ = model.forward(batch["tokens"])
+        rel_pinned = logits_rel(full, ref)
+        with library_attention(), recorded_routes([], [], pinned=k3_routes):
+            lib, _ = model.forward(batch["tokens"])
+    lib_pinned = logits_rel(lib, ref)
+    del full, ref, lib
+    share, order, per, agree = route_readings(k3_routes, plain_routes)
+    share_pinned, _, per_pinned, _ = route_readings(k3_routes, pinned_own)
+    del k3_routes, plain_routes, pinned_routes, pinned_own
+    n_agree = int(agree.sum())
+    held = float(rel[agree].max()) if n_agree else math.inf
+    print(f"[moe] {arch} lossless forward over {LM_T}, K3 vs plain attention "
+          f"(plain run {plain_wall:.2f} s): K3 per row on each layer's own "
+          f"q, k, v: max {max(layer_err):.4g} (limit "
+          f"{ATTN_ROW_TOL['bfloat16']}), per layer "
+          f"{[round(e, 5) for e in layer_err]}", flush=True)
+    print(f"[moe] {arch} routes, K3 run vs plain run: {share:.5f} of "
+          f"(token, layer, slot) routes differ (limit {MOE_ROUTE_SHARE}; "
+          f"{order:.5f} differ in order or more), per MoE layer {per}; "
+          f"positions whose routes agree in every layer {n_agree} of {LM_T} "
+          f"(limit >= {MOE_AGREE_MIN.get(arch, 0.0):.0%})", flush=True)
+    print(f"[moe] {arch} logits, max abs diff over max |logit| per position:"
+          f" where the routes agree max {held:.4g} (limit {MOE_REL_TOL}); "
+          f"over all positions max {float(rel.max()):.4g}, first "
+          f"{LM_EARLY} {float(rel[:LM_EARLY].max()):.4g}, last "
+          f"{float(rel[-1]):.4g}; argmax equal at the last {last_equal}",
+          flush=True)
+    print(f"[moe] {arch} plain attention with its routes pinned to the K3 "
+          f"run's: logits max abs diff over max |logit| at every position: "
+          f"max {float(rel_pinned.max()):.4g} (limit {LM_REL_TOL_PLAIN}), "
+          f"first {LM_EARLY} {float(rel_pinned[:LM_EARLY].max()):.4g}, last "
+          f"{float(rel_pinned[-1]):.4g}; the routes it would have taken "
+          f"differ at {share_pinned:.5f} (per MoE layer {per_pinned})",
+          flush=True)
+    print(f"[moe] {arch} scaled_dot_product_attention in K3's place, the "
+          f"routes pinned to the K3 run's: logits max abs diff over max "
+          f"|logit| against the plain run's at every position: max "
+          f"{float(lib_pinned.max()):.4g}, first {LM_EARLY} "
+          f"{float(lib_pinned[:LM_EARLY].max()):.4g}, last "
+          f"{float(lib_pinned[-1]):.4g}; K3's max is "
+          f"{float(rel_pinned.max()) / max(float(lib_pinned.max()), 1e-30):.3f}"
+          f" x it "
+          f"(limit {MOE_LIBRARY_RATIO})", flush=True)
+    check(len(layer_err) == cfg.n_layers
+          and max(layer_err) < ATTN_ROW_TOL["bfloat16"],
+          f"K3 disagrees with its plain version on {arch}'s own q, k, v")
+    check(share <= MOE_ROUTE_SHARE and held <= MOE_REL_TOL
+          and n_agree >= MOE_AGREE_MIN.get(arch, 0.0) * LM_T
+          and float(rel_pinned.max()) <= MOE_PINNED_TOL.get(arch, math.inf)
+          and rel_pinned.max() <= MOE_LIBRARY_RATIO * lib_pinned.max(),
+          f"{arch}'s forward with K3 disagrees with its plain-attention runs")
+    torch.cuda.empty_cache()
+
+    # ---- prefill + decode against the lossless forward ----------------------
+    fwd_routes, dec_routes = [], []
+    with lossless(model), recorded_routes(fwd_routes):
+        full, _ = model.forward(tokens)
+    want = full[0, LM_T - 1:].float()
+    del full
+    flash_attention.launches = 0
+    with recorded_routes(dec_routes):
+        logits_pre, cache = model.prefill(tokens[:, :LM_T],
+                                          max_len=LM_T + LM_DECODE)
+        check(flash_attention.launches == cfg.n_layers,
+              f"{arch}'s Model.prefill launched K3 {flash_attention.launches}"
+              " times")
+        outs = [logits_pre[:, -1].float()]
+        del logits_pre
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(LM_T, LM_T + LM_DECODE):
+            lg, cache = model.decode_step(tokens[:, i:i + 1], cache, i)
+            outs.append(lg[:, 0].float())
+        torch.cuda.synchronize()
+        dec_ms = 1e3 * (time.perf_counter() - t0) / LM_DECODE
+    del cache
+    got = torch.cat(outs)
+    err = (got - want).abs().amax(dim=-1)
+    scale = float(want.abs().max())
+    # the routes of each compared position: the prefill's at LM_T - 1, then
+    # each decode step's, against the forward's at the same position
+    mine = [[r[LM_T - 1:] for r in dec_routes[:n_moe]]] + [
+        dec_routes[n_moe * (j + 1):n_moe * (j + 2)] for j in range(LM_DECODE)]
+    agrees = [all(bool((m[0][:, None] == f[LM_T - 1 + j][None, :]).any(-1)
+                       .all()) for m, f in zip(ms, fwd_routes))
+              for j, ms in enumerate(mine)]
+    rel_dec = (err / scale).tolist()
+    held = max(r for r, a in zip(rel_dec, agrees) if a) if any(agrees) \
+        else math.inf
+    print(f"[moe] {arch} prefill({LM_T}) + {LM_DECODE} decode steps vs the "
+          f"lossless forward over {LM_T + LM_DECODE}: max abs diff over max "
+          f"|logit| per position {[round(r, 5) for r in rel_dec]}, routes "
+          f"agree {agrees}; where they agree max {held:.4g} (limit "
+          f"{MOE_REL_TOL}); argmax equal "
+          f"{(got.argmax(-1) == want.argmax(-1)).tolist()}; {dec_ms:.2f} ms "
+          f"per decode step", flush=True)
+    check(agrees[0] and held <= MOE_REL_TOL,
+          f"{arch}'s prefill + decode disagrees with the lossless forward")
+    del model, got, want, outs, fwd_routes, dec_routes
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_train(dev, seed: int) -> dict:
+    """(c) of phase 16 on olmoe: P on the MoE tree, then ABO-ZO on the whole
+    model through the launcher, then AdamW at ADAMW_LAYERS layers. Returns
+    the launches and times for the kernels line."""
+    import dataclasses
+    import io
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.synthetic import BigramStream, StreamConfig
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
+    from repro_torch.kernels.perturb.ops import (abo_zo_perturb,
+                                                 abo_zo_perturb_plain)
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import leaf_map
+    from repro_torch.train import abo_zo, steps as steps_mod
+
+    arch = MOE_TRAIN_ARCH
+    cfg = ARCHS[arch]
+    counted = train_counted()
+    out = {}
+
+    # ---- P over the MoE tree: a float32 router and a stacked expert leaf --
+    model = Model(cfg, device=dev).init(seed)
+    params = dict(model.named_parameters())
+    n_par = sum(p.numel() for p in params.values())
+    n_bytes = sum(p.numel() * p.element_size() for p in params.values())
+    leaves = leaf_map(cfg)
+    dir_key = abo_zo.fold_in(abo_zo.prng_key(1), 0)
+    scale = np.float32(0.25) * np.float32(0.01)
+    last = cfg.n_layers - 1
+    for n in (f"decoder.{last}.moe.router", f"decoder.{last}.moe.w_in"):
+        p = params[n]
+        leaf, offset = leaves[n]
+        key = abo_zo.split_key(dir_key, leaf)
+        got = abo_zo_perturb(torch.empty_like(p), p, key, offset, scale)
+        want = abo_zo_perturb_plain(torch.empty_like(p), p, key, offset,
+                                    scale)
+        view = torch.int16 if p.dtype == torch.bfloat16 else torch.int32
+        same = bool(torch.equal(got.view(view), want.view(view)))
+        print(f"[moe] (c) P on {n} ({str(p.dtype).split('.')[-1]}, "
+              f"{p.numel()} elements at leaf {leaf}, offset {offset}): bit "
+              f"for bit its plain version {same}", flush=True)
+        check(same, f"P differs from its plain version on {n}")
+        del got, want
+    probe = {n: torch.empty_like(p) for n, p in params.items()}
+    abo_zo.perturb_(probe, params, leaves, dir_key, scale)     # warm-up
+    p_ms = cuda_ms(lambda: abo_zo.perturb_(probe, params, leaves, dir_key,
+                                           scale), 3)
+    p_b, p_by, _ = p_bound(n_par, n_bytes / n_par)
+    out["p"] = {"ms": p_ms, "bound_ms": p_b, "bound_by": p_by,
+                "ms_of": f"the whole {arch}, {n_par} parameters"}
+    print(f"[moe] (c) P over the whole {arch} ({n_par} parameters, "
+          f"{len(params)} tensors): {p_ms:.3f} ms, bound {p_b:.3f} ms "
+          f"({p_by}), {p_b / p_ms:.1%} of it", flush=True)
+    del model, params, probe
+    torch.cuda.empty_cache()
+
+    # ---- ABO-ZO on the whole model through the launcher --------------------
+    records = []
+    torch.cuda.reset_peak_memory_stats()
+    for w in counted:
+        w.launches = 0
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with recorded_steps(records, counted), contextlib.redirect_stdout(log):
+        final = train_launch.main([
+            "--arch", arch, "--seq-len", str(TRAIN_T), "--batch",
+            str(TRAIN_B), "--optimizer", "abo_zo", "--steps", str(ABO_STEPS),
+            "--log-every", "1"])
+    abo_wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    out["abo_launches"] = {w.__name__: w.launches for w in counted}
+    for line in log.getvalue().splitlines():
+        print(f"[moe] (c) {line}", flush=True)
+    for i, r in enumerate(records):
+        m = r["metrics"]
+        print(f"[moe] (c) ABO-ZO step {i + 1}: wall {r['wall']:.3f} s, loss "
+              f"{m['loss']:.6f} (incumbent {m['incumbent']:.6f}, candidate "
+              f"{int(m['best'])} won), launches {r['launches']}", flush=True)
+        check(math.isfinite(m["loss"]) and m["loss"] <= m["incumbent"],
+              f"ABO-ZO step {i + 1} on {arch}: loss {m['loss']} not finite or "
+              f"above its incumbent {m['incumbent']}")
+        check(r["launches"]["flash_attention_sm90"]
+              == (abo_zo.ABOZOConfig().m_candidates + 1) * cfg.n_layers
+              and r["launches"]["flash_attention_mma"] == 0
+              and r["launches"]["flash_attention_bwd"] == 0
+              and r["launches"]["abo_zo_perturb"] > 0,
+              f"ABO-ZO step {i + 1} on {arch} launched {r['launches']}")
+    print(f"[moe] (c) ABO-ZO on the whole {arch}, {ABO_STEPS} steps of "
+          f"{TRAIN_B} x {TRAIN_T} tokens: main() {abo_wall:.2f} s with the "
+          f"draw, final loss {final:.6f}; peak device memory {peak} B = "
+          f"{peak / n_bytes:.4f} x the parameter bytes {n_bytes} (limit "
+          f"2.5); launches {out['abo_launches']}", flush=True)
+    check(len(records) == ABO_STEPS and math.isfinite(final),
+          f"ABO-ZO did not run its steps on {arch} to a finite loss")
+    check(peak < 2.5 * n_bytes, f"ABO-ZO's peak {peak} B on {arch} is not "
+          "under 2.5 x the parameter bytes")
+    torch.cuda.empty_cache()
+
+    # ---- AdamW at ADAMW_LAYERS layers ----------------------------------------
+    cfg4 = dataclasses.replace(cfg, n_layers=ADAMW_LAYERS)
+    model = Model(cfg4, device=dev).init(seed).requires_grad_(True)
+    n4 = sum(p.numel() for p in model.parameters())
+    stream = BigramStream(StreamConfig(vocab_size=cfg4.vocab_size,
+                                       seq_len=TRAIN_T, global_batch=TRAIN_B))
+    batch0 = {"tokens": stream.torch_batch(0, dev)}
+
+    def loss_and_grads():
+        """Step 1's loss, aux and gradients, remat off: each dispatch routes
+        once, in order, so that a second run can be pinned to its routes."""
+        for p in model.parameters():
+            p.grad = None
+        loss, metrics = model.loss(batch0)
+        loss.backward()
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        for p in model.parameters():
+            p.grad = None
+        return float(loss.detach()), float(metrics["aux"].detach()), grads
+
+    k3_routes, pinned_routes, plain_routes = [], [], []
+    before = flash_attention_bwd.launches
+    with recorded_routes(k3_routes):
+        loss_k3, aux_k3, g_k3 = loss_and_grads()
+    bwd_launched = flash_attention_bwd.launches - before
+    with plain_attention([]), recorded_routes(pinned_routes, plain_routes,
+                                              pinned=k3_routes):
+        loss_plain, _, g_plain = loss_and_grads()
+    share, order, _, _ = route_readings(k3_routes, plain_routes)
+    del k3_routes, pinned_routes, plain_routes
+    grad_rel = {n: float((g_k3[n].float() - g_plain[n].float()).abs().max()
+                         / g_plain[n].float().abs().max()) for n in g_k3}
+    del g_k3, g_plain
+    qkv = [n for n in grad_rel if n.split(".")[-1] in ("wq", "wk", "wv")]
+    worst = max(grad_rel, key=grad_rel.get)
+    router = max(v for n, v in grad_rel.items() if n.endswith(".router"))
+    loss_rel = abs(loss_k3 - loss_plain) / abs(loss_plain)
+    print(f"[moe] (d) {arch} cut to {ADAMW_LAYERS} of {cfg.n_layers} layers "
+          f"({n4} parameters): step 1's loss with K3 {loss_k3:.6f}, with the "
+          f"plain attention (routes pinned to K3's) {loss_plain:.6f} "
+          f"(relative {loss_rel:.3g}, limit {ADAMW_LOSS_TOL}); gradients, max "
+          f"|diff| / max |plain| per tensor: worst {worst} "
+          f"{grad_rel[worst]:.4g} (limit {ADAMW_GRAD_TOL}), routers "
+          f"{router:.4g}, wq/wk/wv {max(grad_rel[n] for n in qkv):.4g}; the "
+          f"plain run's own routes differ from K3's at {share:.5f} of "
+          f"(token, dispatch, slot) ({order:.5f} in order or more); aux "
+          f"{aux_k3:.6f} (limit >= {MOE_AUX_MIN}); K3-bwd launches "
+          f"{bwd_launched}", flush=True)
+    check(loss_rel <= ADAMW_LOSS_TOL and grad_rel[worst] <= ADAMW_GRAD_TOL
+          and bwd_launched == ADAMW_LAYERS and aux_k3 >= MOE_AUX_MIN,
+          f"AdamW's step 1 on {arch} with K3 disagrees with the plain "
+          "attention's, did not run K3-bwd in every layer, or aux is low")
+    step = steps_mod.make_train_step(model, optimizer="adamw", remat=True)
+    state = steps_mod.init_opt_state(model)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for w in counted:
+        w.launches = 0
+    walls, losses, auxes = [], [], []
+    for s in range(ADAMW_STEPS):
+        batch = {"tokens": stream.torch_batch(s, dev)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(met["loss"]))
+        auxes.append(float(met["aux"]))
+    out["adamw_launches"] = {w.__name__: w.launches for w in counted}
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"[moe] (d) AdamW, {ADAMW_STEPS} steps of {TRAIN_B} x {TRAIN_T} "
+          f"tokens, remat: wall per step {[round(w, 4) for w in walls]} s, "
+          f"losses {losses}, aux {auxes}; launches {out['adamw_launches']}; "
+          f"peak device memory {peak} B = {peak / (2 * n4):.3f} x the bf16 "
+          f"parameter bytes; 16 bytes a parameter for all {cfg.n_layers} "
+          f"layers: {16 * cfg.n_params()} B against the card's {total} B",
+          flush=True)
+    check(all(math.isfinite(x) for x in losses)
+          and all(a >= MOE_AUX_MIN for a in auxes),
+          f"AdamW's loss on {arch} is not finite or its aux is low")
+    launched = out["adamw_launches"]
+    check(launched["flash_attention_sm90"] >= ADAMW_STEPS * ADAMW_LAYERS
+          and launched["flash_attention_bwd"] == ADAMW_STEPS * ADAMW_LAYERS
+          and launched["flash_attention_mma"] == 0,
+          f"AdamW's steps on {arch} launched {launched}: K3 and K3-bwd not "
+          "in every layer")
+    del model, step, state, met
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_phase(dev, seed: int) -> dict:
+    """Phase 16, the mixture-of-experts family (see MOE_ARCHS). Returns its
+    readings for the kernels line."""
+    import io
+
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import serve
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    out = moe_kernel_times(dev, seed)
+    out["prefill_launches"] = {}
+    for arch in MOE_ARCHS:
+        out["prefill_launches"][arch] = moe_serving(dev, seed, arch)
+        if arch != MOE_TRAIN_ARCH:
+            continue
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            outputs = serve.main(["--arch", arch, "--requests", "8",
+                                  "--batch-slots", "4", "--prompt-len", "16",
+                                  "--max-new", "16", "--max-len", "256"])
+        for line in log.getvalue().splitlines():
+            print(f"[moe] {arch} {line.strip()}", flush=True)
+        print(f"[moe] {arch} serve main() took {time.perf_counter() - t0:.2f} "
+              "s with the model's draw", flush=True)
+        vocab = ARCHS[arch].vocab_size
+        check(len(outputs) == 8
+              and all(len(g) == 16 and all(0 <= x < vocab for x in g)
+                      for _, g in outputs),
+              f"the serve launcher on {arch} did not answer 8 requests with "
+              "16 tokens")
+        torch.cuda.empty_cache()
+    out.update(moe_train(dev, seed))
+    total = time.perf_counter() - t_phase
+    print(f"[moe] phase took {total:.1f} s (limit {MOE_PHASE_S} s) | "
+          f"{nvidia_smi_line()}", flush=True)
+    check(total <= MOE_PHASE_S, f"the MoE phase took {total:.1f} s")
+    return out
 
 
 def nvidia_smi_line() -> str:
@@ -2359,12 +3033,30 @@ def main() -> None:
     # ---- 15. the LM training path -------------------------------------------
     train_kernels = train_phase(dev, args.seed)
 
+    # ---- 16. the mixture-of-experts family ----------------------------------
+    moe = moe_phase(dev, args.seed)
+
     foreign = sorted(m for m in sys.modules if m.split(".")[0]
                      in ("jax", "jaxlib", "repro", "benchmarks"))
     check(not foreign, f"the smoke imported {foreign[:5]}: JAX, the JAX "
           "package or its benchmarks")
 
-    # ---- 16. kernels line ---------------------------------------------------
+    # ---- 17. kernels line ---------------------------------------------------
+    # each kernel's MoE readings beside those of its first path: K3 and
+    # K3-bwd at the MoE models' MHA layer shape, P over the whole olmoe
+    bwd, perturb = train_kernels
+    k3["moe"] = {**moe["k3"], "launches": {
+        **{f"{a} prefill step": n for a, n in moe["prefill_launches"].items()},
+        f"{MOE_TRAIN_ARCH} {ABO_STEPS} ABO-ZO steps":
+            moe["abo_launches"]["flash_attention_sm90"],
+        f"{MOE_TRAIN_ARCH} {ADAMW_STEPS} AdamW steps at {ADAMW_LAYERS} "
+        "layers": moe["adamw_launches"]["flash_attention_sm90"]}}
+    bwd["moe"] = {**moe["bwd"], "launches": {
+        f"{MOE_TRAIN_ARCH} {ADAMW_STEPS} AdamW steps at {ADAMW_LAYERS} "
+        "layers": moe["adamw_launches"]["flash_attention_bwd"]}}
+    perturb["moe"] = {**moe["p"], "launches": {
+        f"{MOE_TRAIN_ARCH} {ABO_STEPS} ABO-ZO steps":
+            moe["abo_launches"]["abo_zo_perturb"]}}
     kernels.append({
         "name": "sweep_pass", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sweep_pass.cu",
@@ -2386,7 +3078,7 @@ def main() -> None:
     kernels.extend(train_kernels)
     print(json.dumps({"kernels": kernels}))
 
-    # ---- 17. result -------------------------------------------------------
+    # ---- 18. result -------------------------------------------------------
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,6 +1,6 @@
 """Training launcher: --arch selectable, checkpoint/restart, preemption-safe.
 
-    PYTHONPATH=src python -m repro_torch.launch.train --arch mistral-nemo-12b \\
+    PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b \\
         --reduced --steps 200 --optimizer adamw --ckpt-dir /tmp/ckpt \\
         --device cpu
 
@@ -168,3 +168,7 @@ def _run(model, cfg, args, dev):
     finally:
         for s, h in old.items():
             signal.signal(s, h)
+
+
+if __name__ == "__main__":
+    main()

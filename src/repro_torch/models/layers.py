@@ -29,6 +29,12 @@ def dense_init(d_in, d_out, dtype, device) -> nn.Parameter:
     return _param((d_in, d_out), dtype, device)
 
 
+def expert_init(e, d_in, d_out, dtype, device) -> nn.Parameter:
+    """``e`` stacked (d_in, d_out) expert weights; :func:`draw_` gives them
+    N(0, 2/(d_in+d_out))."""
+    return _param((e, d_in, d_out), dtype, device)
+
+
 def embed_init(vocab, d, dtype, device) -> nn.Parameter:
     """A (vocab, d) table; :func:`draw_` gives it N(0, 1/d)."""
     return _param((vocab, d), dtype, device)
@@ -44,8 +50,9 @@ def _scaled_normal_(p: torch.Tensor, scale: float, gen) -> None:
 def draw_(name: str, p: torch.Tensor, gen: torch.Generator,
           norm: str) -> None:
     """Fill parameter ``name`` in place with the reference's init rule:
-    dense weights N(0, 2/(d_in+d_out)), embedding tables N(0, 1/d), norm
-    scales 0 (RMSNorm's ``1 + scale``) or 1 (LayerNorm), biases 0."""
+    dense and expert weights N(0, 2/(d_in+d_out)) over their last two
+    dimensions, embedding tables N(0, 1/d), norm scales 0 (RMSNorm's
+    ``1 + scale``) or 1 (LayerNorm), biases 0."""
     leaf = name.rsplit(".", 1)[-1]
     if leaf in EMBED_NAMES:
         _scaled_normal_(p, p.shape[1] ** -0.5, gen)
@@ -54,7 +61,7 @@ def draw_(name: str, p: torch.Tensor, gen: torch.Generator,
     elif leaf == "bias":
         p.zero_()
     else:
-        _scaled_normal_(p, (2.0 / (p.shape[0] + p.shape[1])) ** 0.5, gen)
+        _scaled_normal_(p, (2.0 / (p.shape[-2] + p.shape[-1])) ** 0.5, gen)
 
 
 # ---------------------------------------------------------------------------

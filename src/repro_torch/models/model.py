@@ -1,7 +1,7 @@
 """Top-level model: embeddings, decoder stack, LM head.
 
-Port of :mod:`repro.models.model` for the dense decoders, as an
-``nn.Module`` that holds its parameters:
+Port of :mod:`repro.models.model` for the attention decoders, dense and
+mixture-of-experts, as an ``nn.Module`` that holds its parameters:
 
   model = Model(cfg).init(seed)            # on the card unless device= given
   logits, aux = model.forward(tokens)
@@ -11,9 +11,9 @@ Port of :mod:`repro.models.model` for the dense decoders, as an
   logits, cache = model.decode_step(tokens, cache, pos)
 
 ``Model(cfg)`` allocates the parameters uninitialised on the device, in
-``cfg.param_dtype``; ``init`` draws them there from a ``torch.Generator``
-one tensor at a time, so a full-width model never has a float32 or host
-copy. ``models.params.params_from_jax`` fills one from the reference's
+``cfg.param_dtype`` (an MoE router in float32, as the reference's);
+``init`` draws them there from a ``torch.Generator`` one tensor at a time,
+so a full-width model never has a float32 or host copy. ``models.params.params_from_jax`` fills one from the reference's
 parameters instead.
 
 ``forward`` and ``loss`` are differentiable: the AdamW route turns the
@@ -97,9 +97,10 @@ class Model(nn.Module):
     def forward(self, tokens, *, positions=None, last_only=False,
                 remat=False):
         """Full-sequence logits (b, t, V), or (b, 1, V) of the last position
-        with ``last_only``. Returns (logits, aux). ``remat`` recomputes each
-        pattern unit of the layer groups in the backward pass
-        (``transformer.stack_apply``)."""
+        with ``last_only``. Returns (logits, aux), aux the MoE layers'
+        summed load-balancing loss (0 for a dense model), each MoE layer at
+        the config's capacity. ``remat`` recomputes each pattern unit of the
+        layer groups in the backward pass (``transformer.stack_apply``)."""
         x = self._embed(tokens)
         x, aux = tfm.stack_apply(self.decoder, self.cfg, x,
                                  positions=self._positions(tokens, positions),
@@ -111,8 +112,8 @@ class Model(nn.Module):
     # ------------------------------------------------------------------ loss
     def loss(self, batch, *, remat=False):
         """Next-token cross-entropy on float32 logits. batch: tokens (b,
-        t+1) [+ positions]. Returns (loss, {"ce", "aux"}); MoE configs
-        (which add ``0.01·aux``) raise at construction."""
+        t+1) [+ positions]. Returns (loss, {"ce", "aux"}); an MoE config's
+        loss is ``ce + 0.01·aux``."""
         tokens = batch["tokens"]
         inputs, labels = tokens[:, :-1], tokens[:, 1:]
         logits, aux = self.forward(inputs, positions=batch.get("positions"),

@@ -1,6 +1,6 @@
 """Decoder stack: per-layer modules in layer order, applied in a loop.
 
-Port of :mod:`repro.models.transformer` for the dense decoders. The
+Port of :mod:`repro.models.transformer` for the attention decoders. The
 reference groups layers into repeating pattern units and scans stacked
 copies (``jax.lax.scan``); the port keeps one module per layer in an
 ``nn.ModuleList`` in layer index order (the reference's head, groups
@@ -10,8 +10,12 @@ in the same order, one dict per layer. ``stack_layout`` remains for
 ``stack_apply`` checkpoints each pattern unit of the groups (the units the
 reference scans), not the head or tail layers, as the reference does.
 
-Mixers ``attn``/``swa`` and dense MLPs only. RG-LRU, RWKV6, MoE and
-cross-attention raise ``NotImplementedError`` (ROADMAP queue 1, item 11).
+Mixers ``attn``/``swa``; dense MLPs and MoE (``models.moe``: the capacity
+from the config in ``layer_apply``, lossless in ``layer_prefill`` and
+``layer_decode``, as the reference). A layer's aux loss is 0 unless it is
+an MoE layer; the leading ``first_dense`` layers (moonshot's layer 0) keep
+a dense MLP. RG-LRU, RWKV6 and cross-attention raise
+``NotImplementedError`` (ROADMAP queue 1, item 11).
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from torch.utils import checkpoint as _checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import is_gated, make_norm, mlp_apply, mlp_init
 
 _WAITS = "is not ported yet (ROADMAP queue 1, item 11: LM substrate)"
@@ -31,7 +36,7 @@ _WAITS = "is not ported yet (ROADMAP queue 1, item 11: LM substrate)"
 def _check_kinds(cfg: ArchConfig, kind: str, mlp_kind: str) -> None:
     if kind not in ("attn", "swa"):
         raise NotImplementedError(f"mixer {kind!r} {_WAITS}")
-    if mlp_kind != "dense":
+    if mlp_kind not in ("dense", "moe"):
         raise NotImplementedError(f"{mlp_kind!r} MLP {_WAITS}")
     if cfg.cross_attention:
         raise NotImplementedError(f"cross-attention {_WAITS}")
@@ -43,13 +48,24 @@ def _check_kinds(cfg: ArchConfig, kind: str, mlp_kind: str) -> None:
 def layer_init(cfg: ArchConfig, layer_idx: int, dtype, device) -> nn.ModuleDict:
     _check_kinds(cfg, cfg.mixer_kind(layer_idx), cfg.mlp_kind(layer_idx))
     norm_init, _ = make_norm(cfg.norm)
-    return nn.ModuleDict({
-        "norm_mixer": norm_init(cfg.d_model, dtype, device),
-        "norm_mlp": norm_init(cfg.d_model, dtype, device),
-        "attn": attn.attn_init(cfg, dtype, device),
-        "mlp": mlp_init(cfg.d_model, cfg.d_ff, dtype, device,
-                        is_gated(cfg.activation)),
-    })
+    p = {"norm_mixer": norm_init(cfg.d_model, dtype, device),
+         "norm_mlp": norm_init(cfg.d_model, dtype, device),
+         "attn": attn.attn_init(cfg, dtype, device)}
+    if cfg.mlp_kind(layer_idx) == "moe":
+        p["moe"] = moe_mod.moe_init(cfg, dtype, device)
+    else:
+        p["mlp"] = mlp_init(cfg.d_model, cfg.d_ff, dtype, device,
+                            is_gated(cfg.activation))
+    return nn.ModuleDict(p)
+
+
+def _ffn(params, cfg: ArchConfig, mlp_kind: str, h, capacity_factor):
+    """The layer's MLP or MoE on the normed h. Returns (h, aux loss)."""
+    if mlp_kind == "moe":
+        return moe_mod.moe_apply(params["moe"], cfg, h,
+                                 capacity_factor=capacity_factor)
+    return (mlp_apply(params["mlp"], h, cfg.activation),
+            torch.zeros((), dtype=torch.float32, device=h.device))
 
 
 def layer_apply(params, cfg: ArchConfig, kind: str, mlp_kind: str, x, *,
@@ -64,9 +80,8 @@ def layer_apply(params, cfg: ArchConfig, kind: str, mlp_kind: str, x, *,
     h = attn.attn_apply(params["attn"], cfg, h, positions=positions,
                         window=window, causal=causal)
     x = x + h
-    h = norm(params["norm_mlp"], x)
-    h = mlp_apply(params["mlp"], h, cfg.activation)
-    return x + h, torch.zeros((), dtype=torch.float32, device=x.device)
+    h, aux = _ffn(params, cfg, mlp_kind, norm(params["norm_mlp"], x), "cfg")
+    return x + h, aux
 
 
 # ---------------------------------------------------------------------------
@@ -94,8 +109,7 @@ def layer_decode(params, cfg: ArchConfig, kind: str, mlp_kind: str, x,
                                   window=window)
     cache = {**cache, "kv": kv}
     x = x + h
-    h = norm(params["norm_mlp"], x)
-    h = mlp_apply(params["mlp"], h, cfg.activation)
+    h, _ = _ffn(params, cfg, mlp_kind, norm(params["norm_mlp"], x), None)
     return x + h, cache
 
 
@@ -109,8 +123,7 @@ def layer_prefill(params, cfg: ArchConfig, kind: str, mlp_kind: str, x, *,
     h, kv = attn.attn_prefill(params["attn"], cfg, h, positions=positions,
                               window=window, max_len=max_len)
     x = x + h
-    h = norm(params["norm_mlp"], x)
-    h = mlp_apply(params["mlp"], h, cfg.activation)
+    h, _ = _ffn(params, cfg, mlp_kind, norm(params["norm_mlp"], x), None)
     return x + h, {"kv": kv}
 
 

@@ -41,11 +41,14 @@ its FIRST life only (e.g. ``0:worker_crash:nth=3:kind=kill`` — the CI
 smoke kills worker 0 at its 3rd step and asserts zero lost jobs);
 respawns come up clean, which is what makes the experiment converge.
 
-Transport failures are one answer. The reference's ``proxy`` turns only
-``OSError`` into 503 ``worker_unavailable``; a worker killed while it
-writes a reply makes ``resp.read()`` raise ``http.client.IncompleteRead``,
-an ``HTTPException``, which fell through to a 500. Here both kinds are
-the deliberate 503.
+Transport failures are one answer. The reference's ``proxy`` and
+``probe`` catch only ``OSError``; a worker killed while it writes a reply
+makes ``resp.read()`` raise ``http.client.IncompleteRead``, an
+``HTTPException``. In ``proxy`` that fell through to a 500; in ``probe``
+it ended the supervisor thread, so the killed worker was never respawned
+and its acked jobs never delivered. Here ``proxy`` answers the deliberate
+503, ``probe`` reads the worker as unhealthy, and the supervisor logs any
+other error and carries on.
 
 Stdlib + repro_torch.obs/repro_torch.serve only — importing this module
 never pays for torch; the workers do that in their own processes.
@@ -146,7 +149,7 @@ class WorkerHandle:
                 return ok
             finally:
                 conn.close()
-        except OSError:
+        except (OSError, http.client.HTTPException):
             return False
 
     def terminate(self, grace_s: float = 15.0):
@@ -218,32 +221,41 @@ class Router:
             for w in self.workers:
                 if self._stop.is_set():
                     return
-                if w.proc is not None and not w.alive():
-                    if now < w.not_before:
-                        continue        # still in backoff
-                    code = w.proc.returncode
-                    uptime = now - w.last_spawn
-                    w.restarts += 1
-                    self._c_restarts(
-                        "router_worker_restarts_total",
-                        "supervised worker respawns",
-                        worker=w.name).inc()
-                    # fast deaths back off exponentially; a worker
-                    # that ran a while restarts immediately
-                    strikes = w.restarts if uptime < 5.0 else 0
-                    w.not_before = now + min(0.2 * (2 ** strikes), 5.0)
-                    print(f"[router] {w.name} died (exit {code}, up "
-                          f"{uptime:.1f}s) — respawn #{w.restarts}",
-                          flush=True)
-                    t0 = time.monotonic()
-                    w.spawn()           # clean life: no inject args
-                    if w.port is not None:
-                        dt = time.monotonic() - t0
-                        self._restart_ewma = (0.5 * self._restart_ewma
-                                              + 0.5 * dt)
-                elif w.alive():
-                    w.healthy = w.probe()
+                # one worker's failure must not end the loop: a dead
+                # supervisor would make every later worker death final
+                try:
+                    self._supervise_one(w, now)
+                except Exception as e:   # noqa: BLE001 — logged, retried
+                    print(f"[router] supervising {w.name} failed: {e!r}",
+                          file=sys.stderr, flush=True)
             self._stop.wait(self.probe_s)
+
+    def _supervise_one(self, w: WorkerHandle, now: float):
+        """One supervisor tick for ``w``: respawn it if it died (past its
+        backoff), else refresh its health."""
+        if w.proc is not None and not w.alive():
+            if now < w.not_before:
+                return                  # still in backoff
+            code = w.proc.returncode
+            uptime = now - w.last_spawn
+            w.restarts += 1
+            self._c_restarts(
+                "router_worker_restarts_total",
+                "supervised worker respawns",
+                worker=w.name).inc()
+            # fast deaths back off exponentially; a worker that ran a
+            # while restarts immediately
+            strikes = w.restarts if uptime < 5.0 else 0
+            w.not_before = now + min(0.2 * (2 ** strikes), 5.0)
+            print(f"[router] {w.name} died (exit {code}, up "
+                  f"{uptime:.1f}s) — respawn #{w.restarts}", flush=True)
+            t0 = time.monotonic()
+            w.spawn()                   # clean life: no inject args
+            if w.port is not None:
+                dt = time.monotonic() - t0
+                self._restart_ewma = 0.5 * self._restart_ewma + 0.5 * dt
+        elif w.alive():
+            w.healthy = w.probe()
 
     def begin_shutdown(self, reason: str = "signal"):
         if self._stopping:

@@ -31,6 +31,12 @@ the same bits; K3's forward keeping its output bits when it also writes the
 log-sum-exp; P (ABO-ZO's perturbation) equal to its plain version bit for
 bit; and a gradient through ``Model.loss`` on the card that reaches q, k
 and v (the attention's projections), equal to the plain attention's.
+
+The mixture-of-experts layer (no kernel of its own) on the card against
+its CPU run, lossless and with dropped slots: the same routes and
+positions, outputs within 1e-5 of their max; K3 and K3-bwd at the MoE
+models' MHA layout (16 query heads over 16 KV heads); the reduced MoE
+models on the card against the CPU.
 """
 import pytest
 import torch
@@ -74,9 +80,13 @@ ATTN_SHAPES = [
     (1, 32, 8, 333, 333, 120, True, 96),         # d = 120, ragged window
     (2, 4, 2, 100, 300, 16, False, None),        # sq != sk, d = 16
     (1, 32, 8, 8192, 8192, 128, True, None),     # the model's layer shape
+    (1, 16, 16, 1024, 1024, 128, True, None),    # MHA: the MoE models'
+    (1, 16, 16, 8192, 8192, 128, True, None),    # their layer shape
 ]
 # the shapes the Hopper kernel serves: bf16 with head_dim 120 or 128
 SM90_SHAPES = [s for s in ATTN_SHAPES if s[5] in (120, 128)]
+# those the mma.sync kernel is also held at (not the model's T = 8192)
+MMA_AT_SM90_SHAPES = [s for s in SM90_SHAPES if s[3] < 8192]
 ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-3}
 ATTN_ROW_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-3}
 AGG_TOL = 1e-3     # times (1 + |a_in|)
@@ -93,6 +103,8 @@ BWD_SHAPES = [
     (2, 4, 2, 200, 200, 64, True, None, torch.float32),
     (2, 4, 4, 256, 256, 64, True, 96, torch.bfloat16),
     (2, 4, 4, 256, 256, 64, True, 96, torch.float32),
+    (1, 16, 16, 1024, 1024, 128, True, None, torch.bfloat16),   # MHA
+    (8, 16, 16, 512, 512, 128, True, None, torch.bfloat16),  # olmoe's AdamW
 ]
 BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 BWD_ROW_TOL = {torch.bfloat16: 1e-1, torch.float32: 1e-3}
@@ -334,7 +346,7 @@ def test_flash_attention_sm90_strided_view(cuda, d):
     assert _row_rel_err(got, want) < ATTN_ROW_TOL[torch.bfloat16]
 
 
-@pytest.mark.parametrize("shape", SM90_SHAPES[:-1])
+@pytest.mark.parametrize("shape", MMA_AT_SM90_SHAPES)
 def test_flash_attention_mma_still_matches_plain_at_sm90_shapes(cuda, shape):
     """The mma.sync kernel, called directly, still agrees where the op now
     routes to the Hopper kernel (the smoke times the two there)."""
@@ -369,7 +381,8 @@ def test_flash_attention_wrapper_rejects_on_cuda(cuda):
 
 
 @pytest.mark.parametrize("arch", ["mistral-nemo-12b", "h2o-danube-3-4b",
-                                  "granite-20b", "internlm2-20b"])
+                                  "granite-20b", "internlm2-20b",
+                                  "olmoe-1b-7b", "moonshot-v1-16b-a3b"])
 def test_reduced_model_on_the_card_matches_cpu(cuda, arch):
     cfg = reduced(ARCHS[arch])
     cpu = Model(cfg, device="cpu").init(0)
@@ -387,6 +400,43 @@ def test_reduced_model_on_the_card_matches_cpu(cuda, arch):
     for i in range(44, 50):
         lg, cache = card.decode_step(toks[:, i:i + 1].to(cuda), cache, i)
         assert float((lg[:, 0].cpu() - want[:, i]).abs().max()) < 1e-4
+
+
+def _moe_margin(x, router, k) -> float:
+    """The least gap between a token's top k+1 router probabilities
+    (float64): a route the card and the CPU could order differently."""
+    p = torch.softmax(x.reshape(-1, x.shape[-1]).double() @ router.double(),
+                      -1).sort(-1, descending=True).values[:, :k + 1]
+    return float((p[:, :-1] - p[:, 1:]).min())
+
+
+@pytest.mark.parametrize("cf", [None, 1.25])
+def test_moe_layer_on_the_card_matches_cpu(cuda, cf):
+    """The MoE layer (float32, the reduced olmoe's widths) on the card
+    against its CPU run: the same routes, drops and positions; outputs
+    within 1e-5 of their max, aux within 1e-6. Lossless, and at capacity
+    1.25 with dropped slots."""
+    from repro_torch.models import moe
+    cfg = reduced(ARCHS["olmoe-1b-7b"])
+    cpu = Model(cfg, device="cpu").init(0).decoder[0]["moe"]
+    card = {n: p.to(cuda) for n, p in cpu.items()}
+    x = torch.randn(2, 12, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(3))
+    assert _moe_margin(x, cpu["router"], cfg.top_k) > 1e-5
+    want, want_aux = moe.moe_apply(cpu, cfg, x, capacity_factor=cf)
+    got, got_aux = moe.moe_apply(card, cfg, x.to(cuda), capacity_factor=cf)
+    assert float((got.cpu() - want).abs().max()) <= \
+        1e-5 * float(want.abs().max())
+    assert abs(float(got_aux) - float(want_aux)) <= 1e-6
+    tokens = x.reshape(-1, cfg.d_model)
+    _, _, idx = moe.route(cpu, cfg, tokens)
+    _, _, idx_card = moe.route(card, cfg, tokens.to(cuda))
+    assert torch.equal(idx_card.cpu(), idx)
+    pos, _ = moe.positions(idx, cfg.n_experts)
+    pos_card, _ = moe.positions(idx_card, cfg.n_experts)
+    assert torch.equal(pos_card.cpu(), pos)
+    dropped = int((pos >= moe.capacity(cfg, tokens.shape[0], cf)).sum())
+    assert (dropped > 0) == (cf is not None)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""The port's dense LM serving path (repro_torch.configs, models, train.steps,
+"""The port's LM serving path (repro_torch.configs, models, train.steps,
 launch.serve) against the JAX package's, on the CPU, in float32.
 
 The reduced configs of four dense decoders carry the reference's weights
@@ -7,6 +7,10 @@ across (``models.params.params_from_jax``) and run ``forward``, ``prefill``
 as ``repro.models.model.Model``: mistral-nemo-12b (GQA), h2o-danube-3-4b
 (SWA, with the ring wrapping: prompt 50 > window 32), granite-20b (MQA,
 learned positions, LayerNorm, gelu, tied embeddings) and internlm2-20b.
+So do the two mixture-of-experts decoders, whose reduced configs route
+losslessly (forward, prefill and decode give the same numbers):
+olmoe-1b-7b and moonshot-v1-16b-a3b (a dense head layer, a shared
+expert); their forward's aux loss is held to 1e-6.
 
 Tolerance: 1e-4 max abs on logits (|logits| <= ~5) and caches, layers
 1e-5. Measured (CPU, tests/torch_parity_report.py): <= 3.5e-6 on logits.
@@ -37,6 +41,7 @@ CPU = "cpu"
 TOL = 1e-4
 DENSE = ["mistral-nemo-12b", "h2o-danube-3-4b", "granite-20b",
          "internlm2-20b"]
+MOE = ["olmoe-1b-7b", "moonshot-v1-16b-a3b"]
 
 
 def _np(x):
@@ -138,7 +143,7 @@ def _cache_layers(jcache, n_layers):
     return out
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_model_matches_reference(arch):
     jm, params, tm = _pair(arch)
     cfg = tm.cfg
@@ -150,10 +155,13 @@ def test_model_matches_reference(arch):
 
     assert sum(p.numel() for p in tm.parameters()) == sum(
         x.size for x in jax.tree.leaves(params))
-    lj, _ = jm.forward(params, jnp.asarray(toks))
+    lj, aux_j = jm.forward(params, jnp.asarray(toks))
     lt, aux = tm.forward(torch.from_numpy(toks))
     assert lt.shape == (b, t_prompt + t_gen, cfg.vocab_size)
-    assert float(aux) == 0.0
+    if cfg.n_experts:           # the MoE layers' summed load-balancing loss
+        assert abs(float(aux) - float(aux_j)) <= 1e-6
+    else:
+        assert float(aux) == 0.0
     assert np.abs(lt.numpy() - _np(lj)).max() < TOL
 
     lpj, cj = jm.prefill(params, jnp.asarray(toks[:, :t_prompt]),
@@ -192,7 +200,15 @@ def test_decode_from_empty_cache_matches_forward():
 # serving factories and the launcher
 # ---------------------------------------------------------------------------
 def test_serving_steps_match_reference():
-    arch = "mistral-nemo-12b"
+    _serving_steps_match_reference("mistral-nemo-12b")
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_serving_steps_match_reference(arch):
+    _serving_steps_match_reference(arch)
+
+
+def _serving_steps_match_reference(arch):
     jm, params, tm = _pair(arch, seed=7)
     mesh = make_host_mesh(1)
     toks = np.random.RandomState(8).randint(0, 512, (2, 24))
@@ -219,13 +235,22 @@ def test_serving_steps_match_reference():
 
 
 def test_serve_launcher_gives_greedy_tokens_of_forward(capsys):
-    argv = ["--arch", "mistral-nemo-12b", "--reduced", "--requests", "3",
+    _serve_launcher_gives_greedy_tokens_of_forward("mistral-nemo-12b", capsys)
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_serve_launcher_gives_greedy_tokens_of_forward(arch, capsys):
+    _serve_launcher_gives_greedy_tokens_of_forward(arch, capsys)
+
+
+def _serve_launcher_gives_greedy_tokens_of_forward(arch, capsys):
+    argv = ["--arch", arch, "--reduced", "--requests", "3",
             "--batch-slots", "2", "--prompt-len", "5", "--max-new", "4",
             "--max-len", "32", "--device", CPU]
     outputs = tserve.main(argv)
     assert len(outputs) == 3
     assert "[serve] 3/3 requests" in capsys.readouterr().out
-    cfg = TC.reduced(TC.ARCHS["mistral-nemo-12b"])
+    cfg = TC.reduced(TC.ARCHS[arch])
     model = Model(cfg, device=CPU).init(0)           # the launcher's weights
     rng = np.random.RandomState(0)
     prompts = [rng.randint(0, cfg.vocab_size, size=5).tolist()
@@ -266,8 +291,8 @@ def test_init_draws_reference_rules_in_place():
     assert all(not p.requires_grad for p in m.parameters())
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "recurrentgemma-2b",
-                                  "rwkv6-3b", "qwen2-vl-7b", "whisper-small"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-3b",
+                                  "qwen2-vl-7b", "whisper-small"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model(TC.reduced(TC.ARCHS[arch]), device=CPU)

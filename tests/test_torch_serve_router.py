@@ -4,7 +4,8 @@ Units as in the reference's router tests (id prefixing, metric stamping,
 inject-spec parsing, routing, health, CLI validation, a torch-free
 import), the worker command line (``repro_torch.serve.worker`` with the
 router's ``--device``), a fake worker that cuts its reply short (the
-router answers 503 ``worker_unavailable``, not 500), and the reference's
+router answers 503 ``worker_unavailable``, not 500, and its supervisor
+reads the worker as unhealthy and goes on supervising), and the reference's
 two-worker chaos test run against the port's workers on the CPU: one
 worker killed mid-traffic by an injected ``worker_crash``, supervised
 restart, journal resume, zero lost acked jobs, only deliberate sheds, and
@@ -202,7 +203,7 @@ def _fake_worker(reply: bytes):
     return srv.getsockname()[1], close
 
 
-@pytest.mark.parametrize("reply", [
+CUT_SHORT = pytest.mark.parametrize("reply", [
     # Content-Length longer than the body, then the connection closes: a
     # worker killed while it writes a reply (http.client.IncompleteRead)
     b"HTTP/1.1 200 OK\r\nContent-Type: application/json\r\n"
@@ -212,6 +213,9 @@ def _fake_worker(reply: bytes):
     # nothing at all (RemoteDisconnected, an OSError as well)
     b"",
 ], ids=["incomplete_read", "bad_status_line", "remote_disconnected"])
+
+
+@CUT_SHORT
 def test_reply_cut_short_is_503_worker_unavailable(reply):
     port, close = _fake_worker(reply)
     w = WorkerHandle(0, "/nonexistent/w0", [])
@@ -235,6 +239,87 @@ def test_reply_cut_short_is_503_worker_unavailable(reply):
         rt.httpd.shutdown()
         rt.httpd.server_close()
         close()
+
+
+@CUT_SHORT
+def test_health_reply_cut_short_is_unhealthy(reply):
+    """The supervisor's /healthz probe reads any transport failure as
+    unhealthy and never raises."""
+    port, close = _fake_worker(reply)
+    w = WorkerHandle(0, "/nonexistent/w0", [])
+    w.port = port
+    try:
+        assert w.probe() is False
+    finally:
+        close()
+
+
+class _FakeProc:
+    """A worker process whose liveness the test sets."""
+    returncode = None
+
+    def poll(self):
+        return self.returncode
+
+
+def test_supervisor_survives_health_replies_cut_short():
+    """A worker killed while it answers the supervisor's /healthz cuts the
+    reply short. Supervision must go on: the death right after is seen
+    and the worker respawned (else its acked jobs are never delivered)."""
+    port, close = _fake_worker(
+        b"HTTP/1.1 200 OK\r\nContent-Length: 64\r\n\r\n{\"st")
+    w = WorkerHandle(0, "/nonexistent/w0", [])
+    w.proc, w.port, w.last_spawn = _FakeProc(), port, time.monotonic()
+    spawned = threading.Event()
+
+    def spawn(extra_args=()):
+        w.proc = None                # no second life to supervise
+        spawned.set()
+
+    w.spawn = spawn
+    rt = Router([w], port=0, probe_s=0.05)
+    rt.supervisor_thread.start()
+    try:
+        time.sleep(0.5)              # several probes, each cut short
+        assert rt.supervisor_thread.is_alive()
+        assert not w.healthy and not spawned.is_set()
+        w.proc.returncode = 137
+        assert spawned.wait(timeout=10)
+        assert w.restarts == 1
+        assert rt.supervisor_thread.is_alive()
+    finally:
+        rt._stop.set()
+        rt.supervisor_thread.join(timeout=10)
+        rt.httpd.server_close()
+        close()
+
+
+def test_supervisor_survives_a_failed_respawn():
+    """A respawn that raises (say, a fork refused) is logged and retried
+    at the next tick; the supervisor goes on."""
+    w = WorkerHandle(0, "/nonexistent/w0", [])
+    w.proc, w.last_spawn = _FakeProc(), time.monotonic() - 100.0
+    w.proc.returncode = 137
+    calls, spawned = [], threading.Event()
+
+    def spawn(extra_args=()):
+        calls.append(time.monotonic())
+        if len(calls) == 1:
+            raise OSError("fork refused")
+        w.proc = None
+        spawned.set()
+
+    w.spawn = spawn
+    rt = Router([w], port=0, probe_s=0.05)
+    rt.supervisor_thread.start()
+    try:
+        assert spawned.wait(timeout=10)
+        assert len(calls) == 2 and w.restarts == 2
+        assert rt.supervisor_thread.is_alive()
+    finally:
+        rt._stop.set()
+        rt.supervisor_thread.join(timeout=10)
+        rt.httpd.server_close()
 
 
 # ------------------------------------------------------------- chaos e2e

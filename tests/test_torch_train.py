@@ -4,7 +4,9 @@ package's, on the CPU, on the same numpy inputs.
 
 The reduced configs carry the reference's weights across
 (``models.params.params_from_jax``) and its AdamW state
-(``opt_state_from_jax``). Bit for bit where the arithmetic is integer or
+(``opt_state_from_jax``). The two mixture-of-experts configs (olmoe,
+moonshot) take the dense decoders' cases: their trees mix a float32 router
+with experts in the model's dtype, and their loss adds ``0.01·aux``. Bit for bit where the arithmetic is integer or
 one rounding an operation: the data stream, the key arithmetic, ABO-ZO's
 perturbation over a whole tree (stacked groups included), the AdamW update
 against the reference's op-by-op (unjitted) update with clipping off, and
@@ -28,6 +30,10 @@ tests/torch_parity_report.py --only training``):
     difference: elements within 1e-6 absolute.
 """
 import dataclasses
+import os
+import pathlib
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -62,6 +68,7 @@ STEP_TOL = 1e-6
 STEP_SHARE = 1e-3
 DENSE = ["mistral-nemo-12b", "h2o-danube-3-4b", "granite-20b",
          "internlm2-20b"]
+MOE = ["olmoe-1b-7b", "moonshot-v1-16b-a3b"]
 
 
 def _cfgs(arch, dtype=None):
@@ -118,7 +125,7 @@ def test_bigram_stream_bits(seed):
 # ---------------------------------------------------------------------------
 # the leaf map and the reference's key arithmetic
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_leaf_map_covers_the_reference_tree(arch):
     jm, params, tm = _pair(arch)
     leaves = jax.tree.leaves(params)
@@ -185,7 +192,7 @@ def test_rademacher_signs_high_counter_word():
 # ---------------------------------------------------------------------------
 # ABO-ZO
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_perturb_bits_over_the_tree(arch, dtype):
     jm, params, tm = _pair(arch, dtype)
@@ -234,7 +241,7 @@ def _ref_candidates(jm, params, batch, key, state, m):
     return fs, win
 
 
-@pytest.mark.parametrize("arch", ["mistral-nemo-12b", "granite-20b"])
+@pytest.mark.parametrize("arch", ["mistral-nemo-12b", "granite-20b"] + MOE)
 def test_abo_zo_step_matches_reference(arch):
     jm, params, tm = _pair(arch)
     cfg = jabo.ABOZOConfig(window=0.05)
@@ -347,7 +354,7 @@ def test_adamw_update_matches_reference(dtype, clip):
 # ---------------------------------------------------------------------------
 # the loss and its gradients
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_loss_and_grads_match_reference(arch):
     jm, params, tm = _pair(arch)
     toks = _batch(tm.cfg)
@@ -359,6 +366,9 @@ def test_loss_and_grads_match_reference(arch):
     lt.backward()
     assert abs(float(lt.detach()) - float(lj)) < LOSS_TOL
     assert abs(float(mt["ce"].detach()) - float(mj["ce"])) < LOSS_TOL
+    assert abs(float(mt["aux"].detach()) - float(mj["aux"])) <= 1e-6
+    if tm.cfg.n_experts:        # the loss carries 0.01·aux
+        assert float(mj["aux"]) > 0
     want = named_from_jax(tm.cfg, jax.tree.map(np.asarray, gj))
     for n, p in tm.named_parameters():
         w = want[n]
@@ -431,6 +441,12 @@ def _hold_steps(out, err):
 def test_adamw_train_step_matches_reference(remat, steps):
     _hold_steps(*_adamw_runs("mistral-nemo-12b", remat=remat, microbatches=1,
                              steps=steps)[:2])
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_adamw_train_step_matches_reference(arch):
+    """One AdamW step through a float32 router and the experts."""
+    _hold_steps(*_adamw_runs(arch, remat=True, microbatches=1, steps=1)[:2])
 
 
 def test_adamw_microbatches_match_reference():
@@ -512,6 +528,20 @@ def test_train_resume_determinism(tmp_path, optimizer):
     assert len(a) == len(b) > 0
     for x, y in zip(a, b):
         assert x.dtype == y.dtype and np.array_equal(x, y)
+
+
+def test_train_launcher_runs_as_a_module():
+    """``python -m repro_torch.launch.train`` trains, as the reference's
+    docstring runs it (its example is olmoe-1b-7b)."""
+    src = str(pathlib.Path(__file__).resolve().parents[1] / "src")
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "olmoe-1b-7b", "--reduced", "--steps", "2", "--seq-len", "16",
+         "--batch", "2", "--device", CPU], capture_output=True, text=True,
+        timeout=300, env={**os.environ, "PYTHONPATH": src,
+                          "OMP_NUM_THREADS": "2"})
+    assert out.returncode == 0, out.stderr
+    assert "[train] done: 2 steps" in out.stdout, out.stdout
 
 
 def test_train_launcher_model_parallel_raises():

@@ -60,17 +60,21 @@ Phases, in order; any failure exits non-zero before the result line:
  14. the mma.sync kernel's path: the reduced ``mistral-nemo-12b`` (float32,
      head_dim 16) prefill step on the card, against its plain-attention run,
      and that kernel timed at its attention shape;
- 15. the LM training path (``[train]``, TRAIN_ARGS): K3-bwd against its
-     plain version and timed beside SDPA's backward; P (ABO-ZO's
+ 15. the LM training path (``[train]``, TRAIN_ARGS): K3-bwd (two kernels,
+     each case through the one ``choose_bwd_kernel`` gives it) against its
+     plain version; the Hopper kernel, the mma.sync kernel and SDPA's
+     backward timed in turns at the AdamW shape and at T = 8192; P (ABO-ZO's
      perturbation) bit for bit its plain version and timed over the whole
      model; ABO-ZO on the whole ``mistral-nemo-12b`` through
      ``launch.train.main`` (wall a step, 400 Hopper K3 launches a step, P's
      launches, peak memory over the parameter bytes); AdamW at full width
      cut to 4 layers (step 1 against the plain attention, 3 timed steps,
-     K3 and K3-bwd in every layer, the 40-layer memory arithmetic); the
-     reduced config's resume, bit for bit;
+     K3 and the Hopper K3-bwd in every layer, the 40-layer memory
+     arithmetic); the reduced config's resume, bit for bit, through the
+     mma.sync K3-bwd;
  16. the mixture-of-experts family at full width (``[moe]``): K3 at the
-     MoE models' MHA layer shape and K3-bwd at olmoe's AdamW shape, timed;
+     MoE models' MHA layer shape and both K3-bwd kernels at olmoe's AdamW
+     shape, timed in turns with SDPA's backward;
      ``olmoe-1b-7b`` and ``moonshot-v1-16b-a3b`` each: the prefill step on
      one T = 8192 request (16 and 48 launches, all of the Hopper kernel;
      wall, tokens/s, peak memory), the lossless forward against its
@@ -83,7 +87,7 @@ Phases, in order; any failure exits non-zero before the result line:
      stacked expert leaf and timed over the whole model; ABO-ZO on the
      whole olmoe through ``launch.train.main``; AdamW on olmoe cut to 4
      layers (step 1 against the plain attention with its routes pinned,
-     aux, K3 and K3-bwd in every layer);
+     aux, K3 and the Hopper K3-bwd in every layer);
  17. one JSON line with every kernel's launches, error and times;
  18. the last line, ``{"ok": true, "device": {...}}``.
 
@@ -275,10 +279,13 @@ HTTP_PHASE_S = 150
 # random weights from seed 0 as the launcher draws them), batch 8 of 512
 # tokens from BigramStream: (a) K3-bwd against autograd through the plain
 # attention at TRAIN_BWD_SHAPES (the AdamW shape, the reduced config's at
-# 512 and at (e)'s 128 tokens, a ragged sq and a window;
-# tests/test_torch_gpu.py's BWD_SHAPES), held as
-# max |got - want| over the tensor's max |want|, overall and per row, then
-# timed at the AdamW shape in turns with SDPA's backward; (b) P against its
+# 512 and at (e)'s 128 tokens, a ragged sq and a window, olmoe's MHA, and
+# the Hopper kernel's edges; tests/test_torch_gpu.py's BWD_SHAPES) and at
+# BWD_ROUTING_CASE, held as max |got - want| over the tensor's max |want|,
+# overall and per row, each through the kernel that choose_bwd_kernel names
+# (its launch count moves by one); then the Hopper kernel, the mma.sync
+# kernel and SDPA's backward timed in turns at the AdamW shape and at
+# BWD_LONG, the Hopper kernel held at BWD_LONG_HELD; (b) P against its
 # plain version bit for bit (P_CASES, then the whole model), timed over the
 # whole model; (c) ABO-ZO on the whole model through launch.train.main
 # (ABO_STEPS steps); (d) AdamW through make_train_step at full width cut to
@@ -295,7 +302,21 @@ TRAIN_BWD_SHAPES = [
     (2, 4, 4, 256, 256, 64, True, 96, "bfloat16"),       # window
     (2, 4, 4, 256, 256, 64, True, 96, "float32"),
     (8, 16, 16, 512, 512, 128, True, None, "bfloat16"),  # olmoe's AdamW (MHA)
+    # the Hopper kernel's edges (bf16, head_dim 120 or 128)
+    (2, 4, 2, 200, 200, 128, True, None, "bfloat16"),    # ragged sq
+    (1, 32, 8, 333, 333, 120, True, 96, "bfloat16"),     # h2o-danube's d
+    (2, 4, 2, 100, 300, 128, False, None, "bfloat16"),   # cross: sq != sk
+    (1, 48, 1, 256, 256, 128, True, None, "bfloat16"),   # MQA (granite)
 ]
+# A Hopper-eligible shape whose dO rows are BWD_ROUTING_STRIDE elements
+# apart (not a multiple of 8): the mma.sync kernel takes it.
+BWD_ROUTING_CASE = (2, 4, 2, 200, 200, 128, True, None, "bfloat16")
+BWD_ROUTING_STRIDE = 132
+# The long-context training shape of mistral-nemo-12b's own config, timed
+# (b, hq, hkv, T, d; bf16, causal); the Hopper kernel is held to the plain
+# backward at BWD_LONG_HELD, whose autograd needs a few GB
+BWD_LONG = (1, 32, 8, 8192, 128)
+BWD_LONG_HELD = (1, 8, 2, 8192, 128)
 BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 BWD_ROW_TOL = {"bfloat16": 1e-1, "float32": 1e-3}
 BWD_ROW_FLOOR = 5e-2      # see grad_row_err
@@ -1804,15 +1825,65 @@ def p_bound(n: int, itemsize: int) -> tuple[float, str, dict]:
         "build_issue_ms": 1e3 * n * P_SASS_LOOP / (ISSUE_LANES * lanes)}
 
 
+def bwd_kernel_for(dtype: str, d: int, dout_stride=None) -> str:
+    """The K3-bwd kernel a case must run, from the routing rule stated
+    apart from ``choose_bwd_kernel``: bf16 at head_dim 120 or 128 with
+    16-byte strides to the Hopper kernel, the rest to the mma.sync one."""
+    hopper = (dtype == "bfloat16" and d in (120, 128)
+              and (dout_stride is None or dout_stride % 8 == 0))
+    return "flash_attention_bwd_sm90" if hopper else "flash_attention_bwd_mma"
+
+
+def bwd_reading(got, again, want, name: str, ran: str, want_kernel: str,
+                shape) -> dict:
+    """One K3-bwd case held to its plain version: max |got - want| over the
+    tensor's max |want| and per row for dQ, dK and dV, the max abs error,
+    the kernel that ran and whether a second run gave the same bits."""
+    import torch
+    rel = {n: float((a.float() - w.float()).abs().max()
+                    / w.float().abs().max())
+           for n, a, w in zip(("dq", "dk", "dv"), got, want)}
+    row = {n: grad_row_err(a, w)
+           for n, a, w in zip(("dq", "dk", "dv"), got, want)}
+    err = max(float((a.float() - w.float()).abs().max())
+              for a, w in zip(got, want))
+    same = all(torch.equal(a, c) for a, c in zip(got, again))
+    return {"shape": tuple(shape[:8]), "dtype": name, "rel": rel, "row": row,
+            "abs": err, "same_bits": same, "kernel": ran,
+            "want_kernel": want_kernel, "ok": (
+                ran == want_kernel and same
+                and all(bool(torch.isfinite(a).all()) for a in got)
+                and max(rel.values()) < BWD_TOL[name]
+                and max(row.values()) < BWD_ROW_TOL[name])}
+
+
+BWD_COUNTED = ("flash_attention_bwd", "flash_attention_bwd_sm90",
+               "flash_attention_bwd_mma")
+
+
+def _bwd_counts() -> dict:
+    from repro_torch.kernels.flash_attention import ops as fa
+    return {n: getattr(fa, n).launches for n in BWD_COUNTED}
+
+
+def _bwd_ran(before: dict) -> str | None:
+    """The one K3-bwd kernel whose launch count moved by one since
+    ``before`` (``_bwd_counts()``), the other's unchanged and the
+    dispatching wrapper's moved by one, else None."""
+    moved = {n: c - before[n] for n, c in _bwd_counts().items()}
+    if moved.pop("flash_attention_bwd") != 1:
+        return None
+    ran = [n for n, m in moved.items() if m == 1]
+    return ran[0] if len(ran) == 1 and sum(moved.values()) == 1 else None
+
+
 def train_bwd_readings(dev, seed: int) -> list[dict]:
     """(a) K3-bwd against autograd through the plain attention at each
-    shape of TRAIN_BWD_SHAPES: per case the max |got - want| over the
-    tensor's max |want| and per row for dQ, dK and dV, the max abs error,
-    whether one backward launch was counted and a second run gave the same
-    bits."""
+    shape of TRAIN_BWD_SHAPES, through ``flash_attention``'s gradient, and
+    at BWD_ROUTING_CASE, through ``flash_attention_bwd`` with a dO whose
+    rows are BWD_ROUTING_STRIDE apart: per case ``bwd_reading``."""
     import torch
-    from repro_torch.kernels.flash_attention.ops import (
-        flash_attention, flash_attention_bwd, flash_attention_bwd_plain)
+    from repro_torch.kernels.flash_attention import ops as fa
     out = []
     for shape in TRAIN_BWD_SHAPES:
         b, hq, hkv, sq, sk, d, causal, window, name = shape
@@ -1821,33 +1892,132 @@ def train_bwd_readings(dev, seed: int) -> list[dict]:
                    for t in _qkv(dev, seed, b, hq, hkv, sq, sk, d, dtype))
         g = torch.Generator(device=dev).manual_seed(seed + 7)
         dout = torch.randn((b, hq, sq, d), generator=g, device=dev).to(dtype)
-        before = flash_attention_bwd.launches
+        before = _bwd_counts()
         got = torch.autograd.grad(
-            flash_attention(q, k, v, causal=causal, window=window),
+            fa.flash_attention(q, k, v, causal=causal, window=window),
             (q, k, v), dout)
-        launched = flash_attention_bwd.launches == before + 1
+        ran = _bwd_ran(before)
         again = torch.autograd.grad(
-            flash_attention(q, k, v, causal=causal, window=window),
+            fa.flash_attention(q, k, v, causal=causal, window=window),
             (q, k, v), dout)
-        want = flash_attention_bwd_plain(q, k, v, dout, causal=causal,
-                                         window=window)
+        want = fa.flash_attention_bwd_plain(q, k, v, dout, causal=causal,
+                                            window=window)
         torch.cuda.synchronize()
-        rel = {n: float((a.float() - w.float()).abs().max()
-                        / w.float().abs().max())
-               for n, a, w in zip(("dq", "dk", "dv"), got, want)}
-        row = {n: grad_row_err(a, w)
-               for n, a, w in zip(("dq", "dk", "dv"), got, want)}
-        err = max(float((a.float() - w.float()).abs().max())
-                  for a, w in zip(got, want))
-        same = all(torch.equal(a, c) for a, c in zip(got, again))
-        out.append({"shape": shape[:8], "dtype": name, "rel": rel, "row": row,
-                    "abs": err, "same_bits": same, "ok": (
-                        launched and same
-                        and all(bool(torch.isfinite(a).all()) for a in got)
-                        and max(rel.values()) < BWD_TOL[name]
-                        and max(row.values()) < BWD_ROW_TOL[name])})
+        out.append(bwd_reading(got, again, want, name, ran,
+                               bwd_kernel_for(name, d), shape))
         del q, k, v, dout, got, again, want
+    b, hq, hkv, sq, sk, d, causal, window, name = BWD_ROUTING_CASE
+    dtype = getattr(torch, name)
+    q, k, v = (_model_layout(t)
+               for t in _qkv(dev, seed, b, hq, hkv, sq, sk, d, dtype))
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+    dout = torch.randn((b, hq, sq, BWD_ROUTING_STRIDE), generator=g,
+                       device=dev).to(dtype)[..., :d]
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
+    o = fa.flash_attention_sm90(q, k, v, causal=causal, window=window,
+                                lse=lse)
+    before = _bwd_counts()
+    got = fa.flash_attention_bwd(q, k, v, o, dout, lse, causal=causal,
+                                 window=window)
+    ran = _bwd_ran(before)
+    again = fa.flash_attention_bwd(q, k, v, o, dout, lse, causal=causal,
+                                   window=window)
+    want = fa.flash_attention_bwd_plain(q, k, v, dout, causal=causal,
+                                        window=window)
+    torch.cuda.synchronize()
+    r = bwd_reading(got, again, want, name, ran,
+                    bwd_kernel_for(name, d, BWD_ROUTING_STRIDE),
+                    BWD_ROUTING_CASE)
+    r["dout_stride"] = BWD_ROUTING_STRIDE
+    out.append(r)
     return out
+
+
+def bwd_times(dev, seed: int, b, hq, hkv, t, d, reps: int, dtype="bfloat16",
+              plain=True) -> dict:
+    """The K3-bwd kernels that take (b, hq/hkv, t, d) causal in ``dtype``
+    (the Hopper one in bf16 at head_dim 120 or 128, the mma.sync one always)
+    and SDPA's backward, timed in turns (Hopper, mma, SDPA, SDPA, mma,
+    Hopper), each over ``reps`` calls; the plain version's time unless
+    ``plain`` is False; the bound. The lse and O come from the forward."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa
+    dt = getattr(torch, dtype)
+    q, k, v = (_model_layout(x)
+               for x in _qkv(dev, seed, b, hq, hkv, t, t, d, dt))
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+    dout = torch.randn((b, hq, t, d), generator=g, device=dev).to(dt)
+    lse = torch.empty((b, hq, t), dtype=torch.float32, device=dev)
+    o = fa._KERNELS[fa.choose_kernel(q, k, v)](q, k, v, lse=lse)
+    qs, ks, vs = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    o_sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                            enable_gqa=hq != hkv)
+    runs = {"mma": lambda: fa.flash_attention_bwd_mma(q, k, v, o, dout, lse),
+            "sdpa": lambda: torch.autograd.grad(o_sdpa, (qs, ks, vs), dout,
+                                                retain_graph=True)}
+    order = ("mma", "sdpa", "sdpa", "mma")
+    if fa.choose_bwd_kernel(q, k, v, o, dout) == "flash_attention_bwd_sm90":
+        runs["sm90"] = lambda: fa.flash_attention_bwd_sm90(q, k, v, o, dout,
+                                                           lse)
+        order = ("sm90",) + order + ("sm90",)
+    for fn in runs.values():
+        fn()                                              # warm-up
+    turns = {n: [] for n in runs}
+    for n in order:
+        turns[n].append(cuda_ms(runs[n], reps))
+    peak, size = ((PEAK_BF16_OPS_S, 2) if dt == torch.bfloat16
+                  else (PEAK_F32_OPS_S, 4))
+    bound, by = bwd_bound(b, hq, hkv, t, d, peak=peak, itemsize=size)
+    out = {"shape": f"{dtype} ({b}, {hq}/{hkv}, {t}, {d}) causal",
+           "turns": turns,
+           "ms": {n: sum(x) / len(x) for n, x in turns.items()},
+           "plain_ms": (cuda_ms(lambda: fa.flash_attention_bwd_plain(
+               q, k, v, dout), 3) if plain else None),
+           "bound_ms": bound, "bound_by": by}
+    del q, k, v, dout, lse, o, qs, ks, vs, o_sdpa, runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def print_bwd_times(tag: str, r: dict) -> None:
+    ms = r["ms"]
+    hopper = (f"Hopper {r['turns']['sm90']} ms ({ms['sm90'] / ms['sdpa']:.3f}x "
+              f"SDPA's, {ms['mma'] / ms['sm90']:.2f}x faster than mma.sync, "
+              f"{r['bound_ms'] / ms['sm90']:.1%} of the bound), "
+              if "sm90" in ms else "")
+    plain = (f"plain {r['plain_ms']:.3f} ms, " if r["plain_ms"] is not None
+             else "")
+    print(f"{tag} K3-bwd at {r['shape']}, in turns: {hopper}mma.sync "
+          f"{r['turns']['mma']} ms, SDPA's backward {r['turns']['sdpa']} ms; "
+          f"{plain}bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+
+
+def bwd_long_reading(dev, seed: int) -> dict:
+    """The Hopper K3-bwd at BWD_LONG_HELD against the plain backward (the
+    kernel that ran, both gradients' errors, the same bits on a repeat)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa
+    b, hq, hkv, t, d = BWD_LONG_HELD
+    q, k, v = (_model_layout(x) for x in _qkv(dev, seed, b, hq, hkv, t, t, d,
+                                               torch.bfloat16))
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+    dout = torch.randn((b, hq, t, d), generator=g, device=dev).to(
+        torch.bfloat16)
+    lse = torch.empty((b, hq, t), dtype=torch.float32, device=dev)
+    o = fa.flash_attention_sm90(q, k, v, lse=lse)
+    before = _bwd_counts()
+    got = fa.flash_attention_bwd(q, k, v, o, dout, lse)
+    ran = _bwd_ran(before)
+    again = fa.flash_attention_bwd(q, k, v, o, dout, lse)
+    want = fa.flash_attention_bwd_plain(q, k, v, dout)
+    torch.cuda.synchronize()
+    r = bwd_reading(got, again, want, "bfloat16", ran,
+                    "flash_attention_bwd_sm90", (b, hq, hkv, t, t, d, True,
+                                                 None))
+    del q, k, v, dout, lse, o, got, again, want
+    torch.cuda.empty_cache()
+    return r
 
 
 def train_counted() -> tuple:
@@ -1855,7 +2025,8 @@ def train_counted() -> tuple:
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.perturb.ops import abo_zo_perturb
     return (fa.flash_attention_sm90, fa.flash_attention_mma,
-            fa.flash_attention_bwd, abo_zo_perturb)
+            fa.flash_attention_bwd, fa.flash_attention_bwd_sm90,
+            fa.flash_attention_bwd_mma, abo_zo_perturb)
 
 
 @contextlib.contextmanager
@@ -1895,17 +2066,16 @@ def train_phase(dev, seed: int) -> list[dict]:
     """Phase 15, the LM training path (see TRAIN_ARGS): (a) K3-bwd, (b) P,
     (c) ABO-ZO on the whole mistral-nemo-12b, (d) AdamW at full width cut
     to ADAMW_LAYERS layers, (e) the reduced config's resume on the card.
-    Returns the entries of the kernels line for K3-bwd and P."""
+    Returns the entries of the kernels line for both K3-bwd kernels and
+    P."""
     import dataclasses
     import io
     import shutil
 
     import numpy as np
     import torch
-    import torch.nn.functional as F
     from repro_torch.configs import ARCHS
     from repro_torch.data.synthetic import BigramStream, StreamConfig
-    from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.perturb.ops import (abo_zo_perturb,
                                                  abo_zo_perturb_plain)
     from repro_torch.launch import train as train_launch
@@ -1919,47 +2089,45 @@ def train_phase(dev, seed: int) -> list[dict]:
 
     # ---- (a) K3-bwd against its plain version, then timed ---------------
     for r in train_bwd_readings(dev, seed):
-        print(f"[train] (a) K3-bwd {r['shape']} {r['dtype']}: max |err| / "
+        stride = (f", dO row stride {r['dout_stride']}" if "dout_stride" in r
+                  else "")
+        print(f"[train] (a) K3-bwd {r['shape']} {r['dtype']}{stride}: ran "
+              f"{r['kernel']} (want {r['want_kernel']}); max |err| / "
               f"max |want| {r['rel']} (limit {BWD_TOL[r['dtype']]}), per row "
               f"{r['row']} (limit {BWD_ROW_TOL[r['dtype']]}), max abs "
               f"{r['abs']:.4g}; a second run the same bits {r['same_bits']}",
               flush=True)
         check(r["ok"], f"K3-bwd disagrees with its plain version at "
-              f"{r['shape']} {r['dtype']}, gave other bits on a repeat, or "
-              "did not launch")
+              f"{r['shape']} {r['dtype']}{stride}, gave other bits on a "
+              f"repeat, or ran {r['kernel']} for {r['want_kernel']}")
         if r["shape"] == TRAIN_BWD_SHAPES[0][:8]:
             bwd_main = r
+        if r["shape"] == TRAIN_BWD_SHAPES[1][:8]:
+            bwd_reduced = r
     b, hq, hkv, d = TRAIN_B, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     t = TRAIN_T
-    q, k, v = (_model_layout(x) for x in _qkv(dev, seed, b, hq, hkv, t, t, d,
-                                               torch.bfloat16))
-    g = torch.Generator(device=dev).manual_seed(seed + 7)
-    dout = torch.randn((b, hq, t, d), generator=g, device=dev).to(
-        torch.bfloat16)
-    lse = torch.empty((b, hq, t), dtype=torch.float32, device=dev)
-    o = fa.flash_attention_sm90(q, k, v, lse=lse)
-    qs, ks, vs = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
-    o_sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
-                                            enable_gqa=True)
-    runs = {"kernel": lambda: fa.flash_attention_bwd(q, k, v, o, dout, lse),
-            "sdpa": lambda: torch.autograd.grad(o_sdpa, (qs, ks, vs), dout,
-                                                retain_graph=True)}
-    for fn in runs.values():
-        fn()                                              # warm-up
-    ms = {n: [] for n in runs}
-    for n in ("kernel", "sdpa", "sdpa", "kernel"):        # in turns
-        ms[n].append(cuda_ms(runs[n], 20))
-    bwd_ms = sum(ms["kernel"]) / 2
-    sdpa_ms = sum(ms["sdpa"]) / 2
-    bwd_plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, dout),
-                           3)
-    bwd_b, bwd_by = bwd_bound(b, hq, hkv, t, d)
-    print(f"[train] (a) K3-bwd at ({b}, {hq}/{hkv}, {t}, {d}) bf16 causal, "
-          f"in turns: kernel {ms['kernel']} ms, SDPA's backward {ms['sdpa']} "
-          f"ms ({bwd_ms / sdpa_ms:.3f}x its time), plain {bwd_plain_ms:.3f} "
-          f"ms, bound {bwd_b:.4f} ms ({bwd_by}), {bwd_b / bwd_ms:.1%} of it",
-          flush=True)
-    del q, k, v, dout, lse, o, qs, ks, vs, o_sdpa, runs
+    bwd_adamw = bwd_times(dev, seed, b, hq, hkv, t, d, 20)
+    print_bwd_times("[train] (a)", bwd_adamw)
+    rb, rhq, rhkv, rt, _, rd = TRAIN_BWD_SHAPES[1][:6]   # the reduced config
+    bwd_red = bwd_times(dev, seed, rb, rhq, rhkv, rt, rd, 20, "float32")
+    print_bwd_times("[train] (a)", bwd_red)
+    bwd_long = bwd_times(dev, seed, *BWD_LONG, 3, plain=False)
+    print_bwd_times("[train] (a)", bwd_long)
+    held = bwd_long_reading(dev, seed)
+    bwd_long_plain = bwd_times(dev, seed, *BWD_LONG_HELD, 3)
+    print_bwd_times("[train] (a)", bwd_long_plain)
+    print(f"[train] (a) K3-bwd {held['shape']} bf16: ran {held['kernel']}; "
+          f"max |err| / max |want| {held['rel']} (limit "
+          f"{BWD_TOL['bfloat16']}), per row {held['row']} (limit "
+          f"{BWD_ROW_TOL['bfloat16']}), max abs {held['abs']:.4g}; a second "
+          f"run the same bits {held['same_bits']}", flush=True)
+    check(held["ok"], f"the Hopper K3-bwd disagrees with its plain version "
+          f"at {held['shape']}, gave other bits on a repeat, or ran "
+          f"{held['kernel']}")
+    ms = bwd_adamw["ms"]
+    check(ms["sm90"] < ms["mma"], f"the Hopper K3-bwd ({ms['sm90']:.4f} ms) "
+          f"is not faster than the mma.sync one ({ms['mma']:.4f} ms) at the "
+          "AdamW shape")
     torch.cuda.empty_cache()
 
     # ---- (b) P against its plain version, bit for bit -------------------
@@ -2126,10 +2294,12 @@ def train_phase(dev, seed: int) -> list[dict]:
     check(all(math.isfinite(x) for x in losses), "AdamW's loss not finite")
     check(launches_adamw["flash_attention_sm90"] >= ADAMW_STEPS * ADAMW_LAYERS
           and launches_adamw["flash_attention_bwd"]
+          == launches_adamw["flash_attention_bwd_sm90"]
           == ADAMW_STEPS * ADAMW_LAYERS
-          and launches_adamw["flash_attention_mma"] == 0,
-          f"AdamW's steps launched {launches_adamw}: K3 and K3-bwd not in "
-          "every layer")
+          and launches_adamw["flash_attention_mma"] == 0
+          and launches_adamw["flash_attention_bwd_mma"] == 0,
+          f"AdamW's steps launched {launches_adamw}: K3 and the Hopper "
+          "K3-bwd not in every layer, or a mma.sync kernel ran")
     del model, step, state, met
     torch.cuda.empty_cache()
 
@@ -2163,29 +2333,59 @@ def train_phase(dev, seed: int) -> list[dict]:
     check(same and full == resumed, "the resumed run differs from the "
           "uninterrupted one")
     check(launches_e["flash_attention_mma"] > 0
-          and launches_e["flash_attention_bwd"] > 0,
-          "the reduced run did not go through the mma kernel and K3-bwd")
+          and launches_e["flash_attention_bwd"]
+          == launches_e["flash_attention_bwd_mma"] > 0
+          and launches_e["flash_attention_bwd_sm90"] == 0,
+          "the reduced run did not go through the mma kernel and the "
+          "mma.sync K3-bwd")
     shutil.rmtree(root, ignore_errors=True)
 
     total_s = time.perf_counter() - t_phase
     print(f"[train] phase took {total_s:.1f} s (limit {TRAIN_PHASE_S} s) | "
           f"{nvidia_smi_line()}", flush=True)
     check(total_s <= TRAIN_PHASE_S, f"the training phase took {total_s:.1f} s")
+    note = ("port only: stands for the autodiff of "
+            "src/repro/kernels/flash_attention/ref.py::attention_ref")
     return [
-        {"name": "flash_attention_bwd", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-         "replaces": None,
-         "note": "port only: stands for the autodiff of "
-                 "src/repro/kernels/flash_attention/ref.py::attention_ref",
-         "launches": launches_adamw["flash_attention_bwd"],
-         "max_abs_err": bwd_main["abs"], "ms": bwd_ms,
-         "plain_ms": bwd_plain_ms, "bound_ms": bwd_b, "bound_by": bwd_by,
-         "library_ms": sdpa_ms,
+        {"name": "flash_attention_bwd_sm90", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
+         "replaces": None, "note": note,
+         "launches": launches_adamw["flash_attention_bwd_sm90"],
+         "max_abs_err": bwd_main["abs"], "ms": bwd_adamw["ms"]["sm90"],
+         "plain_ms": bwd_adamw["plain_ms"], "bound_ms": bwd_adamw["bound_ms"],
+         "bound_by": bwd_adamw["bound_by"],
+         "library_ms": bwd_adamw["ms"]["sdpa"],
          "launches_of": f"{ADAMW_STEPS} AdamW steps, {LM_ARCH} at "
                         f"{ADAMW_LAYERS} layers",
          "max_abs_err_of": f"bf16 at ({b}, {hq}/{hkv}, {t}, {d}), causal",
          "max_rel_err": bwd_main["rel"], "row_rel_err": bwd_main["row"],
-         "library": "scaled_dot_product_attention's backward"},
+         "library": "scaled_dot_product_attention's backward",
+         "long": {"shape": bwd_long["shape"],
+                  "ms": bwd_long["ms"]["sm90"],
+                  "library_ms": bwd_long["ms"]["sdpa"],
+                  "bound_ms": bwd_long["bound_ms"],
+                  "bound_by": bwd_long["bound_by"],
+                  "held_at": bwd_long_plain["shape"],
+                  "held_ms": bwd_long_plain["ms"]["sm90"],
+                  "held_plain_ms": bwd_long_plain["plain_ms"],
+                  "max_abs_err": held["abs"], "max_rel_err": held["rel"],
+                  "row_rel_err": held["row"]}},
+        {"name": "flash_attention_bwd_mma", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+         "replaces": None, "note": note,
+         "launches": launches_e["flash_attention_bwd_mma"],
+         "max_abs_err": bwd_reduced["abs"], "ms": bwd_red["ms"]["mma"],
+         "plain_ms": bwd_red["plain_ms"], "bound_ms": bwd_red["bound_ms"],
+         "bound_by": bwd_red["bound_by"],
+         "library_ms": bwd_red["ms"]["sdpa"],
+         "launches_of": f"reduced {LM_ARCH} (float32), 8 + 4 + 4 AdamW "
+                        "steps (the resume)",
+         "max_abs_err_of": f"float32 at {bwd_red['shape']}",
+         "max_rel_err": bwd_reduced["rel"], "row_rel_err": bwd_reduced["row"],
+         "library": "scaled_dot_product_attention's backward",
+         "at_adamw_shape": {"shape": bwd_adamw["shape"],
+                            "ms": bwd_adamw["ms"]["mma"],
+                            "long_ms": bwd_long["ms"]["mma"]}},
         {"name": "abo_zo_perturb", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/abo_zo_perturb.cu",
          "replaces": None,
@@ -2271,9 +2471,9 @@ def logits_rel(full, ref, chunk: int = 512):
 
 def moe_kernel_times(dev, seed: int) -> dict:
     """K3 at the MoE models' layer shape (1, 16/16, LM_T, 128) bf16 causal
-    (MHA) against its plain version, then K3 and SDPA timed in turns; K3-bwd
-    and SDPA's backward timed in turns at olmoe's AdamW shape (TRAIN_B,
-    16/16, TRAIN_T, 128)."""
+    (MHA) against its plain version, then K3 and SDPA timed in turns; both
+    K3-bwd kernels and SDPA's backward timed in turns at olmoe's AdamW shape
+    (TRAIN_B, 16/16, TRAIN_T, 128)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa
@@ -2308,34 +2508,15 @@ def moe_kernel_times(dev, seed: int) -> dict:
           "K3 disagrees with its plain version at the MoE layer shape")
     del q, k, v, runs
 
-    b, t = TRAIN_B, TRAIN_T
-    q, k, v = (_model_layout(x) for x in _qkv(dev, seed, b, 16, 16, t, t,
-                                               128, torch.bfloat16))
-    g = torch.Generator(device=dev).manual_seed(seed + 7)
-    dout = torch.randn((b, 16, t, 128), generator=g, device=dev).to(
-        torch.bfloat16)
-    lse = torch.empty((b, 16, t), dtype=torch.float32, device=dev)
-    o = fa.flash_attention_sm90(q, k, v, lse=lse)
-    qs, ks, vs = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
-    o_sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
-    runs = {"kernel": lambda: fa.flash_attention_bwd(q, k, v, o, dout, lse),
-            "sdpa": lambda: torch.autograd.grad(o_sdpa, (qs, ks, vs), dout,
-                                                retain_graph=True)}
-    for fn in runs.values():
-        fn()                                              # warm-up
-    ms = {n: [] for n in runs}
-    for n in ("kernel", "sdpa", "sdpa", "kernel"):
-        ms[n].append(cuda_ms(runs[n], 20))
-    bound, by = bwd_bound(b, 16, 16, t, 128)
-    out["bwd"] = {"shape": f"bf16 ({b}, 16/16, {t}, 128) causal",
-                  "ms": sum(ms["kernel"]) / 2,
-                  "library_ms": sum(ms["sdpa"]) / 2, "bound_ms": bound,
-                  "bound_by": by}
-    print(f"[moe] K3-bwd at ({b}, 16/16, {t}, 128) bf16 causal, in turns: "
-          f"kernel {ms['kernel']} ms, SDPA's backward {ms['sdpa']} ms; "
-          f"bound {bound:.4f} ms ({by})", flush=True)
-    del q, k, v, dout, lse, o, qs, ks, vs, o_sdpa, runs
-    torch.cuda.empty_cache()
+    r = bwd_times(dev, seed, TRAIN_B, 16, 16, TRAIN_T, 128, 20, plain=False)
+    print_bwd_times("[moe]", r)
+    ms = r["ms"]
+    check(ms["sm90"] < ms["mma"], f"the Hopper K3-bwd ({ms['sm90']:.4f} ms) "
+          f"is not faster than the mma.sync one ({ms['mma']:.4f} ms) at "
+          "olmoe's AdamW shape")
+    out["bwd"] = {"shape": r["shape"], "ms": ms["sm90"],
+                  "library_ms": ms["sdpa"], "mma_ms": ms["mma"],
+                  "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}
     return out
 
 
@@ -2529,7 +2710,9 @@ def moe_train(dev, seed: int) -> dict:
     import torch
     from repro_torch.configs import ARCHS
     from repro_torch.data.synthetic import BigramStream, StreamConfig
-    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_bwd, flash_attention_bwd_mma,
+        flash_attention_bwd_sm90)
     from repro_torch.kernels.perturb.ops import (abo_zo_perturb,
                                                  abo_zo_perturb_plain)
     from repro_torch.launch import train as train_launch
@@ -2641,10 +2824,15 @@ def moe_train(dev, seed: int) -> dict:
         return float(loss.detach()), float(metrics["aux"].detach()), grads
 
     k3_routes, pinned_routes, plain_routes = [], [], []
-    before = flash_attention_bwd.launches
+    before = [w.launches for w in (flash_attention_bwd,
+                                   flash_attention_bwd_sm90,
+                                   flash_attention_bwd_mma)]
     with recorded_routes(k3_routes):
         loss_k3, aux_k3, g_k3 = loss_and_grads()
-    bwd_launched = flash_attention_bwd.launches - before
+    bwd_launched, sm90_launched, mma_launched = (
+        w.launches - n for w, n in zip((flash_attention_bwd,
+                                        flash_attention_bwd_sm90,
+                                        flash_attention_bwd_mma), before))
     with plain_attention([]), recorded_routes(pinned_routes, plain_routes,
                                               pinned=k3_routes):
         loss_plain, _, g_plain = loss_and_grads()
@@ -2667,9 +2855,11 @@ def moe_train(dev, seed: int) -> dict:
           f"plain run's own routes differ from K3's at {share:.5f} of "
           f"(token, dispatch, slot) ({order:.5f} in order or more); aux "
           f"{aux_k3:.6f} (limit >= {MOE_AUX_MIN}); K3-bwd launches "
-          f"{bwd_launched}", flush=True)
+          f"{bwd_launched} (Hopper {sm90_launched}, mma.sync "
+          f"{mma_launched})", flush=True)
     check(loss_rel <= ADAMW_LOSS_TOL and grad_rel[worst] <= ADAMW_GRAD_TOL
-          and bwd_launched == ADAMW_LAYERS and aux_k3 >= MOE_AUX_MIN,
+          and bwd_launched == sm90_launched == ADAMW_LAYERS
+          and mma_launched == 0 and aux_k3 >= MOE_AUX_MIN,
           f"AdamW's step 1 on {arch} with K3 disagrees with the plain "
           "attention's, did not run K3-bwd in every layer, or aux is low")
     step = steps_mod.make_train_step(model, optimizer="adamw", remat=True)
@@ -2704,10 +2894,13 @@ def moe_train(dev, seed: int) -> dict:
           f"AdamW's loss on {arch} is not finite or its aux is low")
     launched = out["adamw_launches"]
     check(launched["flash_attention_sm90"] >= ADAMW_STEPS * ADAMW_LAYERS
-          and launched["flash_attention_bwd"] == ADAMW_STEPS * ADAMW_LAYERS
-          and launched["flash_attention_mma"] == 0,
-          f"AdamW's steps on {arch} launched {launched}: K3 and K3-bwd not "
-          "in every layer")
+          and launched["flash_attention_bwd"]
+          == launched["flash_attention_bwd_sm90"]
+          == ADAMW_STEPS * ADAMW_LAYERS
+          and launched["flash_attention_mma"] == 0
+          and launched["flash_attention_bwd_mma"] == 0,
+          f"AdamW's steps on {arch} launched {launched}: K3 and the Hopper "
+          "K3-bwd not in every layer, or a mma.sync kernel ran")
     del model, step, state, met
     torch.cuda.empty_cache()
     return out
@@ -3044,7 +3237,7 @@ def main() -> None:
     # ---- 17. kernels line ---------------------------------------------------
     # each kernel's MoE readings beside those of its first path: K3 and
     # K3-bwd at the MoE models' MHA layer shape, P over the whole olmoe
-    bwd, perturb = train_kernels
+    bwd, _, perturb = train_kernels
     k3["moe"] = {**moe["k3"], "launches": {
         **{f"{a} prefill step": n for a, n in moe["prefill_launches"].items()},
         f"{MOE_TRAIN_ARCH} {ABO_STEPS} ABO-ZO steps":
@@ -3053,7 +3246,7 @@ def main() -> None:
         "layers": moe["adamw_launches"]["flash_attention_sm90"]}}
     bwd["moe"] = {**moe["bwd"], "launches": {
         f"{MOE_TRAIN_ARCH} {ADAMW_STEPS} AdamW steps at {ADAMW_LAYERS} "
-        "layers": moe["adamw_launches"]["flash_attention_bwd"]}}
+        "layers": moe["adamw_launches"]["flash_attention_bwd_sm90"]}}
     perturb["moe"] = {**moe["p"], "launches": {
         f"{MOE_TRAIN_ARCH} {ABO_STEPS} ABO-ZO steps":
             moe["abo_launches"]["abo_zo_perturb"]}}

@@ -23,17 +23,25 @@ The gradient. Where grad mode is on and q, k or v requires grad, the op
 on a CUDA tensor is a ``torch.autograd.Function``: its forward is the
 kernel ``choose_kernel`` names, which also writes each query row's
 log-sum-exp (``lse``, float32, natural log of the sum of exp(s·sm_scale)),
-and its backward is ``flash_attention_bwd``, the port-only kernel of
-``csrc/flash_attention_bwd.cu`` (dQ, dK and dV from q, k, v, O, dO and the
-lse; no atomics). The reference has no backward kernel: its gradient
-through attention is autodiff of ``attention_ref``, so the plain version
-of the backward is autograd through ``flash_attention_plain``, and on a
-CPU tensor the op is the plain version, autograd and all. Where the
-backward kernel does not take the inputs (a dtype other than float32 and
-bfloat16, head_dim not a multiple of 8 up to 128), the op raises rather
-than fall back. ``flash_attention_bwd.launches`` counts calls of its
-wrapper: one call, one layer's backward, runs three CUDA kernels (the
-``rowsum(dO·O)`` pre-pass, dK and dV, dQ).
+and its backward is ``flash_attention_bwd`` (dQ, dK and dV from q, k, v,
+O, dO and the lse; no atomics), which launches the port-only kernel that
+``choose_bwd_kernel`` names:
+
+* ``flash_attention_bwd_sm90`` (``csrc/flash_attention_bwd_sm90.cu``: TMA,
+  rings of shared-memory stages, wgmma) where the forward took
+  ``flash_attention_sm90`` and O and dO pass the same alignment test;
+* ``flash_attention_bwd_mma`` (``csrc/flash_attention_bwd.cu``: mma.sync
+  in bf16, CUDA cores in float32) for everything else.
+
+The reference has no backward kernel: its gradient through attention is
+autodiff of ``attention_ref``, so the plain version of the backward is
+autograd through ``flash_attention_plain``, and on a CPU tensor the op is
+the plain version, autograd and all. Where neither backward kernel takes
+the inputs (a dtype other than float32 and bfloat16, head_dim not a
+multiple of 8 up to 128), the op raises rather than fall back.
+``flash_attention_bwd.launches`` counts calls of its wrapper, and each
+kernel wrapper its own: one call, one layer's backward, runs three CUDA
+kernels (the ``rowsum(dO·O)`` pre-pass, dK and dV, dQ).
 """
 from __future__ import annotations
 
@@ -89,6 +97,18 @@ def _launcher_bwd():
     return lib, fn
 
 
+@functools.cache
+def _launcher_bwd_sm90():
+    lib = _build.load("flash_attention_bwd_sm90")
+    fn = lib.flash_attention_bwd_sm90_launch
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+                   + [ctypes.c_longlong] * 24
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
 def _tma_strides(t):
     """The (batch, head, sequence) element strides of a (b, h, s, d) view,
     with any stride of an extent-1 dimension (which addresses nothing)
@@ -97,6 +117,13 @@ def _tma_strides(t):
               t.shape[3])
     return tuple(p if n == 1 else st
                  for st, n, p in zip(t.stride()[:3], t.shape[:3], packed))
+
+
+def _tma_aligned(t) -> bool:
+    """The base pointer 16-byte aligned and every stride a multiple of 8
+    elements (16 bytes): the tensor map's rule."""
+    return t.data_ptr() % 16 == 0 and all(st % 8 == 0
+                                          for st in _tma_strides(t))
 
 
 def choose_kernel(q, k, v) -> str:
@@ -108,11 +135,22 @@ def choose_kernel(q, k, v) -> str:
     if (q.dtype == k.dtype == v.dtype == torch.bfloat16
             and q.shape[-1] in SM90_HEAD_DIMS
             and q.shape[2] > 0 and k.shape[2] > 0
-            and all(t.data_ptr() % 16 == 0
-                    and all(st % 8 == 0 for st in _tma_strides(t))
-                    for t in (q, k, v))):
+            and all(_tma_aligned(t) for t in (q, k, v))):
         return "flash_attention_sm90"
     return "flash_attention_mma"
+
+
+def choose_bwd_kernel(q, k, v, out, dout) -> str:
+    """Which backward kernel takes (q, k, v, O, dO):
+    ``"flash_attention_bwd_sm90"`` where ``choose_kernel(q, k, v)`` is
+    ``"flash_attention_sm90"`` and ``out`` and ``dout`` are bf16 and pass
+    the same alignment test, else ``"flash_attention_bwd_mma"``. Reads only
+    dtypes, shapes, strides and pointers: no device query."""
+    if (choose_kernel(q, k, v) == "flash_attention_sm90"
+            and out.dtype == dout.dtype == torch.bfloat16
+            and _tma_aligned(out) and _tma_aligned(dout)):
+        return "flash_attention_bwd_sm90"
+    return "flash_attention_bwd_mma"
 
 
 def _check(q, k, v, window):
@@ -277,38 +315,38 @@ def flash_attention_bwd_plain(q, k, v, dout, *, causal=True, window=None):
         return torch.autograd.grad(out, (qq, kk, vv), dout)
 
 
-def flash_attention_bwd(q, k, v, out, dout, lse, *, causal=True,
-                        window=None):
-    """dQ, dK and dV of K3's function by the kernel of
-    ``csrc/flash_attention_bwd.cu``: a pre-pass for each row's
-    ``rowsum(dO·O)``, one CTA per (batch, kv head, kv block) for dK and dV
-    over the group's query heads and every q block in order, one CTA per
-    (batch, query head, q block) for dQ. Deterministic: no atomics.
-
-    q (b, hq, sq, d), k and v (b, hkv, sk, d), ``out`` and ``dout`` (b,
-    hq, sq, d), any strides with the last dimension contiguous, float32 or
-    bfloat16, d a multiple of 8 up to 128; ``lse`` the forward's (b, hq,
-    sq) float32 log-sum-exp. Returns (dq, dk, dv) in q's dtype, each a
-    (b, h, s, d) view of a (b, s, h, d) buffer. On CPU tensors it is
-    ``flash_attention_bwd_plain`` (``out`` and ``lse`` unused)."""
+def _check_bwd_args(q, k, v, out, dout, lse, window, name):
+    """Shapes, dtypes, devices and the lse of a backward kernel's call;
+    returns (b, hq, hkv, sk, d)."""
     b, hq, hkv, sk, d = _check(q, k, v, window)
-    if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, dout, causal=causal,
-                                         window=window)
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_bwd runs on cuda or cpu, not "
-                         f"{q.device}")
-    check_bwd(q)
-    sq = q.shape[2]
-    for name, t in (("out", out), ("dout", dout)):
-        if tuple(t.shape) != tuple(q.shape) or t.dtype != q.dtype:
-            raise ValueError(f"{name} must match q: {tuple(t.shape)} "
-                             f"{t.dtype}")
+        raise ValueError(f"{name} runs on cuda, not {q.device}")
+    for n, t in (("out", out), ("dout", dout)):
+        if (tuple(t.shape) != tuple(q.shape) or t.dtype != q.dtype
+                or t.device != q.device):
+            raise ValueError(f"{n} must match q: {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}")
     _lse_ptr(lse, q)
     if any(t.stride(-1) != 1 for t in (q, k, v, out, dout)):
         raise ValueError("the kernel needs the last dimension contiguous")
+    return b, hq, hkv, sk, d
+
+
+def flash_attention_bwd_mma(q, k, v, out, dout, lse, *, causal=True,
+                            window=None):
+    """The kernel of ``csrc/flash_attention_bwd.cu``: a pre-pass for each
+    row's ``rowsum(dO·O)``, one CTA per (batch, kv head, kv block) for dK
+    and dV over the group's query heads and every q block in order, one
+    CTA per (batch, query head, q block) for dQ; mma.sync in bf16, CUDA
+    cores in float32. Takes float32 or bfloat16 with d a multiple of 8 up
+    to 128 and any strides with the last dimension contiguous; arguments
+    and result as ``flash_attention_bwd``."""
+    b, hq, hkv, sk, d = _check_bwd_args(q, k, v, out, dout, lse, window,
+                                        "flash_attention_bwd_mma")
+    check_bwd(q)
     if b * hq > 65535:
         raise ValueError(f"batch x heads = {b * hq} exceeds the grid's 65535")
+    sq = q.shape[2]
     dq, dk, dv = _new_out(q), _new_out(k), _new_out(v)
     if sq == 0 or sk == 0 or b * hq == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
@@ -324,9 +362,77 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal=True,
                   *dk.stride()[:3], *dv.stride()[:3], int(bool(causal)),
                   int(window or 0), d ** -0.5,
                   int(_vec16(q, k, v, out, dout)), _stream(q))
-    _build.check(lib, code, "flash_attention_bwd")
-    flash_attention_bwd.launches += 1
+    _build.check(lib, code, "flash_attention_bwd_mma")
+    flash_attention_bwd_mma.launches += 1
     return dq, dk, dv
+
+
+def flash_attention_bwd_sm90(q, k, v, out, dout, lse, *, causal=True,
+                             window=None):
+    """The kernel of ``csrc/flash_attention_bwd_sm90.cu`` on CUDA tensors
+    that ``choose_bwd_kernel`` sends to it; raises on any other. A pre-pass
+    writes each row's ``rowsum(dO·O)`` and lse·log2(e) into float32 scratch
+    padded to 128 rows; one CTA per (batch·kv head, 128 keys) for dK and
+    dV (TMA ring of Q and dO tiles, wgmma); one per (batch·query head, 128
+    query rows) for dQ. Arguments and result as ``flash_attention_bwd``."""
+    b, hq, hkv, sk, d = _check_bwd_args(q, k, v, out, dout, lse, window,
+                                        "flash_attention_bwd_sm90")
+    if choose_bwd_kernel(q, k, v, out, dout) != "flash_attention_bwd_sm90":
+        raise ValueError(
+            f"flash_attention_bwd_sm90 takes bf16 with head_dim in "
+            f"{SM90_HEAD_DIMS}, non-empty sequences and 16-byte-aligned "
+            f"pointers and strides of q, k, v, out and dout; got {q.dtype}, "
+            f"d = {d}, strides {q.stride()}, {k.stride()}, {v.stride()}, "
+            f"{out.stride()}, {dout.stride()}")
+    sq = q.shape[2]
+    dq, dk, dv = _new_out(q), _new_out(k), _new_out(v)
+    if b * hq == 0:
+        return dq, dk, dv
+    sq_pad = -(-sq // 128) * 128
+    scratch = torch.empty(2 * b * hq * sq_pad, dtype=torch.float32,
+                          device=q.device)
+    lib, fn = _launcher_bwd_sm90()
+    with torch.cuda.device(q.device):
+        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
+                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                  b, hq, hkv, sq, sk, d, sq_pad,
+                  *_tma_strides(q), *_tma_strides(k), *_tma_strides(v),
+                  *_tma_strides(out), *_tma_strides(dout), *dq.stride()[:3],
+                  *dk.stride()[:3], *dv.stride()[:3], int(bool(causal)),
+                  int(window or 0), d ** -0.5, _stream(q))
+    _build.check(lib, code, "flash_attention_bwd_sm90")
+    flash_attention_bwd_sm90.launches += 1
+    return dq, dk, dv
+
+
+_BWD_KERNELS = {"flash_attention_bwd_sm90": flash_attention_bwd_sm90,
+                "flash_attention_bwd_mma": flash_attention_bwd_mma}
+
+
+def flash_attention_bwd(q, k, v, out, dout, lse, *, causal=True,
+                        window=None):
+    """dQ, dK and dV of K3's function by the kernel that
+    ``choose_bwd_kernel`` names (no fallback from one to the other).
+    Deterministic: no atomics.
+
+    q (b, hq, sq, d), k and v (b, hkv, sk, d), ``out`` and ``dout`` (b,
+    hq, sq, d), any strides with the last dimension contiguous, float32 or
+    bfloat16, d a multiple of 8 up to 128; ``lse`` the forward's (b, hq,
+    sq) float32 log-sum-exp. Returns (dq, dk, dv) in q's dtype, each a
+    (b, h, s, d) view of a (b, s, h, d) buffer. On CPU tensors it is
+    ``flash_attention_bwd_plain`` (``out`` and ``lse`` unused)."""
+    _check(q, k, v, window)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, dout, causal=causal,
+                                         window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd runs on cuda or cpu, not "
+                         f"{q.device}")
+    kernel = _BWD_KERNELS[choose_bwd_kernel(q, k, v, out, dout)]
+    grads = kernel(q, k, v, out, dout, lse, causal=causal, window=window)
+    flash_attention_bwd.launches += 1
+    return grads
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -387,3 +493,5 @@ flash_attention.launches = 0
 flash_attention_mma.launches = 0
 flash_attention_sm90.launches = 0
 flash_attention_bwd.launches = 0
+flash_attention_bwd_mma.launches = 0
+flash_attention_bwd_sm90.launches = 0

@@ -187,3 +187,70 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         with pytest.raises(ValueError):
             fn(q, q, q)
         assert fn.launches == before
+
+
+def _bwd_routing_cases():
+    """(name, q, k, v, out, dout, backward kernel that
+    ``choose_bwd_kernel`` must name)."""
+    sm90, mma = "flash_attention_bwd_sm90", "flash_attention_bwd_mma"
+    cases = []
+    for d in (120, 128):
+        q, kv = _bf16(1, 4, 64, d), _bf16(1, 2, 64, d)
+        cases.append((f"bf16 d={d}", q, kv, kv, _bf16(1, 4, 64, d),
+                      _bf16(1, 4, 64, d), sm90))
+        # the model's layout: (b, t, h, d) buffers read as (b, h, t, d)
+        q = _bf16(2, 50, 4, d).transpose(1, 2)
+        kv = _bf16(2, 50, 2, d).transpose(1, 2)
+        cases.append((f"bf16 d={d} transposed", q, kv, kv,
+                      _bf16(2, 50, 4, d).transpose(1, 2),
+                      _bf16(2, 50, 4, d).transpose(1, 2), sm90))
+    q, kv = _bf16(1, 4, 64, 64), _bf16(1, 2, 64, 64)
+    cases.append(("bf16 d=64", q, kv, kv, q, q, mma))
+    f, fkv = torch.zeros(1, 4, 64, 128), torch.zeros(1, 2, 64, 128)
+    cases.append(("float32 d=128", f, fkv, fkv, f, f, mma))
+    q, kv = _bf16(1, 4, 64, 128), _bf16(1, 2, 64, 128)
+    off = _bf16(4 * 64 * 128 + 1)[1:].view(1, 4, 64, 128)
+    cases.append(("bf16 d=128 unaligned q", off, kv, kv, q, q, mma))
+    wide = _bf16(1, 4, 64, 132)[..., :128]     # row stride 132: 264 bytes
+    cases.append(("bf16 d=128 dout stride 132", q, kv, kv, q, wide, mma))
+    cases.append(("bf16 d=128 unaligned dout", q, kv, kv, q, off, mma))
+    cases.append(("bf16 d=128 unaligned out", q, kv, kv, off, q, mma))
+    cases.append(("bf16 d=128 float32 dout", q, kv, kv, q,
+                  torch.zeros(1, 4, 64, 128), mma))
+    cases.append(("bf16 d=128 sk=0", q, _bf16(1, 2, 0, 128),
+                  _bf16(1, 2, 0, 128), q, q, mma))
+    return cases
+
+
+@pytest.mark.parametrize("case", _bwd_routing_cases(), ids=lambda c: c[0])
+def test_choose_bwd_kernel_routes_by_dtype_head_dim_and_alignment(case):
+    _, q, k, v, out, dout, want = case
+    assert ops.choose_bwd_kernel(q, k, v, out, dout) == want
+
+
+def test_bwd_kernel_wrappers_refuse_cpu_tensors():
+    q, kv = _bf16(1, 4, 64, 128), _bf16(1, 2, 64, 128)
+    lse = torch.zeros(1, 4, 64)
+    for fn in (ops.flash_attention_bwd_sm90, ops.flash_attention_bwd_mma):
+        before = fn.launches
+        with pytest.raises(ValueError, match="runs on cuda"):
+            fn(q, kv, kv, q, q, lse)
+        assert fn.launches == before
+
+
+def test_bwd_on_cpu_is_the_plain_version_and_launches_nothing():
+    g = torch.Generator().manual_seed(3)
+    q, k, v, dout = (torch.randn(*s, generator=g) for s in (
+        (1, 4, 40, 16), (1, 2, 40, 16), (1, 2, 40, 16), (1, 4, 40, 16)))
+    counts = [w.launches for w in (ops.flash_attention_bwd,
+                                   ops.flash_attention_bwd_sm90,
+                                   ops.flash_attention_bwd_mma)]
+    got = ops.flash_attention_bwd(q, k, v, None, dout, None, causal=True,
+                                  window=8)
+    want = ops.flash_attention_bwd_plain(q, k, v, dout, causal=True,
+                                         window=8)
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
+    assert counts == [w.launches for w in (ops.flash_attention_bwd,
+                                           ops.flash_attention_bwd_sm90,
+                                           ops.flash_attention_bwd_mma)]

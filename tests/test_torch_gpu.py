@@ -27,7 +27,11 @@ delivers the same bits.
 The training path's kernels (port only): K3-bwd's dQ, dK and dV against
 autograd through the plain attention, each held as max |got - want| over
 the tensor's max |want| and per row (BWD_TOL, BWD_ROW_TOL), two runs giving
-the same bits; K3's forward keeping its output bits when it also writes the
+the same bits, each case through the backward kernel that
+``choose_bwd_kernel`` names (the Hopper one for bf16 at head_dim 120 or
+128 with 16-byte strides, the mma.sync one else); a reduced bf16 model at
+head_dim 128 taking an AdamW step through the Hopper K3-bwd in every
+layer; K3's forward keeping its output bits when it also writes the
 log-sum-exp; P (ABO-ZO's perturbation) equal to its plain version bit for
 bit; and a gradient through ``Model.loss`` on the card that reaches q, k
 and v (the attention's projections), equal to the plain attention's.
@@ -53,7 +57,9 @@ from repro_torch.kernels.coord_sweep.ref import (abo_minimize_kernel_ref,
 from repro_torch.kernels.flash_attention.ops import (choose_kernel,
                                                      flash_attention,
                                                      flash_attention_bwd,
+                                                     flash_attention_bwd_mma,
                                                      flash_attention_bwd_plain,
+                                                     flash_attention_bwd_sm90,
                                                      flash_attention_mma,
                                                      flash_attention_plain,
                                                      flash_attention_sm90)
@@ -92,9 +98,10 @@ ATTN_ROW_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-3}
 AGG_TOL = 1e-3     # times (1 + |a_in|)
 # K3-bwd: the shapes chip_smoke.py checks (the AdamW training shape, the
 # reduced config's at 512 and at the resume's 128 tokens, a ragged sq and a
-# window), and its limits: max |got -
-# want| over the tensor's max |want|, overall and per row (PERF.md has the
-# readings)
+# window, the Hopper kernel's edges, and a Hopper-eligible shape whose dO
+# rows are 132 elements apart, the last element: the mma.sync kernel takes
+# it), and its limits: max |got - want| over the tensor's max |want|,
+# overall and per row (PERF.md has the readings)
 BWD_SHAPES = [
     (8, 32, 8, 512, 512, 128, True, None, torch.bfloat16),
     (4, 4, 2, 512, 512, 16, True, None, torch.float32),
@@ -105,6 +112,11 @@ BWD_SHAPES = [
     (2, 4, 4, 256, 256, 64, True, 96, torch.float32),
     (1, 16, 16, 1024, 1024, 128, True, None, torch.bfloat16),   # MHA
     (8, 16, 16, 512, 512, 128, True, None, torch.bfloat16),  # olmoe's AdamW
+    (2, 4, 2, 200, 200, 128, True, None, torch.bfloat16),    # ragged sq
+    (1, 32, 8, 333, 333, 120, True, 96, torch.bfloat16),     # d = 120
+    (2, 4, 2, 100, 300, 128, False, None, torch.bfloat16),   # sq != sk
+    (1, 48, 1, 256, 256, 128, True, None, torch.bfloat16),   # MQA
+    (2, 4, 2, 200, 200, 128, True, None, torch.bfloat16, 132),  # dO stride
 ]
 BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 BWD_ROW_TOL = {torch.bfloat16: 1e-1, torch.float32: 1e-3}
@@ -651,23 +663,55 @@ def _grad_row_err(got, want):
 
 
 def _bwd_case(shape, dev, seed=0):
-    b, hq, hkv, sq, sk, d, causal, window, dtype = shape
+    """q, k, v (requiring grad, the model's layout), dO, causal, window and
+    dO's row stride (None: contiguous)."""
+    b, hq, hkv, sq, sk, d, causal, window, dtype = shape[:9]
+    stride = shape[9] if len(shape) > 9 else None
     q, k, v = (_model_layout(t).requires_grad_(True)
                for t in _qkv((b, hq, hkv, sq, sk, d), dtype, dev, seed))
     g = torch.Generator(device=dev).manual_seed(seed + 7)
-    dout = torch.randn((b, hq, sq, d), generator=g, device=dev).to(dtype)
-    return q, k, v, dout, causal, window
+    dout = torch.randn((b, hq, sq, stride or d), generator=g,
+                       device=dev).to(dtype)[..., :d]
+    return q, k, v, dout, causal, window, stride
+
+
+def _bwd_kernel_for(dtype, d, stride):
+    """The backward wrapper a case must launch: the Hopper one for bf16 at
+    head_dim 120 or 128 with 16-byte strides, the mma.sync one else."""
+    if (dtype == torch.bfloat16 and d in (120, 128)
+            and (stride is None or stride % 8 == 0)):
+        return flash_attention_bwd_sm90
+    return flash_attention_bwd_mma
+
+
+def _bwd_grads(q, k, v, dout, causal, window, stride):
+    """dQ, dK, dV through ``flash_attention``'s gradient, or, where dO has
+    its own row stride, through ``flash_attention_bwd`` on the forward's O
+    and lse (autograd hands the Function a dO of its choosing)."""
+    if stride is None:
+        return torch.autograd.grad(
+            flash_attention(q, k, v, causal=causal, window=window),
+            (q, k, v), dout)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    with torch.no_grad():
+        o = flash_attention_sm90(q, k, v, causal=causal, window=window,
+                                 lse=lse)
+    return flash_attention_bwd(q, k, v, o, dout, lse, causal=causal,
+                               window=window)
 
 
 @pytest.mark.parametrize("shape", BWD_SHAPES)
 def test_flash_attention_bwd_matches_plain(cuda, shape):
-    q, k, v, dout, causal, window = _bwd_case(shape, cuda)
-    dtype = shape[-1]
-    before = flash_attention_bwd.launches
-    out = flash_attention(q, k, v, causal=causal, window=window)
-    got = torch.autograd.grad(out, (q, k, v), dout)
+    q, k, v, dout, causal, window, stride = _bwd_case(shape, cuda)
+    dtype = shape[8]
+    kernel = _bwd_kernel_for(dtype, q.shape[-1], stride)
+    other = ({flash_attention_bwd_sm90, flash_attention_bwd_mma}
+             - {kernel}).pop()
+    before = (flash_attention_bwd.launches, kernel.launches, other.launches)
+    got = _bwd_grads(q, k, v, dout, causal, window, stride)
     torch.cuda.synchronize()
-    assert flash_attention_bwd.launches == before + 1
+    assert (flash_attention_bwd.launches, kernel.launches,
+            other.launches) == (before[0] + 1, before[1] + 1, before[2])
     want = flash_attention_bwd_plain(q, k, v, dout, causal=causal,
                                      window=window)
     for name, a, w in zip("qkv", got, want):
@@ -677,11 +721,45 @@ def test_flash_attention_bwd_matches_plain(cuda, shape):
                     / w.float().abs().max())
         assert err < BWD_TOL[dtype], (name, err)
         assert _grad_row_err(a, w) < BWD_ROW_TOL[dtype], name
-    again = torch.autograd.grad(
-        flash_attention(q, k, v, causal=causal, window=window), (q, k, v),
-        dout)
+    again = _bwd_grads(q, k, v, dout, causal, window, stride)
     for a, b in zip(got, again):
         assert torch.equal(a, b)           # no atomics: the same bits
+
+
+@pytest.mark.parametrize("shape", [(8, 32, 8, 512, 512, 128, True, None),
+                                   (1, 32, 8, 333, 333, 120, True, 96),
+                                   (2, 4, 2, 100, 300, 128, False, None)])
+def test_flash_attention_bwd_sm90_gives_the_same_bits_twice(cuda, shape):
+    """The Hopper K3-bwd sums in a fixed order (no atomics): two calls on
+    the same inputs give the same bits, one launch each."""
+    q, k, v, dout, causal, window, _ = _bwd_case(
+        shape + (torch.bfloat16,), cuda, seed=5)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=cuda)
+    with torch.no_grad():
+        o = flash_attention_sm90(q, k, v, causal=causal, window=window,
+                                 lse=lse)
+        before = flash_attention_bwd_sm90.launches
+        first = flash_attention_bwd_sm90(q, k, v, o, dout, lse,
+                                         causal=causal, window=window)
+        second = flash_attention_bwd_sm90(q, k, v, o, dout, lse,
+                                          causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd_sm90.launches == before + 2
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+def test_flash_attention_bwd_sm90_refuses_what_it_does_not_serve(cuda):
+    q, k, v, dout, _, _, _ = _bwd_case(
+        (1, 4, 2, 64, 64, 64, True, None, torch.bfloat16), cuda)
+    lse = torch.zeros(q.shape[:3], dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="flash_attention_bwd_sm90 takes"):
+        flash_attention_bwd_sm90(q, k, v, dout, dout, lse)
+    q, k, v, dout, _, _, _ = _bwd_case(
+        (1, 4, 2, 64, 64, 128, True, None, torch.bfloat16, 132), cuda)
+    lse = torch.zeros(q.shape[:3], dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="flash_attention_bwd_sm90 takes"):
+        flash_attention_bwd_sm90(q, k, v, q.detach(), dout, lse)
 
 
 @pytest.mark.parametrize("shape", [(2, 8, 2, 256, 256, 128, True, None),
@@ -768,9 +846,12 @@ def test_model_loss_gradient_reaches_qkv_on_the_card(cuda, dtype):
         model.loss(batch, remat=True)[0].backward()
         return {n: p.grad.float().clone() for n, p in model.named_parameters()}
 
-    before = flash_attention_bwd.launches
+    kernel = (flash_attention_bwd_sm90 if dtype == "bfloat16"
+              else flash_attention_bwd_mma)
+    before = (flash_attention_bwd.launches, kernel.launches)
     got = grads()
-    assert flash_attention_bwd.launches == before + cfg.n_layers
+    assert (flash_attention_bwd.launches, kernel.launches) == (
+        before[0] + cfg.n_layers, before[1] + cfg.n_layers)
     saved = attention.flash_attention
     attention.flash_attention = flash_attention_plain
     try:
@@ -783,3 +864,32 @@ def test_model_loss_gradient_reaches_qkv_on_the_card(cuda, dtype):
             assert float(got[n].abs().max()) > 0, n
         err = float((got[n] - want[n]).abs().max() / want[n].abs().max())
         assert err < tol, (n, err)
+
+
+def test_reduced_bf16_model_takes_an_adamw_step_through_the_hopper_bwd(cuda):
+    """A reduced bf16 model at head_dim 128 takes one AdamW step on the
+    card with its attention's gradient from the Hopper K3-bwd in every
+    layer (the mma.sync one never), and the step moves every projection."""
+    import dataclasses
+    from repro_torch.train import steps
+    cfg = dataclasses.replace(reduced(ARCHS["mistral-nemo-12b"]),
+                              dtype="bfloat16", head_dim=128, d_model=256)
+    model = Model(cfg, device=cuda).init(0).requires_grad_(True)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 129),
+                                     generator=g, device=cuda)}
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    step = steps.make_train_step(model, optimizer="adamw", remat=True)
+    state = steps.init_opt_state(model)
+    before = (flash_attention_bwd_sm90.launches,
+              flash_attention_bwd_mma.launches, flash_attention_mma.launches)
+    state, met = step(state, batch)
+    torch.cuda.synchronize()
+    assert (flash_attention_bwd_sm90.launches,
+            flash_attention_bwd_mma.launches,
+            flash_attention_mma.launches) == (before[0] + cfg.n_layers,
+                                              before[1], before[2])
+    assert torch.isfinite(torch.as_tensor(float(met["loss"])))
+    for n, p in model.named_parameters():
+        if n.split(".")[-1] in ("wq", "wk", "wv"):
+            assert not torch.equal(p.detach(), start[n]), n

@@ -2,25 +2,28 @@
 
     PYTHONPATH=src python -m benchmarks_torch.k3_fault_check [--seed 0]
 
-On the card (CUDA required). For the kernel as it is and for each planted
-fault of ``FAULTS``, it writes a copy of ``csrc/flash_attention_sm90.cu``
-(the Hopper kernel, which the dense models' prefill runs) with the fault
-into ``build/k3_faults/<fault>/``, beside an unchanged copy of
-``csrc/flash_attention.cu`` (the sources themselves are never changed),
-builds and loads those copies in place of the kernels, and runs the checks
-of ``chip_smoke.py`` on them: K3 against its plain version at every shape
-of ``ATTN_SHAPES`` (max abs and per row; the bf16 shapes with head_dim 120
-or 128 go to the Hopper kernel), and the full-width
-``mistral-nemo-12b`` forward over 8192 tokens against the same forward
-with the plain attention (K3 per row on each layer's own q, k, v; the
-logits at every position). One JSON line per fault: each reading, its
-limit, and which checks fail. A check that passes a planted fault cannot
-see that fault. Imports torch, the port and ``chip_smoke`` only.
+On the card (CUDA required). For the kernels as they are and for each
+planted fault of ``FAULTS``, it writes a copy of ``csrc/`` with the fault
+planted in one Hopper K3 source (``flash_attention_sm90.cu``, which the
+dense models' prefill runs, or ``flash_attention_sm90_d256.cu``,
+recurrentgemma-2b's local attention) into ``build/k3_faults/<fault>/``
+(the sources themselves are never changed), builds and loads that copy in
+place of the kernels, and runs the checks of ``chip_smoke.py`` on it: K3
+against its plain version at every shape of ``ATTN_SHAPES`` (max abs and
+per row; bf16 at head_dim 120 or 128 goes to the first kernel, at 256 to
+the second), and the full-width forward over 8192 tokens against the same
+forward with the plain attention (K3 per row on each attention layer's own
+q, k, v; the logits at every position): ``mistral-nemo-12b`` for the
+first kernel's faults, ``recurrentgemma-2b`` (with the plain scan) for the
+second's. One JSON line per fault: each reading, its limit, and which
+checks fail. A check that passes a planted fault cannot see that fault.
+Imports torch, the port and ``chip_smoke`` only.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import shutil
 import sys
 from pathlib import Path
 
@@ -31,55 +34,79 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
 
-FAULTY = "flash_attention_sm90.cu"
-# name -> [(text of FAULTY, replacement, occurrences)]
+SM90, D256 = "flash_attention_sm90.cu", "flash_attention_sm90_d256.cu"
+# name -> (source, [(text of the source, replacement, occurrences)])
 FAULTS = {
-    "none": [],
+    "none": (SM90, []),
     # query head h reads kv head h % hkv instead of h / (hq / hkv)
-    "gqa_h_mod_hkv": [("kvh = h / g.group;", "kvh = h % (g.hq / g.group);",
-                       1)],
+    "gqa_h_mod_hkv": (SM90, [("kvh = h / g.group;",
+                              "kvh = h % (g.hq / g.group);", 1)]),
     # rows with more than 8 kv blocks (> 1024 keys) drop the middle one
-    "skip_mid_block": [
+    "skip_mid_block": (SM90, [
         ("      const bool masked = needs_mask(g, qw0, 64, k0, kBN);\n",
          "      const bool skip = n_kb > 8 && k0 == (kb0 + n_kb / 2) * kBN;\n"
          "      const bool masked = skip || needs_mask(g, qw0, 64, k0, kBN);\n",
          1),
         ("!key_ok(g, e < 2 ? row0 : row1,",
-         "skip || !key_ok(g, e < 2 ? row0 : row1,", 1)],
+         "skip || !key_ok(g, e < 2 ? row0 : row1,", 1)]),
     # from the 9th kv block on, a new running max does not rescale the
     # accumulator and denominator
-    "late_no_rescale": [
+    "late_no_rescale": (SM90, [
         ("      al0 = exp2f(m0 - mx0);\n      al1 = exp2f(m1 - mx1);\n",
          "      al0 = k0 >= (kb0 + 8) * kBN ? 1.0f : exp2f(m0 - mx0);\n"
-         "      al1 = k0 >= (kb0 + 8) * kBN ? 1.0f : exp2f(m1 - mx1);\n", 1)],
+         "      al1 = k0 >= (kb0 + 8) * kBN ? 1.0f : exp2f(m1 - mx1);\n", 1)]),
+    # head_dim 256: the same two faults of the walk over kv blocks (64 keys
+    # each, so > 512 keys), and two of its own 32-chunk accumulator: rows
+    # gr + 8 rescaled with rows gr's factor, and the output keeping only
+    # dims 0..127. (The GQA fault cannot show at head_dim 256: every shape
+    # there is MQA or MHA. A wrong box stride for V reads past shared
+    # memory: the launch faults, which any check sees.)
+    "d256_skip_mid_block": (D256, [
+        ("      const bool masked = needs_mask(g, qw0, 64, k0, kBN);\n",
+         "      const bool skip = n_kb > 8 && k0 == (kb0 + n_kb / 2) * kBN;\n"
+         "      const bool masked = skip || needs_mask(g, qw0, 64, k0, kBN);\n",
+         1),
+        ("!key_ok(g, e < 2 ? row0 : row1,",
+         "skip || !key_ok(g, e < 2 ? row0 : row1,", 1)]),
+    "d256_late_no_rescale": (D256, [
+        ("      al0 = exp2f(m0 - mx0);\n      al1 = exp2f(m1 - mx1);\n",
+         "      al0 = k0 >= (kb0 + 8) * kBN ? 1.0f : exp2f(m0 - mx0);\n"
+         "      al1 = k0 >= (kb0 + 8) * kBN ? 1.0f : exp2f(m1 - mx1);\n", 1)]),
+    "d256_rescale_rows": (D256, [
+        ("        acc[4 * nt + 2] *= al1;\n        acc[4 * nt + 3] *= al1;\n",
+         "        acc[4 * nt + 2] *= al0;\n        acc[4 * nt + 3] *= al0;\n",
+         1)]),
+    "d256_half_output": (D256, [
+        ("    for (int nt = 0; nt < 32; ++nt) {\n      const int col",
+         "    for (int nt = 0; nt < 16; ++nt) {\n      const int col", 1)]),
 }
 
 
 def use_kernel_source(fault: str) -> None:
-    """Point the kernel build at the sources with ``fault`` planted in
-    FAULTY (the checkout's own for "none") and drop every loaded copy."""
+    """Point the kernel build at a copy of ``csrc/`` with ``fault`` planted
+    (the checkout's own for "none") and drop every loaded copy."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops
-    src = Path(_build.__file__).resolve().parent / "csrc"
-    text = (src / FAULTY).read_text()
-    for old, new, count in FAULTS[fault]:
-        if text.count(old) != count:
-            raise RuntimeError(f"{fault}: {old!r} occurs {text.count(old)} "
-                               f"times in {FAULTY}, want {count}")
-        text = text.replace(old, new)
-    if FAULTS[fault]:
-        clean = src
+    clean = Path(_build.__file__).resolve().parent / "csrc"
+    name, edits = FAULTS[fault]
+    src = clean
+    if edits:
+        text = (clean / name).read_text()
+        for old, new, count in edits:
+            if text.count(old) != count:
+                raise RuntimeError(f"{fault}: {old!r} occurs "
+                                   f"{text.count(old)} times in {name}, want "
+                                   f"{count}")
+            text = text.replace(old, new)
         src = ROOT / "build" / "k3_faults" / fault
-        src.mkdir(parents=True, exist_ok=True)
-        for stale in src.glob("*"):
-            stale.unlink()
-        (src / FAULTY).write_text(text)
-        (src / "flash_attention.cu").write_text(
-            (clean / "flash_attention.cu").read_text())
+        shutil.rmtree(src, ignore_errors=True)
+        shutil.copytree(clean, src)
+        (src / name).write_text(text)
     _build.CSRC = src
     _build._libs.clear()
     ops._launcher.cache_clear()
     ops._launcher_sm90.cache_clear()
+    ops._launcher_sm90_d256.cache_clear()
     _build.build_all()
 
 
@@ -96,19 +123,38 @@ def main() -> None:
 
     dev = torch.device("cuda")
     print(chip_smoke.nvidia_smi_line(), flush=True)
-    cfg = ARCHS[chip_smoke.LM_ARCH]
-    model = Model(cfg, device=dev).init(args.seed)
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    tokens = torch.randint(0, cfg.vocab_size, (1, chip_smoke.LM_T),
-                           generator=gen, device=dev)
-    for fault in args.faults:
+    models = {}
+
+    def lm_reading(source: str) -> dict:
+        """The forward of the model whose path runs ``source``, drawn once,
+        against its plain run."""
+        arch = (chip_smoke.HYBRID_ARCH if source == D256
+                else chip_smoke.LM_ARCH)
+        if arch not in models:
+            models.clear()
+            torch.cuda.empty_cache()
+            cfg = ARCHS[arch]
+            gen = torch.Generator(device=dev).manual_seed(args.seed)
+            models[arch] = (Model(cfg, device=dev).init(args.seed),
+                            torch.randint(0, cfg.vocab_size,
+                                          (1, chip_smoke.LM_T),
+                                          generator=gen, device=dev))
+        model, tokens = models[arch]
+        if source == D256:
+            def plain(errs):
+                return chip_smoke.plain_hybrid(errs, [])
+        else:
+            plain = chip_smoke.plain_attention
+        return chip_smoke.lm_agreement(model, tokens, plain=plain)[0]
+
+    for fault in sorted(args.faults, key=lambda f: FAULTS[f][0]):
         use_kernel_source(fault)
         attn = chip_smoke.attention_readings(dev, args.seed)
-        lm, _ = chip_smoke.lm_agreement(model, tokens)
+        lm = lm_reading(FAULTS[fault][0])
         torch.cuda.empty_cache()
         abs_tol, row_tol = chip_smoke.ATTN_TOL, chip_smoke.ATTN_ROW_TOL
         row = {
-            "fault": fault,
+            "fault": fault, "source": FAULTS[fault][0],
             "attn": [{"shape": r["shape"], "dtype": r["dtype"],
                       "kernel": r["kernel"], "abs": r["abs"], "row": r["row"],
                       "ok": r["ok"]}

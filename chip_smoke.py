@@ -43,9 +43,11 @@ Phases, in order; any failure exits non-zero before the result line:
      jobs pending: zero lost jobs, only deliberate 503s, w0 restarted
      (time to recover printed), and every fun and history bit for bit
      (w1's phase 7's, w0's ``abo_minimize``'s);
- 11. K3 (flash attention, two kernels) against its plain version in bf16
+ 11. K3 (flash attention, three kernels) against its plain version in bf16
      and float32 at the shapes of ``ATTN_SHAPES`` (max abs and per row),
-     each shape through the kernel that ``choose_kernel`` gives it; the
+     each shape through the kernel that ``choose_kernel`` gives it (bf16
+     at head_dim 256 through ``flash_attention_sm90_d256``; float32 there
+     must be refused); the
      Hopper kernel (``flash_attention_sm90``), the mma.sync kernel
      (``flash_attention_mma``) and ``scaled_dot_product_attention`` timed in
      turns at the model's layer shape (T = 8192) and at T = 32768, beside
@@ -88,8 +90,20 @@ Phases, in order; any failure exits non-zero before the result line:
      whole olmoe through ``launch.train.main``; AdamW on olmoe cut to 4
      layers (step 1 against the plain attention with its routes pinned,
      aux, K3 and the Hopper K3-bwd in every layer);
- 17. one JSON line with every kernel's launches, error and times;
- 18. the last line, ``{"ok": true, "device": {...}}``.
+ 17. the hybrid family at full width (``[hybrid]``, HYBRID_ARCH): S (the
+     RG-LRU's scan, port only) bit for bit its plain version at
+     ``SCAN_SHAPES`` and on a repeat, timed beside its bound; K3 at head_dim
+     256 timed at recurrentgemma-2b's layer shape in turns with SDPA (the
+     window as a mask, and causal without it), beside its plain version
+     and bound; ``recurrentgemma-2b``'s prefill step on one T = 8192
+     request (8 launches of the head_dim 256 Hopper kernel, 18 of S, no
+     other K3; wall, tokens/s, peak memory); the forward against the same
+     forward with the plain attention and the plain scan (K3 per row on
+     every swa layer's own q, k, v, S bit for bit on every RG-LRU layer's
+     own a and b, the logits at every position); prefill + 8 decode steps
+     against the forward; the serve launcher (8 requests, 4 slots);
+ 18. one JSON line with every kernel's launches, error and times;
+ 19. the last line, ``{"ok": true, "device": {...}}``.
 
 Imports torch and the port only. Exits non-zero, printing no result, when
 no CUDA device is present or the port's sources are not beside this file.
@@ -174,8 +188,14 @@ ATTN_SHAPES = [
     (2, 4, 2, 100, 300, 16, False, None),        # sq != sk, d = 16
     (1, 16, 16, 8192, 8192, 128, True, None),    # MHA: the MoE models'
     (1, 32, 8, 8192, 8192, 128, True, None),     # the model's layer shape
+    # head_dim 256, bf16 only (float32 there has no kernel: the op raises)
+    (1, 10, 1, 333, 333, 256, True, 96),         # ragged, window
+    (1, 2, 2, 100, 300, 256, False, None),       # non-causal, sq != sk
+    (1, 8, 8, 1024, 1024, 256, True, None),      # causal, no window
+    (1, 10, 1, 8192, 8192, 256, True, 2048),     # recurrentgemma-2b's layer
 ]
-LM_ATTN_SHAPE = ATTN_SHAPES[-1]
+LM_ATTN_SHAPE = (1, 32, 8, 8192, 8192, 128, True, None)
+D256_SHAPE = ATTN_SHAPES[-1]
 ATTN_TOL = {"bfloat16": 2e-2, "float32": 2e-3}
 ATTN_ROW_TOL = {"bfloat16": 2e-2, "float32": 1e-3}
 LM_ARCH = "mistral-nemo-12b"
@@ -396,6 +416,24 @@ MOE_LIBRARY_RATIO = 2.0
 # MOE_AUX_MIN, as tests/test_models.py holds the reference's.
 MOE_AUX_MIN = 1.0 - 1e-3
 MOE_PHASE_S = 240
+# Phase 17, the hybrid family at full width (``[hybrid]``):
+# recurrentgemma-2b (26 layers in the pattern (rglru, rglru, swa): 18
+# RG-LRU layers through S, 8 local-attention layers, 10/1 MQA at head_dim
+# 256 with window 2048, through the Hopper K3 at head_dim 256), bf16,
+# random weights from --seed. The prefill step on one LM_T-token request;
+# the forward against the same forward with the plain attention and the
+# plain scan (K3 per row on each swa layer's own q, k, v; S bit for bit on
+# each RG-LRU layer's own a and b; the logits at every position within
+# LM_REL_TOL_PLAIN); prefill + LM_DECODE decode steps against the forward
+# (LM_REL_TOL_DECODE: the conv state and the float32 h carried across the
+# seam); the serve launcher (8 requests, 4 slots). Before the model, S
+# against its plain version bit for bit at SCAN_SHAPES, twice, and S and K3
+# at head_dim 256 timed at the model's shapes.
+HYBRID_ARCH = "recurrentgemma-2b"
+SCAN_SHAPES = [(1, LM_T, 2560), (3, 1000, 2560 + 8)]
+# the phase's time limit: its first reading on the card was 8.1 s
+# (PERF.md), and host time moves 1.5x between calls
+HYBRID_PHASE_S = 60
 
 
 def fail(msg: str) -> None:
@@ -1385,6 +1423,16 @@ def attention_readings(dev, seed: int) -> list[dict]:
         causal, window = shape[6], shape[7]
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = _qkv(dev, seed, *shape[:6], dtype)
+            if dtype == torch.float32 and shape[5] > 128:
+                try:                   # no kernel takes it: the op raises
+                    ops.flash_attention(q, k, v, causal=causal, window=window)
+                    refused = False
+                except ValueError:
+                    refused = True
+                out.append({"shape": shape, "dtype": "float32",
+                            "kernel": "none (refused)", "abs": 0.0,
+                            "row": 0.0, "ok": refused})
+                continue
             kernel = ops.choose_kernel(q, k, v)
             wrapper = getattr(ops, kernel)
             before = wrapper.launches
@@ -1408,36 +1456,49 @@ def attention_readings(dev, seed: int) -> list[dict]:
 
 
 def k3_bound(b, hq, hkv, t, d, causal=True, peak=PEAK_BF16_OPS_S,
-             itemsize=2) -> tuple[float, str]:
+             itemsize=2, window=None) -> tuple[float, str]:
     """Least time for attention at (b, hq/hkv, t, d): Q, K, V and O moved
-    once; 4·d FLOP a (query, key) pair, over the pairs the mask keeps."""
-    pairs = t * (t + 1) / 2 if causal else t * t
+    once; 4·d FLOP a (query, key) pair, over the pairs the mask keeps
+    (query q sees min(q + 1, window) keys under a causal window)."""
+    if window:
+        w = min(window, t)
+        pairs = w * (w + 1) / 2 + (t - w) * w
+    else:
+        pairs = t * (t + 1) / 2 if causal else t * t
     return bound_ms(itemsize * (2 * b * hq * t * d + 2 * b * hkv * t * d),
                     4 * b * hq * d * pairs, peak)
 
 
-def attention_phase(dev, seed: int) -> tuple[dict, dict]:
-    """Phase 10: K3 against its plain version at every shape of ATTN_SHAPES
-    in bf16 and float32, then both kernels and SDPA timed in turns at the
-    model's layer shape and at T = 32768. Returns the Hopper kernel's entry
-    of the kernels line, without its launches, and the mma.sync kernel's
-    readings at the model's shape."""
+def attention_phase(dev, seed: int) -> tuple[dict, dict, dict]:
+    """Phase 11: K3 against its plain version at every shape of ATTN_SHAPES
+    in bf16 and float32 (float32 at head_dim 256 must be refused), then
+    both kernels and SDPA timed in turns at the model's layer shape and at
+    T = 32768. Returns the Hopper kernel's entry of the kernels line,
+    without its launches, the mma.sync kernel's readings at the model's
+    shape, and the head_dim 256 kernel's errors at D256_SHAPE."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention_mma, flash_attention_plain, flash_attention_sm90)
 
-    main_err = {}
+    main_err, d256_err = {}, None
     for r in attention_readings(dev, seed):
         print(f"[K3] {r['shape']} {r['dtype']} via {r['kernel']}: max abs err "
               f"{r['abs']:.3g} (limit {ATTN_TOL[r['dtype']]}), per row "
               f"{r['row']:.3g} (limit {ATTN_ROW_TOL[r['dtype']]})", flush=True)
         check(r["ok"], f"K3 ({r['kernel']}) disagrees with its plain version "
-              f"at {r['shape']} {r['dtype']}, or did not launch")
+              f"at {r['shape']} {r['dtype']}, or did not launch (or, at "
+              "float32 and head_dim 256, was not refused)")
         if r["shape"] == LM_ATTN_SHAPE:
             main_err[r["dtype"]] = (r["abs"], r["row"], r["kernel"])
+        if r["shape"] == D256_SHAPE and r["dtype"] == "bfloat16":
+            d256_err = {"max_abs_err": r["abs"], "row_rel_err": r["row"]}
+        check(r["shape"][5] != 256 or r["dtype"] != "bfloat16"
+              or r["kernel"] == "flash_attention_sm90_d256",
+              f"{r['shape']} bf16 went to {r['kernel']}")
     check(main_err["bfloat16"][2] == "flash_attention_sm90"
-          and main_err["float32"][2] == "flash_attention_mma",
+          and main_err["float32"][2] == "flash_attention_mma"
+          and d256_err is not None,
           f"the model's layer shape went to {main_err}")
 
     def timed(t, reps):
@@ -1500,7 +1561,7 @@ def attention_phase(dev, seed: int) -> tuple[dict, dict]:
                  "model_shape": f"bf16 (1, 32/8, {LM_T}, 128) causal",
                  "max_abs_err_f32_model_shape": main_err["float32"][0],
                  "row_rel_err_f32_model_shape": main_err["float32"][1]}
-    return sm90, mma_model
+    return sm90, mma_model, d256_err
 
 
 def mma_path_phase(dev, seed: int) -> dict:
@@ -1620,18 +1681,20 @@ def library_attention():
         attention.flash_attention = saved
 
 
-def lm_agreement(model, tokens) -> tuple[dict, "torch.Tensor"]:
+def lm_agreement(model, tokens, plain=plain_attention
+                 ) -> tuple[dict, "torch.Tensor"]:
     """The full forward over ``tokens`` with K3 against the same forward
-    with the plain attention: K3's per-row error at each layer on that
-    layer's own q, k, v, and the logits' max abs difference over the
-    reference's max |logit| at each position. Returns the readings, the
-    reference's logits at the last position, and whether each is within
-    its limit."""
+    with the plain attention (``plain(layer_err)``, a context in which the
+    model's kernels give way to their plain versions): K3's per-row error
+    at each attention layer on that layer's own q, k, v, and the logits'
+    max abs difference over the reference's max |logit| at each position.
+    Returns the readings, the reference's logits at the last position, and
+    whether each is within its limit."""
     import torch
     full, _ = model.forward(tokens)
     layer_err = []
     t0 = time.perf_counter()
-    with plain_attention(layer_err):
+    with plain(layer_err):
         ref, _ = model.forward(tokens)
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
@@ -1646,7 +1709,9 @@ def lm_agreement(model, tokens) -> tuple[dict, "torch.Tensor"]:
          "pos_rel_last": float(pos_rel[-1]),
          "argmax_equal_share": float(same.double().mean()),
          "argmax_last_equal": bool(same[-1]), "plain_wall": plain_wall}
-    r["ok_layers"] = (len(layer_err) == model.cfg.n_layers
+    cfg = model.cfg
+    n_attn = sum(cfg.mixer_kind(i) != "rglru" for i in range(cfg.n_layers))
+    r["ok_layers"] = (len(layer_err) == n_attn
                       and r["layers_max"] < ATTN_ROW_TOL["bfloat16"])
     r["ok_logits"] = (r["pos_rel_max"] <= LM_REL_TOL_PLAIN
                       and r["argmax_last_equal"])
@@ -2948,6 +3013,287 @@ def moe_phase(dev, seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the hybrid family (RG-LRU and local attention at head_dim 256)
+# ---------------------------------------------------------------------------
+def scan_bound(b, t, d) -> tuple[float, str]:
+    """Least time for S on (b, t, d): a and b read once, h written once
+    (float32); a multiply and an add an element."""
+    return bound_ms(3 * 4 * b * t * d, 2 * b * t * d)
+
+
+def hybrid_kernels(dev, seed: int) -> tuple[dict, dict]:
+    """S against its plain version bit for bit at SCAN_SHAPES, twice; S,
+    its plain version and K3 at head_dim 256 (with its plain version and
+    SDPA, in turns) timed at recurrentgemma-2b's shapes. Returns the two
+    kernels' entries of the kernels line, without launches."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_plain, flash_attention_sm90_d256)
+    from repro_torch.kernels.rglru_scan.ops import rglru_scan
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for shape in SCAN_SHAPES[::-1]:      # the model's shape, timed, last
+        # the model's decays: a in (0.9, 0.999)^r for r in (0, 1)
+        a = 0.9 + 0.099 * torch.rand(shape, generator=g, device=dev)
+        b = torch.randn(shape, generator=g, device=dev)
+        before = rglru_scan.launches
+        got, again = rglru_scan(a, b), rglru_scan(a, b)
+        want = rglru_scan_ref(a, b)
+        torch.cuda.synchronize()
+        bits = bool(torch.equal(got.view(torch.int32), want.view(torch.int32)))
+        same = bool(torch.equal(got.view(torch.int32),
+                                again.view(torch.int32)))
+        err = float((got - want).abs().max())
+        print(f"[S] {shape}: bit for bit its plain version {bits}, the same "
+              f"bits on a repeat {same}, max abs diff {err:.3g}; "
+              f"{rglru_scan.launches - before} launches", flush=True)
+        check(bits and same and rglru_scan.launches == before + 2
+              and bool(torch.isfinite(got).all()),
+              f"S is not its plain version's bits at {shape}, or not twice")
+    ms = [cuda_ms(lambda: rglru_scan(a, b), 20)]
+    plain_ms = cuda_ms(lambda: rglru_scan_ref(a, b), 3)
+    ms.append(cuda_ms(lambda: rglru_scan(a, b), 20))
+    s_bound, s_by = scan_bound(*shape)
+    s_ms = sum(ms) / 2
+    print(f"[S] {shape}: kernel {ms} ms (in turns with the plain version), "
+          f"plain {plain_ms:.3f} ms, bound {s_bound:.4f} ms ({s_by}), "
+          f"{s_bound / s_ms:.1%} of it; no library call computes the "
+          f"recurrence | {nvidia_smi_line()}", flush=True)
+    check(s_bound <= s_ms, "S beat its bound: the bound is not a floor")
+    del a, b, got, again, want
+    scan = {"name": "rglru_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+            "replaces": "port only: stands for jax.lax.associative_scan at "
+                        "src/repro/models/rglru.py:74,90",
+            "launches": 0, "max_abs_err": 0.0, "ms": s_ms,
+            "plain_ms": plain_ms, "bound_ms": s_bound, "bound_by": s_by,
+            "library_ms": None, "max_abs_err_of": f"{shape} float32: bit for "
+            "bit its plain version"}
+
+    b_, hq, hkv, t, _, d, causal, window = D256_SHAPE
+    q, k, v = _qkv(dev, seed, b_, hq, hkv, t, t, d, torch.bfloat16)
+    # SDPA as a yardstick, K and V repeated to the query heads beforehand:
+    # with the window as an explicit boolean mask (the same function), and
+    # causal with no window (the flash path, twice the pairs)
+    kr, vr = (x.repeat_interleave(hq // hkv, 1) for x in (k, v))
+    pos = torch.arange(t, device=dev)
+    mask = (pos[:, None] >= pos[None]) & (pos[:, None] - pos[None] < window)
+    runs = {"kernel": (lambda: flash_attention_sm90_d256(
+                q, k, v, causal=causal, window=window), 20),
+            "sdpa_window_mask": (lambda: F.scaled_dot_product_attention(
+                q, kr, vr, attn_mask=mask), 5),
+            "sdpa_causal": (lambda: F.scaled_dot_product_attention(
+                q, kr, vr, is_causal=True), 20)}
+    ref = runs["sdpa_window_mask"][0]()
+    got = runs["kernel"][0]()
+    diff = float((got.float() - ref.float()).abs().max())
+    runs["sdpa_causal"][0]()              # warm-up: its first call is slow
+    t_ms = {n: [] for n in runs}
+    for order in (("kernel", "sdpa_window_mask", "sdpa_causal"),
+                  ("sdpa_causal", "sdpa_window_mask", "kernel")):
+        for n in order:
+            t_ms[n].append(cuda_ms(*runs[n]))
+    mean = {n: sum(v) / len(v) for n, v in t_ms.items()}
+    plain_ms = cuda_ms(lambda: flash_attention_plain(
+        q, k, v, causal=causal, window=window), 3)
+    k_bound, k_by = k3_bound(b_, hq, hkv, t, d, window=window)
+    print(f"[K3/256] {D256_SHAPE} bf16, in turns: flash_attention_sm90_d256 "
+          f"{t_ms['kernel']} ms, scaled_dot_product_attention with the "
+          f"window as a boolean mask {t_ms['sdpa_window_mask']} ms, causal "
+          f"without the window {t_ms['sdpa_causal']} ms (K and V repeated to "
+          f"the {hq} query heads first); plain version {plain_ms:.3f} ms; "
+          f"bound {k_bound:.4f} ms ({k_by}), {k_bound / mean['kernel']:.1%} "
+          f"of it; max abs diff kernel vs SDPA (mask) {diff:.3g} | "
+          f"{nvidia_smi_line()}", flush=True)
+    check(k_bound <= mean["kernel"], "K3 at head_dim 256 beat its bound")
+    del q, k, v, kr, vr, mask, ref, got
+    torch.cuda.empty_cache()
+    k3 = {"name": "flash_attention_sm90_d256", "route": "cuda",
+          "source": "src/repro_torch/kernels/csrc/flash_attention_sm90_d256.cu",
+          "replaces": "src/repro/kernels/flash_attention/kernel.py:82",
+          "launches": 0, "ms": mean["kernel"], "plain_ms": plain_ms,
+          "bound_ms": k_bound, "bound_by": k_by,
+          "library_ms": mean["sdpa_window_mask"],
+          "library_call": "scaled_dot_product_attention with the window as "
+                          "a boolean attn_mask, K and V repeated to 10 heads",
+          "library_ms_causal_no_window": mean["sdpa_causal"],
+          "max_abs_err_of": f"bf16 at {D256_SHAPE}"}
+    return scan, k3
+
+
+@contextlib.contextmanager
+def plain_hybrid(layer_err: list, scan_bits: list):
+    """``plain_attention`` and, in the RG-LRU layers, S's plain version:
+    each layer also runs S on the same a and b, and whether its bits are
+    the plain version's is appended to ``scan_bits``."""
+    import torch
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+    from repro_torch.models import rglru
+
+    def both(a, b):
+        want = rglru_scan_ref(a, b)
+        scan_bits.append(bool(torch.equal(rglru_scan(a, b), want)))
+        return want
+
+    rglru_scan = rglru.rglru_scan
+    rglru.rglru_scan = both
+    try:
+        with plain_attention(layer_err):
+            yield
+    finally:
+        rglru.rglru_scan = rglru_scan
+
+
+def hybrid_phase(dev, seed: int) -> tuple[dict, dict]:
+    """Phase 17 (see HYBRID_ARCH). Returns S's and the head_dim 256 K3's
+    entries of the kernels line, their launches those of the prefill step."""
+    import io
+
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_mma, flash_attention_sm90,
+        flash_attention_sm90_d256)
+    from repro_torch.kernels.rglru_scan.ops import rglru_scan
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+    from repro_torch.train.steps import make_prefill_step
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    scan, k3 = hybrid_kernels(dev, seed)
+    cfg = ARCHS[HYBRID_ARCH]
+    n_rec = sum(cfg.mixer_kind(i) == "rglru" for i in range(cfg.n_layers))
+    n_attn = cfg.n_layers - n_rec
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev).init(seed)
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in model.parameters())
+    print(f"[hybrid] {HYBRID_ARCH}: {n_par} parameters ({2 * n_par / 1e9:.2f} "
+          f"GB bf16), {cfg.n_layers} layers: {n_rec} RG-LRU (width "
+          f"{cfg.lru_width}), {n_attn} local attention ({cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads of {cfg.head_dim}, window {cfg.window}); "
+          f"drawn on the card in {time.perf_counter() - t0:.2f} s", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (1, LM_T + LM_DECODE),
+                           generator=gen, device=dev)
+    batch = {"tokens": tokens[:, :LM_T]}
+    step = make_prefill_step(model)
+    step(batch)                                           # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wrappers = (flash_attention, flash_attention_sm90_d256,
+                flash_attention_sm90, flash_attention_mma, rglru_scan)
+    for w in wrappers:
+        w.launches = 0
+    t0 = time.perf_counter()
+    last = step(batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {w.__name__: w.launches for w in wrappers}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[hybrid] prefill step, 1 x {LM_T} tokens: wall {wall:.4f} s, "
+          f"{LM_T / wall:.1f} tokens/s, launches {counts}; peak device "
+          f"memory {peak} B = {peak / (2 * n_par):.4f} x the parameter bytes",
+          flush=True)
+    check(counts == {"flash_attention": n_attn,
+                     "flash_attention_sm90_d256": n_attn,
+                     "flash_attention_sm90": 0, "flash_attention_mma": 0,
+                     "rglru_scan": n_rec},
+          f"the prefill step launched {counts}, want {n_attn} of the head_dim "
+          f"256 Hopper K3, {n_rec} of S and no other K3")
+    check(tuple(last.shape) == (1, cfg.vocab_size)
+          and bool(torch.isfinite(last).all()),
+          "prefill-step logits are not finite or of the wrong shape")
+    scan["launches"], k3["launches"] = n_rec, n_attn
+
+    scan_bits = []
+    agree, ref = lm_agreement(
+        model, batch["tokens"],
+        plain=lambda errs: plain_hybrid(errs, scan_bits))
+    print(f"[hybrid] forward over {LM_T}, K3 and S vs the plain attention "
+          f"and scan (plain run {agree['plain_wall']:.2f} s): K3 per row on "
+          f"each swa layer's own q, k, v: max {agree['layers_max']:.4g} "
+          f"(limit {ATTN_ROW_TOL['bfloat16']}), per layer "
+          f"{[round(e, 5) for e in agree['layer_row_err']]}; S bit for bit "
+          f"on each RG-LRU layer's own a, b: {scan_bits}", flush=True)
+    print(f"[hybrid] logits max abs diff over max |logit| per position: max "
+          f"{agree['pos_rel_max']:.4g} (limit {LM_REL_TOL_PLAIN}), first "
+          f"{LM_EARLY} positions {agree['pos_rel_early']:.4g}, last "
+          f"{agree['pos_rel_last']:.4g}; argmax equal at "
+          f"{agree['argmax_equal_share']:.4f} of positions, at the last "
+          f"{agree['argmax_last_equal']}", flush=True)
+    check(agree["ok_layers"], "K3 disagrees with its plain version on an swa "
+          "layer's own q, k, v")
+    check(len(scan_bits) == n_rec and all(scan_bits),
+          "S is not its plain version's bits on an RG-LRU layer's a, b")
+    check(agree["ok_logits"], "the full-width forward disagrees with its "
+          "plain run")
+    err = float((last.float() - ref).abs().max())
+    scale = float(ref.abs().max())
+    print(f"[hybrid] prefill-step logits vs the plain forward's last "
+          f"position: relative {err / scale:.4g} (limit {LM_REL_TOL_PLAIN}), "
+          f"argmax {int(last.argmax())} vs {int(ref.argmax())}", flush=True)
+    check(err <= LM_REL_TOL_PLAIN * scale, "the full-width prefill step "
+          "disagrees with its plain run")
+    del last, ref
+    torch.cuda.empty_cache()
+
+    logits_pre, cache = model.prefill(tokens[:, :LM_T],
+                                      max_len=LM_T + LM_DECODE)
+    last_pre = logits_pre[:, -1].float()
+    del logits_pre
+    outs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(LM_T, LM_T + LM_DECODE):
+        lg, cache = model.decode_step(tokens[:, i:i + 1], cache, i)
+        outs.append(lg[:, 0].float())
+    torch.cuda.synchronize()
+    dec_ms = 1e3 * (time.perf_counter() - t0) / LM_DECODE
+    del cache
+    full, _ = model.forward(tokens)
+    want = full[0, LM_T - 1:].float()
+    del full
+    got = torch.cat([last_pre] + outs)
+    err = (got - want).abs().amax(dim=-1)
+    scale = float(want.abs().max())
+    same = (got.argmax(-1) == want.argmax(-1)).tolist()
+    print(f"[hybrid] prefill({LM_T}) + {LM_DECODE} decode steps vs forward "
+          f"over {LM_T + LM_DECODE}: max abs diff per position "
+          f"{err.tolist()}, max |logit| {scale:.4g}, relative "
+          f"{float(err.max()) / scale:.4g} (limit {LM_REL_TOL_DECODE}), "
+          f"argmax equal {same}, {dec_ms:.2f} ms per decode step", flush=True)
+    check(float(err.max()) <= LM_REL_TOL_DECODE * scale,
+          "prefill + decode disagrees with the forward")
+    del model, got, want, outs
+    torch.cuda.empty_cache()
+
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        outputs = serve.main(["--arch", HYBRID_ARCH, "--requests", "8",
+                              "--batch-slots", "4", "--prompt-len", "16",
+                              "--max-new", "16", "--max-len", "256"])
+    for line in log.getvalue().splitlines():
+        print(f"[hybrid] {line.strip()}", flush=True)
+    print(f"[hybrid] serve main() took {time.perf_counter() - t0:.2f} s with "
+          "the model's draw", flush=True)
+    check(len(outputs) == 8
+          and all(len(g) == 16 and all(0 <= x < cfg.vocab_size for x in g)
+                  for _, g in outputs),
+          "the serve launcher did not answer 8 requests with 16 tokens")
+    torch.cuda.empty_cache()
+    total = time.perf_counter() - t_phase
+    print(f"[hybrid] phase took {total:.1f} s (limit {HYBRID_PHASE_S} s) | "
+          f"{nvidia_smi_line()}", flush=True)
+    check(total <= HYBRID_PHASE_S, f"the hybrid phase took {total:.1f} s")
+    return scan, k3
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3218,7 +3564,7 @@ def main() -> None:
     del uninterrupted
 
     # ---- 11-14. K3 and the LM serving path --------------------------------
-    k3, mma_model = attention_phase(dev, args.seed)
+    k3, mma_model, d256_err = attention_phase(dev, args.seed)
     k3["launches"] = lm_phase(dev, args.seed)
     k3_mma = mma_path_phase(dev, args.seed)
     k3_mma.update(mma_model)
@@ -3229,12 +3575,16 @@ def main() -> None:
     # ---- 16. the mixture-of-experts family ----------------------------------
     moe = moe_phase(dev, args.seed)
 
+    # ---- 17. the hybrid family -----------------------------------------------
+    scan, k3_d256 = hybrid_phase(dev, args.seed)
+    k3_d256.update(d256_err)
+
     foreign = sorted(m for m in sys.modules if m.split(".")[0]
                      in ("jax", "jaxlib", "repro", "benchmarks"))
     check(not foreign, f"the smoke imported {foreign[:5]}: JAX, the JAX "
           "package or its benchmarks")
 
-    # ---- 17. kernels line ---------------------------------------------------
+    # ---- 18. kernels line ---------------------------------------------------
     # each kernel's MoE readings beside those of its first path: K3 and
     # K3-bwd at the MoE models' MHA layer shape, P over the whole olmoe
     bwd, _, perturb = train_kernels
@@ -3267,11 +3617,13 @@ def main() -> None:
         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
         "bound_by": k2_by, "library_ms": None})
     kernels.append(k3)
+    kernels.append(k3_d256)
     kernels.append(k3_mma)
     kernels.extend(train_kernels)
+    kernels.append(scan)
     print(json.dumps({"kernels": kernels}))
 
-    # ---- 18. result -------------------------------------------------------
+    # ---- 19. result -------------------------------------------------------
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

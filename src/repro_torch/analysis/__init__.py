@@ -1,7 +1,8 @@
-"""Runtime guardrails for the engine's invariants (port of
-:mod:`repro.analysis`'s runtime half). The static lint of the JAX package
-(``python -m repro.analysis.lint src``) already covers ``src/repro_torch``:
-its rules are syntactic and read the port's files as they are."""
+"""Guardrails for the engine's invariants (port of :mod:`repro.analysis`):
+the runtime sanitizers here (``sanitize``), and the port's own static lint,
+``python -m repro_torch.analysis.lint src/repro_torch`` (``lint``,
+``rules``), whose rules read torch's host transfers and imports where the
+JAX package's read JAX's."""
 from repro_torch.analysis.sanitize import (  # noqa: F401
     CompileBudgetExceeded,
     DonationError,

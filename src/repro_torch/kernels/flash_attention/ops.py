@@ -11,13 +11,20 @@ inputs' dtype, head_dim and alignment:
 * ``flash_attention_sm90`` (``csrc/flash_attention_sm90.cu``: TMA, a ring
   of shared-memory stages, wgmma) for bf16 with head_dim 120 or 128 and
   16-byte-aligned pointers and strides: the dense models' prefill;
+* ``flash_attention_sm90_d256`` (``csrc/flash_attention_sm90_d256.cu``:
+  the same design laid out for head_dim 256, 64-key blocks in two stages)
+  for bf16 with head_dim 256 and the same alignment: recurrentgemma-2b's
+  local attention;
 * ``flash_attention_mma`` (``csrc/flash_attention.cu``: mma.sync in bf16,
-  CUDA cores in float32) for everything else it takes.
+  CUDA cores in float32) for everything else it takes (head_dim a
+  multiple of 8 up to 128).
 
-There is no device probe, and no fallback from one kernel to the other or
-to the plain version. Each kernel wrapper counts its own launches
-(``flash_attention_sm90.launches``, ``flash_attention_mma.launches``);
-``flash_attention.launches`` counts the op's launches of either.
+Nothing else has a kernel: float32 (or unaligned bf16) at head_dim above
+128 raises. There is no device probe, and no fallback from one kernel to
+another or to the plain version. Each kernel wrapper counts its own
+launches (``flash_attention_sm90.launches``,
+``flash_attention_sm90_d256.launches``, ``flash_attention_mma.launches``);
+``flash_attention.launches`` counts the op's launches of any.
 
 The gradient. Where grad mode is on and q, k or v requires grad, the op
 on a CUDA tensor is a ``torch.autograd.Function``: its forward is the
@@ -59,6 +66,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 SM90_HEAD_DIMS = (120, 128)
+SM90_D256 = 256
 
 
 @functools.cache
@@ -78,6 +86,18 @@ def _launcher_sm90():
     lib = _build.load("flash_attention_sm90")
     fn = lib.flash_attention_sm90_launch
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                   + [ctypes.c_longlong] * 12
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_void_p, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+@functools.cache
+def _launcher_sm90_d256():
+    lib = _build.load("flash_attention_sm90_d256")
+    fn = lib.flash_attention_sm90_d256_launch
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                    + [ctypes.c_longlong] * 12
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
                       ctypes.c_void_p, ctypes.c_void_p])
@@ -127,16 +147,19 @@ def _tma_aligned(t) -> bool:
 
 
 def choose_kernel(q, k, v) -> str:
-    """Which CUDA kernel takes (q, k, v): ``"flash_attention_sm90"`` for
-    bf16 with head_dim 120 or 128, non-empty sequences, every base pointer
-    16-byte aligned and every stride a multiple of 8 elements (16 bytes,
-    the tensor map's rule), else ``"flash_attention_mma"``. Reads only dtypes, shapes,
-    strides and pointers: no device query."""
+    """Which CUDA kernel takes (q, k, v): for bf16 with non-empty
+    sequences, every base pointer 16-byte aligned and every stride a
+    multiple of 8 elements (16 bytes, the tensor map's rule),
+    ``"flash_attention_sm90"`` at head_dim 120 or 128 and
+    ``"flash_attention_sm90_d256"`` at 256; else ``"flash_attention_mma"``
+    (which refuses head_dim above 128). Reads only dtypes, shapes, strides
+    and pointers: no device query."""
     if (q.dtype == k.dtype == v.dtype == torch.bfloat16
-            and q.shape[-1] in SM90_HEAD_DIMS
+            and q.shape[-1] in SM90_HEAD_DIMS + (SM90_D256,)
             and q.shape[2] > 0 and k.shape[2] > 0
             and all(_tma_aligned(t) for t in (q, k, v))):
-        return "flash_attention_sm90"
+        return ("flash_attention_sm90_d256" if q.shape[-1] == SM90_D256
+                else "flash_attention_sm90")
     return "flash_attention_mma"
 
 
@@ -256,23 +279,31 @@ def _vec16(*ts) -> bool:
                and all(st % 8 == 0 for st in t.stride()[:3]) for t in ts)
 
 
+def _check_sm90(q, k, v, window, name):
+    """The checks of a Hopper kernel's wrapper: CUDA tensors that
+    ``choose_kernel`` sends to ``name``. Returns (b, hq, hkv, sk, d)."""
+    b, hq, hkv, sk, d = _check(q, k, v, window)
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda, not {q.device}")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("the kernel needs the last dimension contiguous")
+    if choose_kernel(q, k, v) != name:
+        dims = SM90_HEAD_DIMS if name == "flash_attention_sm90" else (
+            SM90_D256,)
+        raise ValueError(
+            f"{name} takes bf16 with head_dim in {dims} and 16-byte-aligned "
+            f"pointers and strides; got {q.dtype}, d = {d}, strides "
+            f"{q.stride()}, {k.stride()}, {v.stride()}")
+    if b * hq > 65535:
+        raise ValueError(f"batch x heads = {b * hq} exceeds the grid's 65535")
+    return b, hq, hkv, sk, d
+
+
 def flash_attention_sm90(q, k, v, *, causal=True, window=None, lse=None):
     """The kernel of ``csrc/flash_attention_sm90.cu`` on CUDA tensors that
     ``choose_kernel`` sends to it; raises on any other. ``lse`` as in
     ``flash_attention_mma``."""
-    b, hq, hkv, sk, d = _check(q, k, v, window)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_sm90 runs on cuda, not {q.device}")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise ValueError("the kernel needs the last dimension contiguous")
-    if choose_kernel(q, k, v) != "flash_attention_sm90":
-        raise ValueError(
-            f"flash_attention_sm90 takes bf16 with head_dim in "
-            f"{SM90_HEAD_DIMS} and 16-byte-aligned pointers and strides; got "
-            f"{q.dtype}, d = {d}, strides {q.stride()}, {k.stride()}, "
-            f"{v.stride()}")
-    if b * hq > 65535:
-        raise ValueError(f"batch x heads = {b * hq} exceeds the grid's 65535")
+    b, hq, hkv, sk, d = _check_sm90(q, k, v, window, "flash_attention_sm90")
     sq = q.shape[2]
     out = _new_out(q)
     lse_ptr = _lse_ptr(lse, q)
@@ -290,7 +321,32 @@ def flash_attention_sm90(q, k, v, *, causal=True, window=None, lse=None):
     return out
 
 
+def flash_attention_sm90_d256(q, k, v, *, causal=True, window=None,
+                              lse=None):
+    """The kernel of ``csrc/flash_attention_sm90_d256.cu`` (bf16, head_dim
+    256) on CUDA tensors that ``choose_kernel`` sends to it; raises on any
+    other. ``lse`` as in ``flash_attention_mma``."""
+    b, hq, hkv, sk, d = _check_sm90(q, k, v, window,
+                                    "flash_attention_sm90_d256")
+    sq = q.shape[2]
+    out = _new_out(q)
+    lse_ptr = _lse_ptr(lse, q)
+    if sq == 0 or b * hq == 0:
+        return out
+    lib, fn = _launcher_sm90_d256()
+    with torch.cuda.device(q.device):
+        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  b, hq, hkv, sq, sk, *_tma_strides(q), *_tma_strides(k),
+                  *_tma_strides(v), *out.stride()[:3], int(bool(causal)),
+                  int(window or 0), d ** -0.5 * math.log2(math.e), lse_ptr,
+                  _stream(q))
+    _build.check(lib, code, "flash_attention_sm90_d256")
+    flash_attention_sm90_d256.launches += 1
+    return out
+
+
 _KERNELS = {"flash_attention_sm90": flash_attention_sm90,
+            "flash_attention_sm90_d256": flash_attention_sm90_d256,
             "flash_attention_mma": flash_attention_mma}
 
 
@@ -466,8 +522,9 @@ def flash_attention(q, k, v, *, causal=True, window=None):
     taken: the kernels' tiles are fixed by their design, and the plain
     version's blocks are those of ``impl="ref"``.
 
-    On a CUDA tensor (float32 or bfloat16, d a multiple of 8 up to 128, any
-    strides with the last dimension contiguous) the kernel that
+    On a CUDA tensor (float32 or bfloat16 with d a multiple of 8 up to 128
+    and any strides with the last dimension contiguous, or bf16 with d =
+    256 and 16-byte-aligned pointers and strides) the kernel that
     ``choose_kernel`` names runs and returns a (b, hq, sq, d) view of a
     (b, sq, hq, d) buffer, so the caller's merge of the heads is free. Rows
     with no valid key come out as zeros there. Where grad mode is on and an
@@ -492,6 +549,7 @@ def flash_attention(q, k, v, *, causal=True, window=None):
 flash_attention.launches = 0
 flash_attention_mma.launches = 0
 flash_attention_sm90.launches = 0
+flash_attention_sm90_d256.launches = 0
 flash_attention_bwd.launches = 0
 flash_attention_bwd_mma.launches = 0
 flash_attention_bwd_sm90.launches = 0

@@ -19,25 +19,26 @@ EMBED_NAMES = ("embed", "unembed", "pos_embed")
 # ---------------------------------------------------------------------------
 # init helpers
 # ---------------------------------------------------------------------------
-def _param(shape, dtype, device) -> nn.Parameter:
+def param(shape, dtype, device) -> nn.Parameter:
+    """An uninitialised parameter, made without a gradient."""
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
 
 
 def dense_init(d_in, d_out, dtype, device) -> nn.Parameter:
     """A (d_in, d_out) weight; :func:`draw_` gives it N(0, 2/(d_in+d_out))."""
-    return _param((d_in, d_out), dtype, device)
+    return param((d_in, d_out), dtype, device)
 
 
 def expert_init(e, d_in, d_out, dtype, device) -> nn.Parameter:
     """``e`` stacked (d_in, d_out) expert weights; :func:`draw_` gives them
     N(0, 2/(d_in+d_out))."""
-    return _param((e, d_in, d_out), dtype, device)
+    return param((e, d_in, d_out), dtype, device)
 
 
 def embed_init(vocab, d, dtype, device) -> nn.Parameter:
     """A (vocab, d) table; :func:`draw_` gives it N(0, 1/d)."""
-    return _param((vocab, d), dtype, device)
+    return param((vocab, d), dtype, device)
 
 
 def _scaled_normal_(p: torch.Tensor, scale: float, gen) -> None:
@@ -52,14 +53,21 @@ def draw_(name: str, p: torch.Tensor, gen: torch.Generator,
     """Fill parameter ``name`` in place with the reference's init rule:
     dense and expert weights N(0, 2/(d_in+d_out)) over their last two
     dimensions, embedding tables N(0, 1/d), norm scales 0 (RMSNorm's
-    ``1 + scale``) or 1 (LayerNorm), biases 0."""
+    ``1 + scale``) or 1 (LayerNorm), biases 0; the RG-LRU's conv weights
+    N(0, 0.01), its conv bias 0 and its Λ from
+    ``models.rglru.log_lambda_init``."""
     leaf = name.rsplit(".", 1)[-1]
     if leaf in EMBED_NAMES:
         _scaled_normal_(p, p.shape[1] ** -0.5, gen)
     elif leaf == "scale":
         p.fill_(0.0 if norm == "rmsnorm" else 1.0)
-    elif leaf == "bias":
+    elif leaf in ("bias", "conv_b"):
         p.zero_()
+    elif leaf == "conv_w":
+        _scaled_normal_(p, 0.1, gen)
+    elif leaf == "log_lambda":
+        from repro_torch.models.rglru import log_lambda_init
+        p.copy_(log_lambda_init(p.shape[0], p.device).to(p.dtype))
     else:
         _scaled_normal_(p, (2.0 / (p.shape[-2] + p.shape[-1])) ** 0.5, gen)
 
@@ -68,7 +76,7 @@ def draw_(name: str, p: torch.Tensor, gen: torch.Generator,
 # norms
 # ---------------------------------------------------------------------------
 def rmsnorm_init(d, dtype, device):
-    return nn.ParameterDict({"scale": _param((d,), dtype, device)})
+    return nn.ParameterDict({"scale": param((d,), dtype, device)})
 
 
 def rmsnorm(params, x, eps=1e-6):
@@ -80,8 +88,8 @@ def rmsnorm(params, x, eps=1e-6):
 
 
 def layernorm_init(d, dtype, device):
-    return nn.ParameterDict({"scale": _param((d,), dtype, device),
-                             "bias": _param((d,), dtype, device)})
+    return nn.ParameterDict({"scale": param((d,), dtype, device),
+                             "bias": param((d,), dtype, device)})
 
 
 def layernorm(params, x, eps=1e-5):

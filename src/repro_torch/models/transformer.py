@@ -1,6 +1,6 @@
 """Decoder stack: per-layer modules in layer order, applied in a loop.
 
-Port of :mod:`repro.models.transformer` for the attention decoders. The
+Port of :mod:`repro.models.transformer` for the decoders. The
 reference groups layers into repeating pattern units and scans stacked
 copies (``jax.lax.scan``); the port keeps one module per layer in an
 ``nn.ModuleList`` in layer index order (the reference's head, groups
@@ -10,11 +10,13 @@ in the same order, one dict per layer. ``stack_layout`` remains for
 ``stack_apply`` checkpoints each pattern unit of the groups (the units the
 reference scans), not the head or tail layers, as the reference does.
 
-Mixers ``attn``/``swa``; dense MLPs and MoE (``models.moe``: the capacity
-from the config in ``layer_apply``, lossless in ``layer_prefill`` and
-``layer_decode``, as the reference). A layer's aux loss is 0 unless it is
-an MoE layer; the leading ``first_dense`` layers (moonshot's layer 0) keep
-a dense MLP. RG-LRU, RWKV6 and cross-attention raise
+Mixers ``attn``/``swa`` and ``rglru`` (``models.rglru``: RecurrentGemma's
+(rglru, rglru, swa) pattern; its layer cache is ``{"rec": {"h", "conv"}}``
+where an attention layer's is ``{"kv": ...}``); dense MLPs and MoE
+(``models.moe``: the capacity from the config in ``layer_apply``, lossless
+in ``layer_prefill`` and ``layer_decode``, as the reference). A layer's aux
+loss is 0 unless it is an MoE layer; the leading ``first_dense`` layers
+(moonshot's layer 0) keep a dense MLP. RWKV6 and cross-attention raise
 ``NotImplementedError`` (ROADMAP queue 1, item 11).
 """
 from __future__ import annotations
@@ -28,13 +30,14 @@ from torch.utils import checkpoint as _checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models.layers import is_gated, make_norm, mlp_apply, mlp_init
 
 _WAITS = "is not ported yet (ROADMAP queue 1, item 11: LM substrate)"
 
 
 def _check_kinds(cfg: ArchConfig, kind: str, mlp_kind: str) -> None:
-    if kind not in ("attn", "swa"):
+    if kind not in ("attn", "swa", "rglru"):
         raise NotImplementedError(f"mixer {kind!r} {_WAITS}")
     if mlp_kind not in ("dense", "moe"):
         raise NotImplementedError(f"{mlp_kind!r} MLP {_WAITS}")
@@ -49,8 +52,11 @@ def layer_init(cfg: ArchConfig, layer_idx: int, dtype, device) -> nn.ModuleDict:
     _check_kinds(cfg, cfg.mixer_kind(layer_idx), cfg.mlp_kind(layer_idx))
     norm_init, _ = make_norm(cfg.norm)
     p = {"norm_mixer": norm_init(cfg.d_model, dtype, device),
-         "norm_mlp": norm_init(cfg.d_model, dtype, device),
-         "attn": attn.attn_init(cfg, dtype, device)}
+         "norm_mlp": norm_init(cfg.d_model, dtype, device)}
+    if cfg.mixer_kind(layer_idx) == "rglru":
+        p["rglru"] = rglru_mod.rglru_init(cfg, dtype, device)
+    else:
+        p["attn"] = attn.attn_init(cfg, dtype, device)
     if cfg.mlp_kind(layer_idx) == "moe":
         p["moe"] = moe_mod.moe_init(cfg, dtype, device)
     else:
@@ -76,9 +82,12 @@ def layer_apply(params, cfg: ArchConfig, kind: str, mlp_kind: str, x, *,
         raise NotImplementedError(f"cross-attention {_WAITS}")
     _, norm = make_norm(cfg.norm)
     h = norm(params["norm_mixer"], x)
-    window = cfg.window if kind == "swa" else None
-    h = attn.attn_apply(params["attn"], cfg, h, positions=positions,
-                        window=window, causal=causal)
+    if kind == "rglru":
+        h = rglru_mod.rglru_apply(params["rglru"], cfg, h)
+    else:
+        window = cfg.window if kind == "swa" else None
+        h = attn.attn_apply(params["attn"], cfg, h, positions=positions,
+                            window=window, causal=causal)
     x = x + h
     h, aux = _ffn(params, cfg, mlp_kind, norm(params["norm_mlp"], x), "cfg")
     return x + h, aux
@@ -92,6 +101,9 @@ def layer_cache_init(cfg: ArchConfig, kind: str, batch, max_len, dtype,
     if with_cross:
         raise NotImplementedError(f"cross-attention {_WAITS}")
     _check_kinds(cfg, kind, "dense")
+    if kind == "rglru":
+        return {"rec": rglru_mod.rglru_state_init(batch, cfg, dtype,
+                                                  device=device)}
     ring = min(max_len, cfg.window) if kind == "swa" and cfg.window else max_len
     return {"kv": attn.cache_init(attn.CacheSpec(
         batch, ring, cfg.n_kv_heads, cfg.head_dim, dtype, quant=cfg.kv_quant,
@@ -104,10 +116,15 @@ def layer_decode(params, cfg: ArchConfig, kind: str, mlp_kind: str, x,
     _check_kinds(cfg, kind, mlp_kind)
     _, norm = make_norm(cfg.norm)
     h = norm(params["norm_mixer"], x)
-    window = cfg.window if kind == "swa" else None
-    h, kv = attn.attn_decode_step(params["attn"], cfg, h, cache["kv"], pos,
-                                  window=window)
-    cache = {**cache, "kv": kv}
+    if kind == "rglru":
+        h, rec = rglru_mod.rglru_decode_step(params["rglru"], cfg, h,
+                                             cache["rec"])
+        cache = {**cache, "rec": rec}
+    else:
+        window = cfg.window if kind == "swa" else None
+        h, kv = attn.attn_decode_step(params["attn"], cfg, h, cache["kv"],
+                                      pos, window=window)
+        cache = {**cache, "kv": kv}
     x = x + h
     h, _ = _ffn(params, cfg, mlp_kind, norm(params["norm_mlp"], x), None)
     return x + h, cache
@@ -119,12 +136,17 @@ def layer_prefill(params, cfg: ArchConfig, kind: str, mlp_kind: str, x, *,
     _check_kinds(cfg, kind, mlp_kind)
     _, norm = make_norm(cfg.norm)
     h = norm(params["norm_mixer"], x)
-    window = cfg.window if kind == "swa" else None
-    h, kv = attn.attn_prefill(params["attn"], cfg, h, positions=positions,
-                              window=window, max_len=max_len)
+    if kind == "rglru":
+        h, rec = rglru_mod.rglru_prefill(params["rglru"], cfg, h)
+        cache = {"rec": rec}
+    else:
+        window = cfg.window if kind == "swa" else None
+        h, kv = attn.attn_prefill(params["attn"], cfg, h, positions=positions,
+                                  window=window, max_len=max_len)
+        cache = {"kv": kv}
     x = x + h
     h, _ = _ffn(params, cfg, mlp_kind, norm(params["norm_mlp"], x), None)
-    return x + h, {"kv": kv}
+    return x + h, cache
 
 
 # ---------------------------------------------------------------------------

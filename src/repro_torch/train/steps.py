@@ -136,8 +136,10 @@ def make_decode_step(model, *, batch: int, max_len: int):
         if tuple(tokens.shape) != (batch, 1):
             raise ValueError(f"decode step built for tokens ({batch}, 1), "
                              f"got {tuple(tokens.shape)}")
-        if cache[0]["kv"]["k"].shape[2] > max_len:
-            raise ValueError(f"cache of {cache[0]['kv']['k'].shape[2]} "
-                             f"slots exceeds max_len {max_len}")
+        slots = max((lc["kv"]["k"].shape[2] for lc in cache if "kv" in lc),
+                    default=0)
+        if slots > max_len:
+            raise ValueError(f"cache of {slots} slots exceeds max_len "
+                             f"{max_len}")
         return model.decode_step(tokens, cache, pos)
     return decode

@@ -171,6 +171,22 @@ def _routing_cases():
                   _bf16(1, 1, 64, 128), _bf16(1, 1, 64, 128), sm90))
     cases.append(("bf16 d=128 sk=0", _bf16(1, 2, 8, 128), _bf16(1, 2, 0, 128),
                   _bf16(1, 2, 0, 128), mma))
+    # head_dim 256: the Hopper kernel of its own for aligned bf16; nothing
+    # else has a kernel there (mma.sync refuses it at launch)
+    d256 = "flash_attention_sm90_d256"
+    cases.append(("bf16 d=256 MQA", _bf16(1, 10, 64, 256),
+                  _bf16(1, 1, 64, 256), _bf16(1, 1, 64, 256), d256))
+    q = _bf16(1, 50, 10, 256).transpose(1, 2)
+    k = _bf16(1, 50, 1, 256).transpose(1, 2)
+    cases.append(("bf16 d=256 transposed", q, k, k, d256))
+    f = torch.zeros(1, 2, 64, 256)
+    cases.append(("float32 d=256", f, f, f, mma))
+    off = _bf16(2 * 64 * 256 + 1)[1:].view(1, 2, 64, 256)
+    cases.append(("bf16 d=256 unaligned pointer", off, _bf16(1, 2, 64, 256),
+                  _bf16(1, 2, 64, 256), mma))
+    for d in (192, 240):
+        cases.append((f"bf16 d={d}", _bf16(1, 2, 64, d), _bf16(1, 2, 64, d),
+                      _bf16(1, 2, 64, d), mma))
     return cases
 
 
@@ -181,12 +197,23 @@ def test_choose_kernel_routes_by_dtype_head_dim_and_alignment(case):
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
-    q = _bf16(1, 2, 8, 128)
-    for fn in (ops.flash_attention_sm90, ops.flash_attention_mma):
+    for fn, d in ((ops.flash_attention_sm90, 128),
+                  (ops.flash_attention_sm90_d256, 256),
+                  (ops.flash_attention_mma, 128)):
+        q = _bf16(1, 2, 8, d)
         before = fn.launches
         with pytest.raises(ValueError):
             fn(q, q, q)
         assert fn.launches == before
+
+
+def test_d256_forward_has_no_gradient_kernel():
+    """A gradient through K3 at head_dim 256 is refused on the card before
+    any launch (no backward kernel takes it); without grad the forward is
+    the Hopper kernel's."""
+    q = _bf16(1, 2, 8, 256)
+    with pytest.raises(ValueError, match="backward kernel"):
+        ops.check_bwd(q)
 
 
 def _bwd_routing_cases():

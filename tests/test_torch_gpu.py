@@ -41,6 +41,13 @@ its CPU run, lossless and with dropped slots: the same routes and
 positions, outputs within 1e-5 of their max; K3 and K3-bwd at the MoE
 models' MHA layout (16 query heads over 16 KV heads); the reduced MoE
 models on the card against the CPU.
+
+recurrentgemma-2b's kernels: K3's Hopper kernel at head_dim 256
+(``flash_attention_sm90_d256``) against the plain attention at its layer
+shape and edges, held as the other K3 kernels are, with the same bits on a
+repeat and with the log-sum-exp on; S (``rglru_scan``, port only) equal to
+its plain version bit for bit and on a repeat; the reduced model on the
+card against the CPU.
 """
 import pytest
 import torch
@@ -62,12 +69,15 @@ from repro_torch.kernels.flash_attention.ops import (choose_kernel,
                                                      flash_attention_bwd_sm90,
                                                      flash_attention_mma,
                                                      flash_attention_plain,
-                                                     flash_attention_sm90)
+                                                     flash_attention_sm90,
+                                                     flash_attention_sm90_d256)
 from repro_torch.kernels.perturb.ops import (abo_zo_perturb,
                                              abo_zo_perturb_plain)
 from repro_torch.kernels.griewank.ops import (griewank_aggregates,
                                               griewank_shortcut_mismatches)
 from repro_torch.kernels.griewank.ref import griewank_aggregates_ref
+from repro_torch.kernels.rglru_scan.ops import rglru_scan
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 from repro_torch.models.model import Model
 from repro_torch.objectives import GRIEWANK, OBJECTIVES
 
@@ -93,6 +103,17 @@ ATTN_SHAPES = [
 SM90_SHAPES = [s for s in ATTN_SHAPES if s[5] in (120, 128)]
 # those the mma.sync kernel is also held at (not the model's T = 8192)
 MMA_AT_SM90_SHAPES = [s for s in SM90_SHAPES if s[3] < 8192]
+# bf16 at head_dim 256 (the Hopper kernel's only route there): the shapes
+# chip_smoke.py checks, recurrentgemma-2b's layer shape last
+D256_SHAPES = [
+    (1, 10, 1, 333, 333, 256, True, 96),         # ragged, window
+    (1, 2, 2, 100, 300, 256, False, None),       # non-causal, sq != sk
+    (1, 8, 8, 1024, 1024, 256, True, None),      # causal, no window
+    (1, 10, 1, 8192, 8192, 256, True, 2048),     # the model's layer shape
+]
+# S at recurrentgemma-2b's (batch, T, lru_width), a ragged one, and edges
+SCAN_SHAPES = [(1, 8192, 2560), (3, 1000, 2568), (2, 64, 5), (1, 1, 300),
+               (2, 65, 257)]
 ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-3}
 ATTN_ROW_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-3}
 AGG_TOL = 1e-3     # times (1 + |a_in|)
@@ -394,7 +415,8 @@ def test_flash_attention_wrapper_rejects_on_cuda(cuda):
 
 @pytest.mark.parametrize("arch", ["mistral-nemo-12b", "h2o-danube-3-4b",
                                   "granite-20b", "internlm2-20b",
-                                  "olmoe-1b-7b", "moonshot-v1-16b-a3b"])
+                                  "olmoe-1b-7b", "moonshot-v1-16b-a3b",
+                                  "recurrentgemma-2b"])
 def test_reduced_model_on_the_card_matches_cpu(cuda, arch):
     cfg = reduced(ARCHS[arch])
     cpu = Model(cfg, device="cpu").init(0)
@@ -402,9 +424,11 @@ def test_reduced_model_on_the_card_matches_cpu(cuda, arch):
     card.load_state_dict(cpu.state_dict())
     toks = torch.randint(0, cfg.vocab_size, (2, 50),
                          generator=torch.Generator().manual_seed(2))
-    before = flash_attention.launches
+    n_rec = sum(cfg.mixer_kind(i) == "rglru" for i in range(cfg.n_layers))
+    before, scans = flash_attention.launches, rglru_scan.launches
     lg, _ = card.forward(toks.to(cuda))
-    assert flash_attention.launches == before + cfg.n_layers
+    assert flash_attention.launches == before + cfg.n_layers - n_rec
+    assert rglru_scan.launches == scans + n_rec
     want, _ = cpu.forward(toks)
     assert float((lg.cpu() - want).abs().max()) < 1e-4
     max_len = cfg.window or 64
@@ -893,3 +917,96 @@ def test_reduced_bf16_model_takes_an_adamw_step_through_the_hopper_bwd(cuda):
     for n, p in model.named_parameters():
         if n.split(".")[-1] in ("wq", "wk", "wv"):
             assert not torch.equal(p.detach(), start[n]), n
+
+
+# ---------------------------------------------------------------------------
+# recurrentgemma-2b: K3 at head_dim 256 and S
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("shape", D256_SHAPES)
+def test_flash_attention_sm90_d256_matches_plain(cuda, shape):
+    """The Hopper kernel at head_dim 256 through the op's routing; only its
+    own launch count moves; two calls give the same bits."""
+    causal, window = shape[6], shape[7]
+    q, k, v = _qkv(shape, torch.bfloat16, cuda)
+    assert choose_kernel(q, k, v) == "flash_attention_sm90_d256"
+    counts = [w.launches for w in (flash_attention_sm90_d256,
+                                   flash_attention_sm90, flash_attention_mma)]
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert [w.launches for w in (flash_attention_sm90_d256,
+                                 flash_attention_sm90, flash_attention_mma)] \
+        == [counts[0] + 1, counts[1], counts[2]]
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert float((got.float() - want.float()).abs().max()) < \
+        ATTN_TOL[torch.bfloat16]
+    assert _row_rel_err(got, want) < ATTN_ROW_TOL[torch.bfloat16]
+    again = flash_attention(q, k, v, causal=causal, window=window)
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+
+
+def test_flash_attention_sm90_d256_strided_view_and_lse(cuda):
+    """(b, t, h, d) projections read through their (b, h, t, d) transposes,
+    as the model passes them; the log-sum-exp moves no output bit and is the
+    plain logsumexp of the masked, scaled scores."""
+    b, t, hq, hkv, d, window = 2, 300, 4, 1, 256, 100
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = [torch.randn(b, t, h, d, generator=g, device=cuda)
+               .to(torch.bfloat16).transpose(1, 2) for h in (hq, hkv, hkv)]
+    lse = torch.empty((b, hq, t), dtype=torch.float32, device=cuda)
+    got = flash_attention_sm90_d256(q, k, v, causal=True, window=window)
+    with_lse = flash_attention_sm90_d256(q, k, v, causal=True, window=window,
+                                         lse=lse)
+    assert torch.equal(got, with_lse)
+    want = flash_attention_plain(q, k, v, causal=True, window=window)
+    assert float((got.float() - want.float()).abs().max()) < \
+        ATTN_TOL[torch.bfloat16]
+    assert _row_rel_err(got, want) < ATTN_ROW_TOL[torch.bfloat16]
+    s = q.float() @ k.float().transpose(-1, -2) * d ** -0.5
+    qp = torch.arange(t, device=cuda)[:, None]
+    kp = torch.arange(t, device=cuda)[None]
+    keep = (qp >= kp) & ((qp - kp) < window)
+    want_lse = torch.logsumexp(torch.where(keep, s, -torch.inf), -1)
+    assert float((lse - want_lse).abs().max()) < 1e-5
+
+
+def test_flash_attention_at_d256_refuses_what_no_kernel_serves(cuda):
+    """float32 at head_dim 256 and unaligned bf16 there have no kernel: the
+    op raises, with no fallback."""
+    q = torch.zeros(1, 2, 8, 256, device=cuda)
+    with pytest.raises(ValueError):
+        flash_attention(q, q, q)
+    buf = torch.zeros(2 * 8 * 256 + 1, dtype=torch.bfloat16, device=cuda)
+    off = buf[1:].view(1, 2, 8, 256)              # 2-byte-aligned pointer
+    assert choose_kernel(off, off, off) == "flash_attention_mma"
+    with pytest.raises(ValueError):
+        flash_attention(off, off, off)
+    with pytest.raises(ValueError, match="flash_attention_sm90_d256 takes"):
+        flash_attention_sm90_d256(off, off, off)
+
+
+@pytest.mark.parametrize("shape", SCAN_SHAPES)
+def test_rglru_scan_matches_plain_bit_for_bit(cuda, shape):
+    """S repeats its plain version's order with one rounding an operation:
+    the same bits, and the same bits on a repeat; one launch a call."""
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    a = torch.rand(shape, generator=g, device=cuda) * 0.2 + 0.8
+    b = torch.randn(shape, generator=g, device=cuda)
+    before = rglru_scan.launches
+    got = rglru_scan(a, b)
+    again = rglru_scan(a, b)
+    torch.cuda.synchronize()
+    assert rglru_scan.launches == before + 2
+    want = rglru_scan_ref(a, b)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+def test_rglru_scan_refuses_what_it_does_not_serve(cuda):
+    a = torch.rand(1, 8, 4, device=cuda)
+    with pytest.raises(ValueError, match="no backward"):
+        rglru_scan(a.requires_grad_(True), a.detach())
+    with pytest.raises(ValueError, match="contiguous"):
+        rglru_scan(a.detach().transpose(1, 2), a.detach().transpose(1, 2))
+    with pytest.raises(ValueError, match="float32"):
+        rglru_scan(a.detach().bfloat16(), a.detach().bfloat16())

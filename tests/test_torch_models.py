@@ -10,7 +10,12 @@ learned positions, LayerNorm, gelu, tied embeddings) and internlm2-20b.
 So do the two mixture-of-experts decoders, whose reduced configs route
 losslessly (forward, prefill and decode give the same numbers):
 olmoe-1b-7b and moonshot-v1-16b-a3b (a dense head layer, a shared
-expert); their forward's aux loss is held to 1e-6.
+expert); their forward's aux loss is held to 1e-6. So does the hybrid
+recurrentgemma-2b (7 layers: 2 groups of (rglru, rglru, swa) and an rglru
+tail, window 32, MQA), whose prefill and decode run past the window (the
+ring wraps) and whose RG-LRU layers' decode state (float32 h, the conv's
+last inputs) is held beside the attention layers' ring caches; its serving
+steps and the serve launcher too.
 
 Tolerance: 1e-4 max abs on logits (|logits| <= ~5) and caches, layers
 1e-5. Measured (CPU, tests/torch_parity_report.py): <= 3.5e-6 on logits.
@@ -42,6 +47,7 @@ TOL = 1e-4
 DENSE = ["mistral-nemo-12b", "h2o-danube-3-4b", "granite-20b",
          "internlm2-20b"]
 MOE = ["olmoe-1b-7b", "moonshot-v1-16b-a3b"]
+HYBRID = ["recurrentgemma-2b"]
 
 
 def _np(x):
@@ -130,20 +136,28 @@ def _pair(arch, seed=3):
     return jm, params, tm
 
 
+def _flat(cache):
+    """A layer's cache as {"kv.k": ..., "rec.h": ...}."""
+    return {f"{part}.{k}": v for part, d in cache.items() for k, v in d.items()}
+
+
 def _cache_layers(jcache, n_layers):
-    """The reference's stack-layout cache as a per-layer list."""
-    out = [lc["kv"] for lc in jcache["head"]]
+    """The reference's stack-layout cache as a per-layer list of flat
+    dicts (``_flat``)."""
+    out = [_flat(lc) for lc in jcache["head"]]
     if jcache["groups"] is not None:
-        n_groups = np.asarray(jcache["groups"][0]["kv"]["k"]).shape[0]
+        unit0 = _flat(jcache["groups"][0])
+        n_groups = np.asarray(next(iter(unit0.values()))).shape[0]
         for g in range(n_groups):
             for unit in jcache["groups"]:
-                out.append({k: np.asarray(v)[g] for k, v in unit["kv"].items()})
-    out += [lc["kv"] for lc in jcache["tail"]]
+                out.append({k: np.asarray(v)[g]
+                            for k, v in _flat(unit).items()})
+    out += [_flat(lc) for lc in jcache["tail"]]
     assert len(out) == n_layers
     return out
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", DENSE + MOE + HYBRID)
 def test_model_matches_reference(arch):
     jm, params, tm = _pair(arch)
     cfg = tm.cfg
@@ -169,10 +183,14 @@ def test_model_matches_reference(arch):
     lpt, ct = tm.prefill(torch.from_numpy(toks[:, :t_prompt]),
                          max_len=max_len)
     assert np.abs(lpt.numpy() - _np(lpj)).max() < TOL
-    for jl, tl in zip(_cache_layers(cj, cfg.n_layers), ct):
-        for key in ("k", "v"):
-            assert tl["kv"][key].shape == np.asarray(jl[key]).shape
-            assert np.abs(tl["kv"][key].numpy() - _np(jl[key])).max() < TOL
+    for i, (jl, tl) in enumerate(zip(_cache_layers(cj, cfg.n_layers), ct)):
+        tl = _flat(tl)
+        assert sorted(tl) == sorted(jl) == (
+            ["rec.conv", "rec.h"] if cfg.mixer_kind(i) == "rglru"
+            else ["kv.k", "kv.v"])
+        for key in tl:
+            assert tl[key].shape == np.asarray(jl[key]).shape
+            assert np.abs(tl[key].numpy() - _np(jl[key])).max() < TOL
 
     for i in range(t_prompt, t_prompt + t_gen):
         gj, cj = jm.decode_step(params, jnp.asarray(toks[:, i:i + 1]), cj,
@@ -196,6 +214,21 @@ def test_decode_from_empty_cache_matches_forward():
         assert (lg[:, 0] - full[:, i]).abs().max() < TOL
 
 
+def test_hybrid_decode_from_empty_cache_matches_forward():
+    """The same for recurrentgemma-2b: its RG-LRU layers start from a zero
+    state and a zero conv history, its swa layers from empty rings."""
+    _, _, tm = _pair("recurrentgemma-2b", seed=5)
+    toks = torch.from_numpy(np.random.RandomState(6).randint(0, 512, (1, 40)))
+    full, _ = tm.forward(toks)
+    cache = tm.init_cache(1, 64)
+    assert [sorted(lc) for lc in cache] == [["rec"], ["rec"], ["kv"]] * 2 + [
+        ["rec"]]
+    assert all(lc["kv"]["k"].shape[2] == 32 for lc in cache if "kv" in lc)
+    for i in range(40):
+        lg, cache = tm.decode_step(toks[:, i:i + 1], cache, i)
+        assert (lg[:, 0] - full[:, i]).abs().max() < TOL
+
+
 # ---------------------------------------------------------------------------
 # serving factories and the launcher
 # ---------------------------------------------------------------------------
@@ -205,6 +238,11 @@ def test_serving_steps_match_reference():
 
 @pytest.mark.parametrize("arch", MOE)
 def test_moe_serving_steps_match_reference(arch):
+    _serving_steps_match_reference(arch)
+
+
+@pytest.mark.parametrize("arch", HYBRID)
+def test_hybrid_serving_steps_match_reference(arch):
     _serving_steps_match_reference(arch)
 
 
@@ -240,6 +278,11 @@ def test_serve_launcher_gives_greedy_tokens_of_forward(capsys):
 
 @pytest.mark.parametrize("arch", MOE)
 def test_moe_serve_launcher_gives_greedy_tokens_of_forward(arch, capsys):
+    _serve_launcher_gives_greedy_tokens_of_forward(arch, capsys)
+
+
+@pytest.mark.parametrize("arch", HYBRID)
+def test_hybrid_serve_launcher_gives_greedy_tokens_of_forward(arch, capsys):
     _serve_launcher_gives_greedy_tokens_of_forward(arch, capsys)
 
 
@@ -291,8 +334,23 @@ def test_init_draws_reference_rules_in_place():
     assert all(not p.requires_grad for p in m.parameters())
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-3b",
-                                  "qwen2-vl-7b", "whisper-small"])
+def test_init_draws_the_rglru_rules():
+    """The RG-LRU's leaves: the conv weights N(0, 0.01), the conv bias 0,
+    Λ the reference's spread (``models.rglru.log_lambda_init``), the
+    projections N(0, 2/(d_in+d_out))."""
+    from repro_torch.models.rglru import log_lambda_init
+    cfg = TC.reduced(TC.ARCHS["recurrentgemma-2b"])
+    sd = dict(Model(cfg, device=CPU).init(0).named_parameters())
+    assert abs(float(sd["decoder.0.rglru.conv_w"].std()) - 0.1) < 0.02
+    assert not sd["decoder.0.rglru.conv_b"].any()
+    assert torch.equal(sd["decoder.1.rglru.log_lambda"], log_lambda_init(64))
+    w = sd["decoder.0.rglru.w_rec_gate"]
+    assert abs(float(w.std()) - (2 / 128) ** 0.5) < 0.02
+    assert "decoder.2.attn.wq" in sd and "decoder.2.rglru.w_x" not in sd
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "qwen2-vl-7b",
+                                  "whisper-small"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model(TC.reduced(TC.ARCHS[arch]), device=CPU)

@@ -6,7 +6,10 @@ The reduced configs carry the reference's weights across
 (``models.params.params_from_jax``) and its AdamW state
 (``opt_state_from_jax``). The two mixture-of-experts configs (olmoe,
 moonshot) take the dense decoders' cases: their trees mix a float32 router
-with experts in the model's dtype, and their loss adds ``0.01·aux``. Bit for bit where the arithmetic is integer or
+with experts in the model's dtype, and their loss adds ``0.01·aux``. The
+hybrid recurrentgemma-2b's tree, whose stacked groups mix RG-LRU and
+attention layers by position in the unit, takes the leaf map and the
+perturbation cases. Bit for bit where the arithmetic is integer or
 one rounding an operation: the data stream, the key arithmetic, ABO-ZO's
 perturbation over a whole tree (stacked groups included), the AdamW update
 against the reference's op-by-op (unjitted) update with clipping off, and
@@ -69,6 +72,7 @@ STEP_SHARE = 1e-3
 DENSE = ["mistral-nemo-12b", "h2o-danube-3-4b", "granite-20b",
          "internlm2-20b"]
 MOE = ["olmoe-1b-7b", "moonshot-v1-16b-a3b"]
+HYBRID = ["recurrentgemma-2b"]
 
 
 def _cfgs(arch, dtype=None):
@@ -125,7 +129,7 @@ def test_bigram_stream_bits(seed):
 # ---------------------------------------------------------------------------
 # the leaf map and the reference's key arithmetic
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", DENSE + MOE + HYBRID)
 def test_leaf_map_covers_the_reference_tree(arch):
     jm, params, tm = _pair(arch)
     leaves = jax.tree.leaves(params)
@@ -192,7 +196,7 @@ def test_rademacher_signs_high_counter_word():
 # ---------------------------------------------------------------------------
 # ABO-ZO
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", DENSE + MOE + HYBRID)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_perturb_bits_over_the_tree(arch, dtype):
     jm, params, tm = _pair(arch, dtype)

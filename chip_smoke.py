@@ -91,8 +91,11 @@ Phases, in order; any failure exits non-zero before the result line:
      layers (step 1 against the plain attention with its routes pinned,
      aux, K3 and the Hopper K3-bwd in every layer);
  17. the hybrid family at full width (``[hybrid]``, HYBRID_ARCH): S (the
-     RG-LRU's scan, port only) bit for bit its plain version at
-     ``SCAN_SHAPES`` and on a repeat, timed beside its bound; K3 at head_dim
+     RG-LRU's gates and recurrence in one kernel, port only) bit for bit
+     its plain version at ``SCAN_SHAPES`` and on a repeat, its shortcuts
+     on every input they can see, its recurrence-only entry bit for bit,
+     S timed in turns with the eager path it replaced beside its bound and
+     the build's gate instructions; K3 at head_dim
      256 timed at recurrentgemma-2b's layer shape in turns with SDPA (the
      window as a mask, and causal without it), beside its plain version
      and bound; ``recurrentgemma-2b``'s prefill step on one T = 8192
@@ -422,8 +425,8 @@ MOE_PHASE_S = 240
 # 256 with window 2048, through the Hopper K3 at head_dim 256), bf16,
 # random weights from --seed. The prefill step on one LM_T-token request;
 # the forward against the same forward with the plain attention and the
-# plain scan (K3 per row on each swa layer's own q, k, v; S bit for bit on
-# each RG-LRU layer's own a and b; the logits at every position within
+# plain RG-LRU (K3 per row on each swa layer's own q, k, v; S bit for bit
+# on each RG-LRU layer's own u, xi, xr; the logits at every position within
 # LM_REL_TOL_PLAIN); prefill + LM_DECODE decode steps against the forward
 # (LM_REL_TOL_DECODE: the conv state and the float32 h carried across the
 # seam); the serve launcher (8 requests, 4 slots). Before the model, S
@@ -431,6 +434,12 @@ MOE_PHASE_S = 240
 # at head_dim 256 timed at the model's shapes.
 HYBRID_ARCH = "recurrentgemma-2b"
 SCAN_SHAPES = [(1, LM_T, 2560), (3, 1000, 2560 + 8)]
+# The three-launch S that the one-pass kernel replaced, as recorded in
+# PERF.md (this script on an NVIDIA H100 80GB HBM3 at 700.00 W, before the
+# gates were fused in). That source is gone, so no run re-times it: it is
+# printed as that reading, beside this run's times, and goes into no
+# number of the kernels line.
+S_THREE_LAUNCH_MS = 0.2033
 # the phase's time limit: its first reading on the card was 8.1 s
 # (PERF.md), and host time moves 1.5x between calls
 HYBRID_PHASE_S = 60
@@ -3017,61 +3026,150 @@ def moe_phase(dev, seed: int) -> dict:
 # phase 17: the hybrid family (RG-LRU and local attention at head_dim 256)
 # ---------------------------------------------------------------------------
 def scan_bound(b, t, d) -> tuple[float, str]:
-    """Least time for S on (b, t, d): a and b read once, h written once
-    (float32); a multiply and an add an element."""
-    return bound_ms(3 * 4 * b * t * d, 2 * b * t * d)
+    """Least time for S on (b, t, d) bf16: u, xi and xr read once, h
+    written once (bf16), the last h (float32); against the gates' and the
+    recurrence's float32 operations (the two sigmoids' exp, add and
+    reciprocal, exp, 1 - a², max, sqrt, three products; a multiply and an
+    add a step), a transcendental counted as one."""
+    return bound_ms(2 * 4 * b * t * d + 4 * b * d, 15 * b * t * d)
+
+
+def s_build_issue(n: int) -> dict:
+    """This run's build of S, counted: its gate instructions an element
+    (``benchmarks_torch.s_sass`` on ``cuobjdump -sass`` of the library
+    just built) and, for n elements, their time in ms at the issue rate
+    and at the ALU and MUFU pipes' rates."""
+    from benchmarks_torch.s_sass import count, disassemble
+    per = count(disassemble())["per_element"]
+    n_lanes = n / (SMS * CLOCK_HZ)
+    return {"per_element": per,
+            "issue_ms": 1e3 * n_lanes * sum(per.values()) / ISSUE_LANES,
+            "alu_ms": 1e3 * n_lanes * per.get("alu", 0) / PIPE_RATE["alu"],
+            "mufu_ms": 1e3 * n_lanes * per.get("mufu", 0) / PIPE_RATE["mufu"]}
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn()`` back to back: the device sleeps while
+    the host queues every call, so a call whose host side outlasts its
+    kernel (S's wrapper) is timed on the device alone."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def lru_inputs(dev, g, shape):
+    """u, xi, xr of the model's scale (N(0, 1), bf16) and Λ from its init."""
+    import torch
+    from repro_torch.models.rglru import log_lambda_init
+    u, xi, xr = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+                 for _ in range(3))
+    return u, xi, xr, log_lambda_init(shape[2], dev).to(torch.bfloat16)
 
 
 def hybrid_kernels(dev, seed: int) -> tuple[dict, dict]:
-    """S against its plain version bit for bit at SCAN_SHAPES, twice; S,
-    its plain version and K3 at head_dim 256 (with its plain version and
-    SDPA, in turns) timed at recurrentgemma-2b's shapes. Returns the two
-    kernels' entries of the kernels line, without launches."""
+    """S against its plain version bit for bit at SCAN_SHAPES, twice; S's
+    two shortcuts on every input; S, the eager elementwise work it replaced
+    and its plain version timed at recurrentgemma-2b's shape, and its build's
+    gate instructions counted; K3 at head_dim 256 (with its plain version
+    and SDPA, in turns). Returns the two kernels' entries of the kernels
+    line, without launches."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention_plain, flash_attention_sm90_d256)
-    from repro_torch.kernels.rglru_scan.ops import rglru_scan
-    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+    from repro_torch.kernels.rglru_scan import ops
+    from repro_torch.kernels.rglru_scan.ops import (rglru_lru,
+                                                    shortcut_mismatches)
+    from repro_torch.kernels.rglru_scan.ref import (decay_rate,
+                                                    rglru_gates_ref,
+                                                    rglru_lru_ref)
 
+    bad = shortcut_mismatches(dev)
+    print(f"[S] shortcuts: the bf16 sigmoid rule differs from torch.sigmoid "
+          f"on {bad['sigmoid_bf16']} of all 65536 bf16 inputs, the square "
+          f"root from __fsqrt_rn on {bad['sqrt']} of the floats in [1e-12, "
+          f"1]", flush=True)
+    check(bad == {"sigmoid_bf16": 0, "sqrt": 0},
+          f"S's shortcuts are not exact: {bad}")
     g = torch.Generator(device=dev).manual_seed(seed)
     for shape in SCAN_SHAPES[::-1]:      # the model's shape, timed, last
-        # the model's decays: a in (0.9, 0.999)^r for r in (0, 1)
-        a = 0.9 + 0.099 * torch.rand(shape, generator=g, device=dev)
-        b = torch.randn(shape, generator=g, device=dev)
-        before = rglru_scan.launches
-        got, again = rglru_scan(a, b), rglru_scan(a, b)
-        want = rglru_scan_ref(a, b)
+        u, xi, xr, lam = lru_inputs(dev, g, shape)
+        before = rglru_lru.launches
+        (h, last), (h2, last2) = (rglru_lru(u, xi, xr, lam),
+                                  rglru_lru(u, xi, xr, lam))
+        want, want_last = rglru_lru_ref(u, xi, xr, lam)
         torch.cuda.synchronize()
-        bits = bool(torch.equal(got.view(torch.int32), want.view(torch.int32)))
-        same = bool(torch.equal(got.view(torch.int32),
-                                again.view(torch.int32)))
-        err = float((got - want).abs().max())
-        print(f"[S] {shape}: bit for bit its plain version {bits}, the same "
-              f"bits on a repeat {same}, max abs diff {err:.3g}; "
-              f"{rglru_scan.launches - before} launches", flush=True)
-        check(bits and same and rglru_scan.launches == before + 2
-              and bool(torch.isfinite(got).all()),
+        bits = bool(torch.equal(h, want) and torch.equal(last, want_last))
+        same = bool(torch.equal(h, h2) and torch.equal(last, last2))
+        err = float((h.float() - want.float()).abs().max())
+        moved = rglru_lru.launches - before
+        print(f"[S] {shape} bf16: bit for bit its plain version {bits} (h "
+              f"and the last h), the same bits on a repeat {same}, max abs "
+              f"diff {err:.3g}; launches {moved}", flush=True)
+        check(bits and same and moved == 2
+              and bool(torch.isfinite(h).all()),
               f"S is not its plain version's bits at {shape}, or not twice")
-    ms = [cuda_ms(lambda: rglru_scan(a, b), 20)]
-    plain_ms = cuda_ms(lambda: rglru_scan_ref(a, b), 3)
-    ms.append(cuda_ms(lambda: rglru_scan(a, b), 20))
+    del h, h2, want
+    # timed on the device alone (queued_ms), kernel and eager path in turns
+    nsp = decay_rate(lam)
+    h = torch.empty_like(u)
+    last = torch.empty(shape[0], shape[2], device=dev)
+
+    def kernel():
+        ops._launch(u, xi, xr, nsp, h, last)
+
+    def eager():
+        # the elementwise work the kernel took over from eager torch: the
+        # gates, and the cast of a float32 (b, T, d) to the model's type
+        # (the recurrence, now the kernel's own, is not in it)
+        a_, b_ = rglru_gates_ref(xi, xr, u, nsp)
+        return b_.to(torch.bfloat16)
+
+    runs = {"kernel": (kernel, 50), "eager": (eager, 10),
+            "op": (lambda: rglru_lru(u, xi, xr, lam), 50)}
+    t_ms = {name: [] for name in runs}
+    for order in (("kernel", "op", "eager"), ("eager", "op", "kernel")):
+        for name in order:
+            t_ms[name].append(queued_ms(*runs[name]))
+    mean = {name: sum(v) / len(v) for name, v in t_ms.items()}
+    plain_ms = cuda_ms(lambda: rglru_lru_ref(u, xi, xr, lam), 1)
     s_bound, s_by = scan_bound(*shape)
-    s_ms = sum(ms) / 2
-    print(f"[S] {shape}: kernel {ms} ms (in turns with the plain version), "
-          f"plain {plain_ms:.3f} ms, bound {s_bound:.4f} ms ({s_by}), "
-          f"{s_bound / s_ms:.1%} of it; no library call computes the "
-          f"recurrence | {nvidia_smi_line()}", flush=True)
-    check(s_bound <= s_ms, "S beat its bound: the bound is not a floor")
-    del a, b, got, again, want
-    scan = {"name": "rglru_scan", "route": "cuda",
+    issue = s_build_issue(shape[0] * shape[1] * shape[2])
+    print(f"[S] {shape} bf16, in turns: kernel {t_ms['kernel']} ms, the op "
+          f"with its Λ prep {t_ms['op']} ms, the eager elementwise work it "
+          f"took over (the gates' elementwise ops and a cast of a float32 "
+          f"(b, T, d) to bf16; no recurrence) {t_ms['eager']} ms; plain "
+          f"version {plain_ms:.2f} ms; bound {s_bound:.4f} ms ({s_by}), "
+          f"{s_bound / mean['kernel']:.1%} of it; the three-launch S it "
+          f"replaced {S_THREE_LAUNCH_MS} ms (its recorded reading, PERF.md; "
+          f"not re-timed here); this build's gates "
+          f"{sum(issue['per_element'].values())} instructions an element "
+          f"{issue['per_element']}: {issue['issue_ms']:.4f} ms at the issue "
+          f"rate, ALU pipe {issue['alu_ms']:.4f}, MUFU "
+          f"{issue['mufu_ms']:.4f}; no library call computes the RG-LRU | "
+          f"{nvidia_smi_line()}", flush=True)
+    check(s_bound <= mean["kernel"], "S beat its bound: the bound is not a "
+          "floor")
+    del u, xi, xr, h, last
+    scan = {"name": "rglru_lru", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
-            "replaces": "port only: stands for jax.lax.associative_scan at "
-                        "src/repro/models/rglru.py:74,90",
-            "launches": 0, "max_abs_err": 0.0, "ms": s_ms,
+            "replaces": "port only: stands for _gates' elementwise part and "
+                        "jax.lax.associative_scan at "
+                        "src/repro/models/rglru.py:37-46,74,90",
+            "launches": 0, "max_abs_err": 0.0, "ms": mean["kernel"],
             "plain_ms": plain_ms, "bound_ms": s_bound, "bound_by": s_by,
-            "library_ms": None, "max_abs_err_of": f"{shape} float32: bit for "
-            "bit its plain version"}
+            "library_ms": None, "op_ms": mean["op"],
+            "eager_ms": mean["eager"],
+            "max_abs_err_of": f"{shape} bf16: bit for bit its plain version"}
 
     b_, hq, hkv, t, _, d, causal, window = D256_SHAPE
     q, k, v = _qkv(dev, seed, b_, hq, hkv, t, t, d, torch.bfloat16)
@@ -3127,24 +3225,26 @@ def hybrid_kernels(dev, seed: int) -> tuple[dict, dict]:
 @contextlib.contextmanager
 def plain_hybrid(layer_err: list, scan_bits: list):
     """``plain_attention`` and, in the RG-LRU layers, S's plain version:
-    each layer also runs S on the same a and b, and whether its bits are
-    the plain version's is appended to ``scan_bits``."""
+    each layer also runs S on the same u, xi, xr and Λ, and whether its h
+    and last h are the plain version's bits is appended to ``scan_bits``."""
     import torch
-    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+    from repro_torch.kernels.rglru_scan.ref import rglru_lru_ref
     from repro_torch.models import rglru
 
-    def both(a, b):
-        want = rglru_scan_ref(a, b)
-        scan_bits.append(bool(torch.equal(rglru_scan(a, b), want)))
+    def both(u, xi, xr, lam):
+        want = rglru_lru_ref(u, xi, xr, lam)
+        got = rglru_lru(u, xi, xr, lam)
+        scan_bits.append(bool(torch.equal(got[0], want[0])
+                              and torch.equal(got[1], want[1])))
         return want
 
-    rglru_scan = rglru.rglru_scan
-    rglru.rglru_scan = both
+    rglru_lru = rglru.rglru_lru
+    rglru.rglru_lru = both
     try:
         with plain_attention(layer_err):
             yield
     finally:
-        rglru.rglru_scan = rglru_scan
+        rglru.rglru_lru = rglru_lru
 
 
 def hybrid_phase(dev, seed: int) -> tuple[dict, dict]:
@@ -3157,7 +3257,7 @@ def hybrid_phase(dev, seed: int) -> tuple[dict, dict]:
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention, flash_attention_mma, flash_attention_sm90,
         flash_attention_sm90_d256)
-    from repro_torch.kernels.rglru_scan.ops import rglru_scan
+    from repro_torch.kernels.rglru_scan.ops import rglru_lru
     from repro_torch.launch import serve
     from repro_torch.models.model import Model
     from repro_torch.train.steps import make_prefill_step
@@ -3186,7 +3286,7 @@ def hybrid_phase(dev, seed: int) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     wrappers = (flash_attention, flash_attention_sm90_d256,
-                flash_attention_sm90, flash_attention_mma, rglru_scan)
+                flash_attention_sm90, flash_attention_mma, rglru_lru)
     for w in wrappers:
         w.launches = 0
     t0 = time.perf_counter()
@@ -3202,9 +3302,9 @@ def hybrid_phase(dev, seed: int) -> tuple[dict, dict]:
     check(counts == {"flash_attention": n_attn,
                      "flash_attention_sm90_d256": n_attn,
                      "flash_attention_sm90": 0, "flash_attention_mma": 0,
-                     "rglru_scan": n_rec},
+                     "rglru_lru": n_rec},
           f"the prefill step launched {counts}, want {n_attn} of the head_dim "
-          f"256 Hopper K3, {n_rec} of S and no other K3")
+          f"256 Hopper K3, {n_rec} of S and no other K3 or recurrence")
     check(tuple(last.shape) == (1, cfg.vocab_size)
           and bool(torch.isfinite(last).all()),
           "prefill-step logits are not finite or of the wrong shape")
@@ -3215,11 +3315,11 @@ def hybrid_phase(dev, seed: int) -> tuple[dict, dict]:
         model, batch["tokens"],
         plain=lambda errs: plain_hybrid(errs, scan_bits))
     print(f"[hybrid] forward over {LM_T}, K3 and S vs the plain attention "
-          f"and scan (plain run {agree['plain_wall']:.2f} s): K3 per row on "
+          f"and RG-LRU (plain run {agree['plain_wall']:.2f} s): K3 per row on "
           f"each swa layer's own q, k, v: max {agree['layers_max']:.4g} "
           f"(limit {ATTN_ROW_TOL['bfloat16']}), per layer "
           f"{[round(e, 5) for e in agree['layer_row_err']]}; S bit for bit "
-          f"on each RG-LRU layer's own a, b: {scan_bits}", flush=True)
+          f"on each RG-LRU layer's own u, xi, xr: {scan_bits}", flush=True)
     print(f"[hybrid] logits max abs diff over max |logit| per position: max "
           f"{agree['pos_rel_max']:.4g} (limit {LM_REL_TOL_PLAIN}), first "
           f"{LM_EARLY} positions {agree['pos_rel_early']:.4g}, last "
@@ -3229,7 +3329,7 @@ def hybrid_phase(dev, seed: int) -> tuple[dict, dict]:
     check(agree["ok_layers"], "K3 disagrees with its plain version on an swa "
           "layer's own q, k, v")
     check(len(scan_bits) == n_rec and all(scan_bits),
-          "S is not its plain version's bits on an RG-LRU layer's a, b")
+          "S is not its plain version's bits on an RG-LRU layer's inputs")
     check(agree["ok_logits"], "the full-width forward disagrees with its "
           "plain run")
     err = float((last.float() - ref).abs().max())

@@ -1,15 +1,18 @@
-"""S: the RG-LRU's linear recurrence, the port-only kernel of
+"""S: the RG-LRU's gates and recurrence in one pass, the port-only kernel of
 ``csrc/rglru_scan.cu``, and its plain version.
 
-``rglru_scan(a, b)`` returns ``h`` with ``h_t = a_t · h_{t-1} + b_t`` from
-``h_{-1} = 0`` over the time axis of contiguous (batch, T, channels)
-float32 tensors: the recurrence of ``models.rglru``, where the reference
-runs ``jax.lax.associative_scan`` (``src/repro/models/rglru.py``). On a
-CUDA tensor it launches the kernel (three CUDA kernels a call, counted once
-in ``rglru_scan.launches``), whose bits are those of the plain version
-(``ref.rglru_scan_ref``); on a CPU tensor it runs the plain version. No
-fallback. The kernel has no backward: on a CUDA tensor that requires grad
-the op raises rather than stop the gradient.
+``rglru_lru(u, xi, xr, log_lambda)`` takes the conv output u and the gate
+products xi = u @ w_input_gate, xr = u @ w_rec_gate, contiguous (batch, T,
+channels) of one type (bf16 or float32), and Λ (channels,); it returns h in
+that type and the last step's h in float32 (``ref.rglru_lru_ref``). It
+stands for ``_gates`` after its matrix products and
+``jax.lax.associative_scan`` in ``src/repro/models/rglru.py``.
+
+On a CUDA tensor it launches the kernel (one launch a call, counted in
+``rglru_lru.launches``), whose bits are those of the plain version run on
+the card; on a CPU tensor it runs the plain version. No fallback. The
+kernel has no backward: on a CUDA tensor that requires grad the op raises
+rather than stop the gradient.
 """
 from __future__ import annotations
 
@@ -19,54 +22,114 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.rglru_scan.ref import CHUNK, rglru_scan_ref
+from repro_torch.kernels.rglru_scan.ref import decay_rate, rglru_lru_ref
 
 
 @functools.cache
 def _launcher():
     lib = _build.load("rglru_scan")
     fn = lib.rglru_scan_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
 
 
-def _check(a, b):
-    if a.dim() != 3 or tuple(a.shape) != tuple(b.shape):
-        raise ValueError(f"the scan takes two (batch, T, channels) tensors "
-                         f"of one shape, got {tuple(a.shape)} and "
-                         f"{tuple(b.shape)}")
-    if a.dtype != torch.float32 or b.dtype != torch.float32:
-        raise ValueError(f"the scan takes float32, not {a.dtype}, {b.dtype}")
-    if a.device != b.device:
-        raise ValueError("a and b lie on different devices")
+def _check(what, tensors, dtypes) -> bool:
+    """Raise on shapes, types or devices that neither version takes;
+    return whether the tensors lie on the card."""
+    shape = tuple(tensors[0].shape)
+    if len(shape) != 3 or any(tuple(x.shape) != shape for x in tensors):
+        raise ValueError(f"{what} takes (batch, T, channels) tensors of one "
+                         f"shape, got {[tuple(x.shape) for x in tensors]}")
+    if tensors[0].dtype not in dtypes or any(
+            x.dtype != tensors[0].dtype for x in tensors):
+        raise ValueError(f"{what} takes one type of {dtypes}, not "
+                         f"{[x.dtype for x in tensors]}")
+    if any(x.device != tensors[0].device for x in tensors):
+        raise ValueError(f"{what}'s tensors lie on different devices")
+    dev = tensors[0].device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cuda or cpu, not {dev}")
+    return dev.type == "cuda"
 
 
-def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    _check(a, b)
-    if a.device.type == "cpu":
-        return rglru_scan_ref(a, b)
-    if a.device.type != "cuda":
-        raise ValueError(f"rglru_scan runs on cuda or cpu, not {a.device}")
-    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
-        raise ValueError("rglru_scan's kernel has no backward: no gradient "
-                         "is taken through the RG-LRU on the card")
-    if not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("the scan's kernel needs contiguous tensors")
-    bsz, t, d = a.shape
-    out = torch.empty_like(a)
-    chunks = -(-t // CHUNK)
-    scratch = torch.empty(2 * bsz * chunks * d, dtype=torch.float32,
-                          device=a.device)
+def _kernel_takes(what, tensors, also_no_grad=()) -> None:
+    """Raise on what the kernel does not take: a gradient, a stride, a
+    channel count that is not a multiple of 16 bytes (8 bf16, 4 float32)
+    or a row that is not 16-byte aligned."""
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (*tensors, *also_no_grad)):
+        raise ValueError(f"{what}'s kernel has no backward: no gradient is "
+                         "taken through the RG-LRU on the card")
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError(f"{what}'s kernel needs contiguous tensors")
+    size = tensors[0].element_size()
+    if tensors[0].shape[-1] * size % 16 or any(
+            x.data_ptr() % 16 for x in tensors):
+        raise ValueError(f"{what}'s kernel takes channels in groups of "
+                         f"{16 // size}, 16-byte aligned")
+
+
+def _launch(u, xi, xr, nsp, h, last) -> bool:
+    """One launch on the current stream; False where there is no work."""
+    bsz, t, d = u.shape
+    if u.numel() == 0:
+        return False
     lib, fn = _launcher()
-    with torch.cuda.device(a.device):
-        code = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                  scratch.data_ptr(), bsz, t, d,
-                  torch.cuda.current_stream(a.device).cuda_stream)
+    with torch.cuda.device(u.device):
+        code = fn(u.data_ptr(), xi.data_ptr(), xr.data_ptr(),
+                  nsp.data_ptr(), h.data_ptr(), last.data_ptr(), bsz, t, d,
+                  int(u.dtype == torch.bfloat16),
+                  torch.cuda.current_stream(u.device).cuda_stream)
     _build.check(lib, code, "rglru_scan")
-    rglru_scan.launches += 1
-    return out
+    return True
 
 
-rglru_scan.launches = 0
+def rglru_lru(u: torch.Tensor, xi: torch.Tensor, xr: torch.Tensor,
+              log_lambda: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    on_card = _check("rglru_lru", (u, xi, xr),
+                     (torch.bfloat16, torch.float32))
+    if tuple(log_lambda.shape) != (u.shape[2],) or \
+            log_lambda.device != u.device:
+        raise ValueError(f"rglru_lru takes Λ of shape ({u.shape[2]},) on "
+                         f"{u.device}, got {tuple(log_lambda.shape)} on "
+                         f"{log_lambda.device}")
+    if not on_card:
+        return rglru_lru_ref(u, xi, xr, log_lambda)
+    _kernel_takes("rglru_lru", (u, xi, xr), (log_lambda,))
+    nsp = decay_rate(log_lambda)
+    h = torch.empty_like(u)
+    last = (torch.empty if u.shape[1] else torch.zeros)(
+        u.shape[0], u.shape[2], dtype=torch.float32, device=u.device)
+    if _launch(u, xi, xr, nsp, h, last):
+        rglru_lru.launches += 1
+    return h, last
+
+
+def shortcut_mismatches(device) -> dict:
+    """S's two shortcuts held on the card, as mismatch counts: its bf16
+    sigmoid rule (a table for |x| in [2^-9, 128), constants outside)
+    against ``torch.sigmoid`` on all 65536 bf16 inputs, and its square
+    root (the library's fast path without its branch) against
+    ``__fsqrt_rn`` on every float in [1e-12, 1]."""
+    device = torch.device(device)
+    lib, _ = _launcher()
+    table = torch.empty(65536, dtype=torch.int16, device=device)
+    count = torch.zeros(1, dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        for name, ptr in (("rglru_sigmoid_bf16", table.data_ptr()),
+                          ("rglru_sqrt_mismatches", count.data_ptr())):
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            _build.check(lib, fn(ptr, stream), name)
+    x = torch.arange(65536, dtype=torch.int32, device=device).to(
+        torch.int16).view(torch.bfloat16)
+    want = torch.sigmoid(x).view(torch.int16)
+    return {"sigmoid_bf16": int((table != want).sum()),
+            "sqrt": int(count.item())}
+
+
+rglru_lru.launches = 0

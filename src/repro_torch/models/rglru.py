@@ -2,13 +2,16 @@
 
 Port of :mod:`repro.models.rglru`, with the reference's names, so that
 ``models.params`` carries its weights across with no special case. The
-full-sequence forms (``rglru_apply``, ``rglru_prefill``) run the recurrence
-``h_t = a_t · h_{t-1} + b_t`` through S (``kernels.rglru_scan.ops
-.rglru_scan``: the CUDA kernel on the card, its plain version on the CPU)
-where the reference runs ``jax.lax.associative_scan``; decode is the
-one-step update in plain torch. The gates, ``a``, the gated input and the
-state ``h`` are float32; the state a decode step needs is ``h`` (b,
-lru_width) and the last ``CONV_WIDTH - 1`` conv *inputs* (b, 3, lru_width).
+full-sequence forms (``rglru_apply``, ``rglru_prefill``) run the gates'
+elementwise part and the recurrence ``h_t = a_t · h_{t-1} + b_t`` through
+S (``kernels.rglru_scan.ops.rglru_lru``: one CUDA kernel on the card, its
+plain version on the CPU) where the reference runs ``_gates`` and
+``jax.lax.associative_scan``; S writes h in the model's type. Decode is the
+one-step update in plain torch, through the same gate function
+(``ref.rglru_gates_ref``) as S's plain version. The gates, ``a``, the
+gated input and the decode state ``h`` are float32; the state a decode
+step needs is ``h`` (b, lru_width) and the last ``CONV_WIDTH - 1`` conv
+*inputs* (b, 3, lru_width).
 """
 from __future__ import annotations
 
@@ -16,10 +19,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.kernels.rglru_scan.ops import rglru_scan
+from repro_torch.kernels.rglru_scan.ops import rglru_lru
+from repro_torch.kernels.rglru_scan.ref import (C, decay_rate,
+                                                rglru_gates_ref)
 from repro_torch.models.layers import dense_init, param
 
-C = 8.0             # Griffin's recurrence sharpness constant
 CONV_WIDTH = 4
 
 
@@ -47,20 +51,17 @@ def log_lambda_init(dl: int, device=None) -> torch.Tensor:
     return torch.log(torch.expm1(-torch.log(a) / C))
 
 
-def _softplus(x):
-    """``jax.nn.softplus``: log(1 + e^x) as max(x, 0) + log1p(e^-|x|)."""
-    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
-
-
 def _gates(params, u):
     """a (the decay) and the gated input of the LRU, float32."""
-    i_gate = torch.sigmoid(u @ params["w_input_gate"]).float()
-    r_gate = torch.sigmoid(u @ params["w_rec_gate"]).float()
-    log_a = -C * _softplus(params["log_lambda"].float()) * r_gate
-    a = torch.exp(log_a)
-    gated_in = (torch.sqrt(torch.clamp_min(1.0 - torch.square(a), 1e-12))
-                * i_gate * u.float())
-    return a, gated_in
+    return rglru_gates_ref(u @ params["w_input_gate"],
+                           u @ params["w_rec_gate"], u,
+                           decay_rate(params["log_lambda"]))
+
+
+def _lru(params, u):
+    """S on the conv output: (h in u's type, the last h in float32)."""
+    return rglru_lru(u, u @ params["w_input_gate"], u @ params["w_rec_gate"],
+                     params["log_lambda"])
 
 
 def _causal_conv(params, u, conv_state=None):
@@ -80,6 +81,7 @@ def _causal_conv(params, u, conv_state=None):
 
 
 def _mix(params, x, h):
+    # S's h is already x's type (no copy); the decode step's is float32
     y = h.to(x.dtype) * F.gelu(x @ params["w_y"], approximate="tanh")
     return y @ params["w_out"]
 
@@ -87,20 +89,17 @@ def _mix(params, x, h):
 def rglru_apply(params, cfg, x):
     """Full-sequence mixer. x: (b, t, d) -> (b, t, d)."""
     u, _ = _causal_conv(params, x @ params["w_x"])
-    a, b_in = _gates(params, u)
-    return _mix(params, x, rglru_scan(a, b_in))
+    return _mix(params, x, _lru(params, u)[0])
 
 
 def rglru_prefill(params, cfg, x):
     """Full-sequence mixer returning (y, the decode state after the
-    sequence): ``{"h": h[:, -1] (float32), "conv": the last 3 conv
-    inputs}``."""
+    sequence): ``{"h": the last step's h (float32), "conv": the last 3
+    conv inputs}``."""
     u_conv, conv_state = _causal_conv(params, x @ params["w_x"])
-    a, b_in = _gates(params, u_conv)
-    h = rglru_scan(a, b_in)
-    # copies, so that the cache does not hold the whole sequence's tensors
-    return _mix(params, x, h), {"h": h[:, -1].clone(),
-                                "conv": conv_state.clone()}
+    h, h_last = _lru(params, u_conv)
+    # a copy, so that the cache does not hold the whole sequence's input
+    return _mix(params, x, h), {"h": h_last, "conv": conv_state.clone()}
 
 
 def rglru_state_init(batch, cfg, dtype, device=None):

@@ -45,9 +45,12 @@ models on the card against the CPU.
 recurrentgemma-2b's kernels: K3's Hopper kernel at head_dim 256
 (``flash_attention_sm90_d256``) against the plain attention at its layer
 shape and edges, held as the other K3 kernels are, with the same bits on a
-repeat and with the log-sum-exp on; S (``rglru_scan``, port only) equal to
-its plain version bit for bit and on a repeat; the reduced model on the
-card against the CPU.
+repeat and with the log-sum-exp on; S (``rglru_lru``, port only: the
+RG-LRU's gates and recurrence in one kernel) equal to its plain version run
+on the card bit for bit and on a repeat, in bf16 and float32, its two
+shortcuts exact on every input they can see, and raising on what it does
+not take (float32 included: channels in groups of 4, 16-byte aligned);
+the reduced model on the card against the CPU.
 """
 import pytest
 import torch
@@ -76,8 +79,9 @@ from repro_torch.kernels.perturb.ops import (abo_zo_perturb,
 from repro_torch.kernels.griewank.ops import (griewank_aggregates,
                                               griewank_shortcut_mismatches)
 from repro_torch.kernels.griewank.ref import griewank_aggregates_ref
-from repro_torch.kernels.rglru_scan.ops import rglru_scan
-from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+from repro_torch.kernels.rglru_scan.ops import (rglru_lru,
+                                                shortcut_mismatches)
+from repro_torch.kernels.rglru_scan.ref import rglru_lru_ref
 from repro_torch.models.model import Model
 from repro_torch.objectives import GRIEWANK, OBJECTIVES
 
@@ -112,8 +116,11 @@ D256_SHAPES = [
     (1, 10, 1, 8192, 8192, 256, True, 2048),     # the model's layer shape
 ]
 # S at recurrentgemma-2b's (batch, T, lru_width), a ragged one, and edges
-SCAN_SHAPES = [(1, 8192, 2560), (3, 1000, 2568), (2, 64, 5), (1, 1, 300),
-               (2, 65, 257)]
+# (S takes channels in groups of 16 bytes: 8 bf16, 4 float32)
+SCAN_SHAPES = [(1, 8192, 2560), (3, 1000, 2568), (2, 64, 4), (1, 1, 300),
+               (2, 65, 260)]
+LRU_SHAPES = [(1, 8192, 2560), (3, 1000, 2568), (2, 64, 8), (1, 1, 296),
+              (2, 97, 264), (4, 50, 64)]
 ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-3}
 ATTN_ROW_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-3}
 AGG_TOL = 1e-3     # times (1 + |a_in|)
@@ -425,10 +432,10 @@ def test_reduced_model_on_the_card_matches_cpu(cuda, arch):
     toks = torch.randint(0, cfg.vocab_size, (2, 50),
                          generator=torch.Generator().manual_seed(2))
     n_rec = sum(cfg.mixer_kind(i) == "rglru" for i in range(cfg.n_layers))
-    before, scans = flash_attention.launches, rglru_scan.launches
+    before, scans = flash_attention.launches, rglru_lru.launches
     lg, _ = card.forward(toks.to(cuda))
     assert flash_attention.launches == before + cfg.n_layers - n_rec
-    assert rglru_scan.launches == scans + n_rec
+    assert rglru_lru.launches == scans + n_rec
     want, _ = cpu.forward(toks)
     assert float((lg.cpu() - want).abs().max()) < 1e-4
     max_len = cfg.window or 64
@@ -987,26 +994,93 @@ def test_flash_attention_at_d256_refuses_what_no_kernel_serves(cuda):
 
 @pytest.mark.parametrize("shape", SCAN_SHAPES)
 def test_rglru_scan_matches_plain_bit_for_bit(cuda, shape):
-    """S repeats its plain version's order with one rounding an operation:
-    the same bits, and the same bits on a repeat; one launch a call."""
-    g = torch.Generator(device=cuda).manual_seed(sum(shape))
-    a = torch.rand(shape, generator=g, device=cuda) * 0.2 + 0.8
-    b = torch.randn(shape, generator=g, device=cuda)
-    before = rglru_scan.launches
-    got = rglru_scan(a, b)
-    again = rglru_scan(a, b)
+    """S's recurrence over long memory, float32: the recurrence gate's
+    products held below -4, so that r is small and a lies near 1, and h
+    carries each step far; the same bits as the plain version (h and the
+    last h) and on a repeat; one launch a call."""
+    u, xi, _, lam = _lru_inputs(shape, torch.float32, cuda, sum(shape))
+    g = torch.Generator(device=cuda).manual_seed(sum(shape) + 1)
+    xr = -4.0 - 2.0 * torch.rand(shape, generator=g, device=cuda)
+    before = rglru_lru.launches
+    got, last = rglru_lru(u, xi, xr, lam)
+    again, last2 = rglru_lru(u, xi, xr, lam)
     torch.cuda.synchronize()
-    assert rglru_scan.launches == before + 2
-    want = rglru_scan_ref(a, b)
+    assert rglru_lru.launches == before + 2
+    want, want_last = rglru_lru_ref(u, xi, xr, lam)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(last.view(torch.int32), want_last.view(torch.int32))
     assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    assert torch.equal(last.view(torch.int32), last2.view(torch.int32))
+
+
+def _lru_inputs(shape, dtype, device, seed):
+    """u, xi, xr at the model's scale (N(0, 1) rounded to dtype) and Λ from
+    the model's init."""
+    from repro_torch.models.rglru import log_lambda_init
+    g = torch.Generator(device=device).manual_seed(seed)
+    u, xi, xr = (torch.randn(shape, generator=g, device=device).to(dtype)
+                 for _ in range(3))
+    return u, xi, xr, log_lambda_init(shape[2], device).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", LRU_SHAPES)
+def test_rglru_lru_matches_plain_bit_for_bit(cuda, shape, dtype):
+    """S computes the gates and the recurrence in its plain version's order
+    with one rounding an operation: the same bits as the plain version's
+    torch ops on the card (h and the last h), the same bits on a repeat;
+    one launch a call."""
+    u, xi, xr, lam = _lru_inputs(shape, dtype, cuda, sum(shape))
+    before = rglru_lru.launches
+    h, last = rglru_lru(u, xi, xr, lam)
+    h2, last2 = rglru_lru(u, xi, xr, lam)
+    torch.cuda.synchronize()
+    assert rglru_lru.launches == before + 2
+    want, want_last = rglru_lru_ref(u, xi, xr, lam)
+    assert h.dtype == dtype and last.dtype == torch.float32
+    assert torch.equal(h, want) and torch.equal(last, want_last)
+    assert torch.equal(h, h2) and torch.equal(last, last2)
+    assert bool(torch.isfinite(h).all())
+
+
+def test_rglru_lru_shortcuts_hold_on_every_input(cuda):
+    """S's bf16 sigmoid rule equals torch.sigmoid on all 65536 bf16 inputs
+    and its square root __fsqrt_rn on every float in [1e-12, 1]."""
+    assert shortcut_mismatches(cuda) == {"sigmoid_bf16": 0, "sqrt": 0}
+
+
+def test_rglru_lru_refuses_what_it_does_not_serve(cuda):
+    u, xi, xr, lam = _lru_inputs((1, 16, 16), torch.bfloat16, cuda, 1)
+    with pytest.raises(ValueError, match="no backward"):
+        rglru_lru(u, xi, xr, lam.clone().requires_grad_(True))
+    with pytest.raises(ValueError, match="contiguous"):
+        rglru_lru(*(x.transpose(1, 2) for x in (u, xi, xr)), lam)
+    with pytest.raises(ValueError, match="one type"):
+        rglru_lru(u.half(), xi.half(), xr.half(), lam)
+    with pytest.raises(ValueError, match="one shape"):
+        rglru_lru(u, xi, xr[:, 1:], lam)
+    odd = _lru_inputs((1, 8, 12), torch.bfloat16, cuda, 2)   # 12 % 8 != 0
+    with pytest.raises(ValueError, match="groups of 8"):
+        rglru_lru(*odd)
+    off = torch.zeros(16 * 16 + 4, dtype=torch.bfloat16,
+                      device=cuda)[4:].view(1, 16, 16)   # 8-byte aligned
+    with pytest.raises(ValueError, match="aligned"):
+        rglru_lru(off, xi, xr, lam)
+    with pytest.raises(ValueError):
+        rglru_lru(u, xi, xr, lam[1:])
 
 
 def test_rglru_scan_refuses_what_it_does_not_serve(cuda):
-    a = torch.rand(1, 8, 4, device=cuda)
+    """float32 as bf16: no gradient, no stride, channels in groups of 4
+    (16 bytes), 16-byte aligned rows; no fallback."""
+    u, xi, xr, lam = _lru_inputs((1, 8, 4), torch.float32, cuda, 4)
     with pytest.raises(ValueError, match="no backward"):
-        rglru_scan(a.requires_grad_(True), a.detach())
+        rglru_lru(u.clone().requires_grad_(True), xi, xr, lam)
     with pytest.raises(ValueError, match="contiguous"):
-        rglru_scan(a.detach().transpose(1, 2), a.detach().transpose(1, 2))
-    with pytest.raises(ValueError, match="float32"):
-        rglru_scan(a.detach().bfloat16(), a.detach().bfloat16())
+        rglru_lru(*(x.transpose(1, 2) for x in (u, xi, xr)), lam[:1].expand(8))
+    odd = _lru_inputs((2, 33, 10), torch.float32, cuda, 3)   # 10 % 4 != 0
+    with pytest.raises(ValueError, match="groups of 4"):
+        rglru_lru(*odd)
+    off = torch.zeros(8 * 4 + 2, device=cuda)[2:].view(1, 8, 4)  # 8 bytes
+    with pytest.raises(ValueError, match="aligned"):
+        rglru_lru(off, xi, xr, lam)

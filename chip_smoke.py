@@ -105,8 +105,20 @@ Phases, in order; any failure exits non-zero before the result line:
      every swa layer's own q, k, v, S bit for bit on every RG-LRU layer's
      own a and b, the logits at every position); prefill + 8 decode steps
      against the forward; the serve launcher (8 requests, 4 slots);
- 18. one JSON line with every kernel's launches, error and times;
- 19. the last line, ``{"ok": true, "device": {...}}``.
+ 18. RWKV6 at full width (``[rwkv6]``, RWKV_ARCH): W (RWKV6's WKV
+     recurrence, port only) against its plain version at ``WKV_SHAPES``
+     (y and the last state, overall and per head), the same bits on a
+     repeat, refusing a gradient; W and the plain loop timed in turns at
+     the model's layer shape beside the bound; ``rwkv6-3b``'s prefill step
+     on one T = 8192 request (32 launches of W and none of any other
+     kernel; wall, tokens/s, peak memory); the bf16 forward against the
+     same forward with W's plain version (W held on every layer's own r,
+     k, v and logw; the logits read) and prefill + 8 decode steps against
+     the forward (read; ms a step); the same model in float32: W per
+     layer, the logits at every position, the prefill step's and the
+     decode seam held; the serve launcher (8 requests, 4 slots);
+ 19. one JSON line with every kernel's launches, error and times;
+ 20. the last line, ``{"ok": true, "device": {...}}``.
 
 Imports torch and the port only. Exits non-zero, printing no result, when
 no CUDA device is present or the port's sources are not beside this file.
@@ -443,6 +455,35 @@ S_THREE_LAUNCH_MS = 0.2033
 # the phase's time limit: its first reading on the card was 8.1 s
 # (PERF.md), and host time moves 1.5x between calls
 HYBRID_PHASE_S = 60
+# Phase 18, RWKV6 at full width (``[rwkv6]``): rwkv6-3b (32 layers of the
+# time mix, 40 heads of 64, and the channel mix at d_ff 8960), bf16,
+# random weights from --seed, nothing cut. Before the model, W against its
+# plain version at WKV_SHAPES (the layer shape, a T no tile divides, the
+# reduced config's float32 head of 16): y and the last state within
+# WKV_TOL of the plain version's max |value|, overall and per head, twice
+# the same bits. The prefill step on one LM_T-token request; the forward
+# against the same forward with W's plain version (W within WKV_TOL on
+# every layer's own inputs; the logits read); prefill + LM_DECODE decode
+# steps (read). Then the same model drawn in float32: W per layer, the
+# logits within LM_REL_TOL_PLAIN at every position with the argmax equal
+# at the last, and prefill + decode within RWKV_DECODE_TOL of the forward
+# (the float32 S and the two shifts carried across the seam); the serve
+# launcher. A random-weight rwkv6-3b in bf16 is chaotic: a relative 1e-6
+# change in the recurrence's output moves its logits by tens of percent,
+# in the JAX package too (tests/torch_parity_report.py --only
+# rwkv6_sensitivity; PERF.md, RWKV6). So the bf16 logits and decode seam
+# are read, and held in the float32 run, where that gain stays small.
+RWKV_ARCH = "rwkv6-3b"
+WKV_SHAPES = [(1, LM_T, 40, 64, "bfloat16"), (2, 77, 40, 64, "bfloat16"),
+              (3, 1000, 4, 16, "float32")]
+# pinned from the card (PERF.md, RWKV6): 1.9e-6 at most, over WKV_SHAPES
+# and every layer's own inputs in bf16 and float32
+WKV_TOL = 1e-5
+# the float32 decode seam: 2.7e-5 measured (PERF.md, RWKV6)
+RWKV_DECODE_TOL = 1e-3
+# the phase's time limit: the plain forward steps every layer's
+# recurrence in Python (8192 steps x 32 layers)
+RWKV_PHASE_S = 120
 
 
 def fail(msg: str) -> None:
@@ -1712,14 +1753,16 @@ def lm_agreement(model, tokens, plain=plain_attention
     same = full[0].argmax(-1) == ref[0].argmax(-1)
     last_ref = ref[:, -1].float()
     del full, ref
-    r = {"layer_row_err": layer_err, "layers_max": max(layer_err),
+    r = {"layer_row_err": layer_err, "layers_max": max(layer_err,
+                                                       default=0.0),
          "pos_rel_early": float(pos_rel[:LM_EARLY].max()),
          "pos_rel_max": float(pos_rel.max()),
          "pos_rel_last": float(pos_rel[-1]),
          "argmax_equal_share": float(same.double().mean()),
          "argmax_last_equal": bool(same[-1]), "plain_wall": plain_wall}
     cfg = model.cfg
-    n_attn = sum(cfg.mixer_kind(i) != "rglru" for i in range(cfg.n_layers))
+    n_attn = sum(cfg.mixer_kind(i) in ("attn", "swa")
+                 for i in range(cfg.n_layers))
     r["ok_layers"] = (len(layer_err) == n_attn
                       and r["layers_max"] < ATTN_ROW_TOL["bfloat16"])
     r["ok_logits"] = (r["pos_rel_max"] <= LM_REL_TOL_PLAIN
@@ -3394,6 +3437,337 @@ def hybrid_phase(dev, seed: int) -> tuple[dict, dict]:
     return scan, k3
 
 
+# ---------------------------------------------------------------------------
+# phase 18: RWKV6 (W, the WKV recurrence) at full width
+# ---------------------------------------------------------------------------
+def wkv_bound(b, t, h, hd, itemsize) -> tuple[float, str]:
+    """Least time for W on (b, t, h, hd): r, k, v (of ``itemsize`` bytes)
+    and logw (float32) read once, u read once, y and the last state
+    written once (float32); against five float32 operations an element of
+    the state a step (5·b·h·hd²·t): regrouped as y_t = r_tᵀS + (r_t·(u ⊙
+    k_t))·v_t, y takes one multiply-add an element (the rest is O(hd) a
+    step), and S ← w ⊙ S + k_t v_tᵀ one multiply and one multiply-add."""
+    n = b * t * h * hd
+    return bound_ms(3 * itemsize * n + 4 * n + 4 * n + 4 * h * hd
+                    + 4 * b * h * hd * hd, 5 * b * h * hd * hd * t)
+
+
+def wkv_inputs(dev, g, shape, dtype):
+    """r, k, v N(0, 1) in dtype; logw = -exp(lw), lw spread over the
+    channels as rwkv6's decay base (-6 to -0.5) plus N(0, 0.25), so decays
+    run from 0.37 to 0.9975; u N(0, 0.25), float32."""
+    import torch
+    b, t, h, hd = shape
+    r, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
+               for _ in range(3))
+    base = torch.linspace(-6.0, -0.5, h * hd, device=dev).view(h, hd)
+    lw = base + 0.5 * torch.randn(shape, generator=g, device=dev)
+    u = 0.5 * torch.randn((h, hd), generator=g, device=dev)
+    return r, k, v, -torch.exp(lw), u
+
+
+def wkv_rel(got, want, head_dims) -> tuple[float, list]:
+    """max |got - want| over max |want|, overall and per head (the max
+    over ``head_dims`` for each head)."""
+    diff, scale = (got - want).abs(), want.abs()
+    per_head = (diff.amax(head_dims) / scale.amax(head_dims).clamp_min(1e-30))
+    return (float(diff.max()) / max(float(scale.max()), 1e-30),
+            per_head.tolist())
+
+
+def wkv_readings(dev, seed: int) -> dict:
+    """W against its plain version at WKV_SHAPES, twice; a gradient
+    refused; W and the plain loop timed in turns at the model's layer
+    shape (the last of WKV_SHAPES' order here) beside the bound. Returns
+    W's entry of the kernels line, without launches."""
+    import torch
+    from repro_torch.kernels.rwkv6_wkv.ops import rwkv6_wkv
+    from repro_torch.kernels.rwkv6_wkv.ref import wkv_ref
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    worst = {"y": 0.0, "state": 0.0, "abs": 0.0}
+    for *shape, dt in WKV_SHAPES[::-1]:       # the model's shape last
+        dtype = getattr(torch, dt)
+        r, k, v, logw, u = wkv_inputs(dev, g, tuple(shape), dtype)
+        before = rwkv6_wkv.launches
+        (y, st), (y2, st2) = (rwkv6_wkv(r, k, v, logw, u),
+                              rwkv6_wkv(r, k, v, logw, u))
+        out = {}
+        plain_ms = cuda_ms(lambda: out.update(w=wkv_ref(r, k, v, logw, u)),
+                           1)
+        want_y, want_s = out.pop("w")
+        same = bool(torch.equal(y, y2) and torch.equal(st, st2))
+        moved = rwkv6_wkv.launches - before
+        rel_y, head_y = wkv_rel(y, want_y, (0, 1, 3))
+        rel_s, head_s = wkv_rel(st, want_s, (0, 2, 3))
+        err = float((y - want_y).abs().max())
+        print(f"[W] {tuple(shape)} {dt}: y max abs diff {err:.4g} over max "
+              f"|y| {float(want_y.abs().max()):.4g}: {rel_y:.4g}, per head "
+              f"max {max(head_y):.4g}; last state {rel_s:.4g}, per head max "
+              f"{max(head_s):.4g} (limit {WKV_TOL}); the same bits on a "
+              f"repeat {same}; launches {moved}; plain loop {plain_ms:.2f} ms",
+              flush=True)
+        check(moved == 2 and same and bool(torch.isfinite(y).all())
+              and bool(torch.isfinite(st).all()),
+              f"W is not finite, not one launch a call or not the same bits "
+              f"twice at {shape}")
+        check(max(rel_y, rel_s, *head_y, *head_s) <= WKV_TOL,
+              f"W disagrees with its plain version at {shape}")
+        worst = {"y": max(worst["y"], rel_y), "state": max(worst["state"],
+                                                           rel_s),
+                 "abs": max(worst["abs"], err)}
+    try:
+        rwkv6_wkv(r.float().requires_grad_(True), k.float(), v.float(), logw,
+                  u)
+        fail("W took an input that requires grad")
+    except ValueError as e:
+        print(f"[W] an input that requires grad: refused ({e})", flush=True)
+    # the layer's shape, in turns: W, plain, W, plain
+    t_ms = {"kernel": [], "plain": [plain_ms]}
+    for name in ("kernel", "plain", "kernel"):
+        if name == "kernel":
+            t_ms[name].append(cuda_ms(lambda: rwkv6_wkv(r, k, v, logw, u),
+                                      20))
+        else:
+            t_ms[name].append(cuda_ms(lambda: wkv_ref(r, k, v, logw, u), 1))
+    mean = {n: sum(x) / len(x) for n, x in t_ms.items()}
+    b, t, h, hd = r.shape
+    w_bound, w_by = wkv_bound(b, t, h, hd, r.element_size())
+    print(f"[W] {tuple(r.shape)} {r.dtype}, in turns: kernel {t_ms['kernel']} "
+          f"ms, plain loop {t_ms['plain']} ms; bound {w_bound:.4f} ms "
+          f"({w_by}), {w_bound / mean['kernel']:.1%} of it; no library call "
+          f"computes the recurrence | {nvidia_smi_line()}", flush=True)
+    check(w_bound <= mean["kernel"], "W beat its bound: the bound is not a "
+          "floor")
+    del r, k, v, logw, y, y2, st, st2, want_y, want_s
+    torch.cuda.empty_cache()
+    return {"name": "rwkv6_wkv", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
+            "replaces": "port only: stands for the jax.lax.scan at "
+                        "src/repro/models/rwkv6.py:97-111,123-137",
+            "launches": 0, "max_abs_err": worst["abs"], "ms": mean["kernel"],
+            "plain_ms": mean["plain"], "bound_ms": w_bound,
+            "bound_by": w_by, "library_ms": None,
+            "rel_err_y": worst["y"], "rel_err_state": worst["state"],
+            "max_abs_err_of": "y, over WKV_SHAPES; rel_err_*: max |diff| "
+                              "over max |plain|"}
+
+
+@contextlib.contextmanager
+def plain_rwkv(wkv_err: list):
+    """RWKV6's recurrence through W's plain version (the reference run of
+    phase 18; the wrapper never does that on the card). Each layer also
+    runs W on the same r, k, v, logw and u, and (y, last state) relative
+    errors, overall and worst head, are appended to ``wkv_err``."""
+    import torch
+    from repro_torch.kernels.rwkv6_wkv.ref import wkv_ref
+    from repro_torch.models import rwkv6
+
+    def both(r, k, v, logw, u):
+        want = wkv_ref(r, k, v, logw, u)
+        got = kernel(r, k, v, logw, u)
+        ry, hy = wkv_rel(got[0], want[0], (0, 1, 3))
+        rs, hs = wkv_rel(got[1], want[1], (0, 2, 3))
+        wkv_err.append(max(ry, rs, *hy, *hs))
+        return want
+
+    kernel = rwkv6.rwkv6_wkv
+    rwkv6.rwkv6_wkv = both
+    try:
+        yield
+    finally:
+        rwkv6.rwkv6_wkv = kernel
+
+
+def rwkv_decode(model, tokens) -> dict:
+    """Prefill LM_T tokens, decode LM_DECODE more, against the forward
+    over all of them: each position's max abs difference over the
+    forward's max |logit|, the argmax per position, ms a decode step and
+    the decode state's bytes."""
+    import torch
+    logits_pre, cache = model.prefill(tokens[:, :LM_T],
+                                      max_len=LM_T + LM_DECODE)
+    outs = [logits_pre[:, -1].float()]
+    del logits_pre
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(LM_T, LM_T + LM_DECODE):
+        lg, cache = model.decode_step(tokens[:, i:i + 1], cache, i)
+        outs.append(lg[:, 0].float())
+    torch.cuda.synchronize()
+    dec_ms = 1e3 * (time.perf_counter() - t0) / LM_DECODE
+    state = sum(x.numel() * x.element_size() for lc in cache
+                for x in (lc["cmix_shift"], *lc["rec"].values()))
+    del cache
+    full, _ = model.forward(tokens)
+    want = full[0, LM_T - 1:].float()
+    del full
+    got = torch.cat(outs)
+    err = (got - want).abs().amax(dim=-1)
+    scale = float(want.abs().max())
+    return {"err": err.tolist(), "scale": scale,
+            "rel": float(err.max()) / scale,
+            "argmax_equal": (got.argmax(-1) == want.argmax(-1)).tolist(),
+            "ms": dec_ms, "state_bytes": state}
+
+
+def rwkv6_phase(dev, seed: int) -> dict:
+    """Phase 18 (see RWKV_ARCH). Returns W's entry of the kernels line,
+    its launches those of the prefill step."""
+    import dataclasses
+    import io
+
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_mma, flash_attention_sm90,
+        flash_attention_sm90_d256)
+    from repro_torch.kernels.rglru_scan.ops import rglru_lru
+    from repro_torch.kernels.rwkv6_wkv.ops import rwkv6_wkv
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+    from repro_torch.train.steps import make_prefill_step
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    wkv = wkv_readings(dev, seed)
+    cfg = ARCHS[RWKV_ARCH]
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev).init(seed)
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in model.parameters())
+    print(f"[rwkv6] {RWKV_ARCH}: {n_par} parameters (config n_params "
+          f"{cfg.n_params()}; {2 * n_par / 1e9:.2f} GB bf16), "
+          f"{cfg.n_layers} layers of the time mix ({cfg.rwkv_heads} heads of "
+          f"{cfg.rwkv_head_dim}) and the channel mix (d_ff {cfg.d_ff}), vocab "
+          f"{cfg.vocab_size}; drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (1, LM_T + LM_DECODE),
+                           generator=gen, device=dev)
+    batch = {"tokens": tokens[:, :LM_T]}
+    step = make_prefill_step(model)
+    step(batch)                                           # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wrappers = (flash_attention, flash_attention_sm90_d256,
+                flash_attention_sm90, flash_attention_mma, rglru_lru,
+                rwkv6_wkv)
+    for w in wrappers:
+        w.launches = 0
+    t0 = time.perf_counter()
+    last = step(batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {w.__name__: w.launches for w in wrappers}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[rwkv6] prefill step, 1 x {LM_T} tokens: wall {wall:.4f} s, "
+          f"{LM_T / wall:.1f} tokens/s, launches {counts}; peak device "
+          f"memory {peak} B = {peak / (2 * n_par):.4f} x the parameter bytes",
+          flush=True)
+    check(counts == {**{w.__name__: 0 for w in wrappers},
+                     "rwkv6_wkv": cfg.n_layers},
+          f"the prefill step launched {counts}, want {cfg.n_layers} of W and "
+          "no other kernel")
+    check(tuple(last.shape) == (1, cfg.vocab_size)
+          and bool(torch.isfinite(last).all()),
+          "prefill-step logits are not finite or of the wrong shape")
+    wkv["launches"] = cfg.n_layers
+    del last
+
+    # bf16: W held on every layer's own inputs; the logits read (a
+    # random-weight RWKV6 is chaotic in bf16: see RWKV_ARCH)
+    wkv_err = []
+    agree, _ = lm_agreement(model, batch["tokens"],
+                            plain=lambda errs: plain_rwkv(wkv_err))
+    print(f"[rwkv6] bf16 forward over {LM_T}, W vs its plain version (plain "
+          f"run {agree['plain_wall']:.2f} s): on each layer's own r, k, v, "
+          f"logw, the worst of y's and the last state's relative error, "
+          f"overall and per head: max {max(wkv_err, default=0.0):.4g} "
+          f"(limit {WKV_TOL}), per layer "
+          f"{[float(f'{e:.3g}') for e in wkv_err]}", flush=True)
+    print(f"[rwkv6] bf16 logits max abs diff over max |logit| per position, "
+          f"W vs its plain version (a reading): max {agree['pos_rel_max']:.4g}"
+          f", first {LM_EARLY} positions {agree['pos_rel_early']:.4g}, last "
+          f"{agree['pos_rel_last']:.4g}, argmax equal at "
+          f"{agree['argmax_equal_share']:.4f} of positions, at the last "
+          f"{agree['argmax_last_equal']}", flush=True)
+    check(len(wkv_err) == cfg.n_layers and max(wkv_err) <= WKV_TOL,
+          "W disagrees with its plain version on a layer's own inputs (bf16)")
+    check(math.isfinite(agree["pos_rel_max"]),
+          "the bf16 forward gave logits that are not finite")
+    dec = rwkv_decode(model, tokens)
+    print(f"[rwkv6] bf16 prefill({LM_T}) + {LM_DECODE} decode steps vs "
+          f"forward over {LM_T + LM_DECODE} (a reading): relative "
+          f"{dec['rel']:.4g} per "
+          f"position {[round(e / dec['scale'], 5) for e in dec['err']]}, "
+          f"argmax equal {dec['argmax_equal']}, {dec['ms']:.2f} ms per "
+          f"decode step; decode state {dec['state_bytes']} B", flush=True)
+    check(all(math.isfinite(e) for e in dec["err"]),
+          "bf16 prefill + decode gave logits that are not finite")
+    del model, step
+    torch.cuda.empty_cache()
+
+    # float32 at full width: the logits held at every position, and the
+    # decode seam
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model = Model(cfg32, device=dev).init(seed)
+    wkv_err32 = []
+    agree, ref = lm_agreement(model, batch["tokens"],
+                              plain=lambda errs: plain_rwkv(wkv_err32))
+    last = make_prefill_step(model)(batch)
+    err = float((last.float() - ref).abs().max()) / float(ref.abs().max())
+    print(f"[rwkv6] float32 forward over {LM_T}, W vs its plain version "
+          f"(plain run {agree['plain_wall']:.2f} s): W per layer max "
+          f"{max(wkv_err32, default=0.0):.4g} (limit {WKV_TOL}); logits max "
+          f"abs diff over max |logit| per position: max "
+          f"{agree['pos_rel_max']:.4g} (limit {LM_REL_TOL_PLAIN}), first "
+          f"{LM_EARLY} positions {agree['pos_rel_early']:.4g}, last "
+          f"{agree['pos_rel_last']:.4g}; argmax equal at "
+          f"{agree['argmax_equal_share']:.4f} of positions, at the last "
+          f"{agree['argmax_last_equal']}; the prefill step's logits vs the "
+          f"plain run's last position {err:.4g}", flush=True)
+    check(len(wkv_err32) == cfg.n_layers and max(wkv_err32) <= WKV_TOL,
+          "W disagrees with its plain version on a layer's own inputs "
+          "(float32)")
+    check(agree["ok_layers"] and agree["ok_logits"]
+          and err <= LM_REL_TOL_PLAIN,
+          "the full-width float32 forward disagrees with its plain run")
+    del last, ref
+    dec = rwkv_decode(model, tokens)
+    print(f"[rwkv6] float32 prefill({LM_T}) + {LM_DECODE} decode steps vs "
+          f"forward over {LM_T + LM_DECODE}: relative {dec['rel']:.4g} "
+          f"(limit {RWKV_DECODE_TOL}), max abs diff per position "
+          f"{dec['err']}, max |logit| {dec['scale']:.4g}, argmax equal "
+          f"{dec['argmax_equal']}, {dec['ms']:.2f} ms per decode step",
+          flush=True)
+    check(dec["rel"] <= RWKV_DECODE_TOL,
+          "float32 prefill + decode disagrees with the forward")
+    del model
+    torch.cuda.empty_cache()
+
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        outputs = serve.main(["--arch", RWKV_ARCH, "--requests", "8",
+                              "--batch-slots", "4", "--prompt-len", "16",
+                              "--max-new", "16", "--max-len", "256"])
+    for line in log.getvalue().splitlines():
+        print(f"[rwkv6] {line.strip()}", flush=True)
+    print(f"[rwkv6] serve main() took {time.perf_counter() - t0:.2f} s with "
+          "the model's draw", flush=True)
+    check(len(outputs) == 8
+          and all(len(g) == 16 and all(0 <= x < cfg.vocab_size for x in g)
+                  for _, g in outputs),
+          "the serve launcher did not answer 8 requests with 16 tokens")
+    torch.cuda.empty_cache()
+    total = time.perf_counter() - t_phase
+    print(f"[rwkv6] phase took {total:.1f} s (limit {RWKV_PHASE_S} s) | "
+          f"{nvidia_smi_line()}", flush=True)
+    check(total <= RWKV_PHASE_S, f"the RWKV6 phase took {total:.1f} s")
+    return wkv
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3679,12 +4053,15 @@ def main() -> None:
     scan, k3_d256 = hybrid_phase(dev, args.seed)
     k3_d256.update(d256_err)
 
+    # ---- 18. RWKV6 ----------------------------------------------------------
+    wkv = rwkv6_phase(dev, args.seed)
+
     foreign = sorted(m for m in sys.modules if m.split(".")[0]
                      in ("jax", "jaxlib", "repro", "benchmarks"))
     check(not foreign, f"the smoke imported {foreign[:5]}: JAX, the JAX "
           "package or its benchmarks")
 
-    # ---- 18. kernels line ---------------------------------------------------
+    # ---- 19. kernels line ---------------------------------------------------
     # each kernel's MoE readings beside those of its first path: K3 and
     # K3-bwd at the MoE models' MHA layer shape, P over the whole olmoe
     bwd, _, perturb = train_kernels
@@ -3721,9 +4098,10 @@ def main() -> None:
     kernels.append(k3_mma)
     kernels.extend(train_kernels)
     kernels.append(scan)
+    kernels.append(wkv)
     print(json.dumps({"kernels": kernels}))
 
-    # ---- 19. result -------------------------------------------------------
+    # ---- 20. result -------------------------------------------------------
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -55,14 +55,29 @@ def draw_(name: str, p: torch.Tensor, gen: torch.Generator,
     dimensions, embedding tables N(0, 1/d), norm scales 0 (RMSNorm's
     ``1 + scale``) or 1 (LayerNorm), biases 0; the RG-LRU's conv weights
     N(0, 0.01), its conv bias 0 and its Λ from
-    ``models.rglru.log_lambda_init``."""
+    ``models.rglru.log_lambda_init``; RWKV6's interpolation weights 0.5
+    (``mu`` N(0.5, 0.02²)), its shift LoRA's second factor and its bonus
+    N(0, 0.02²), its decay base ``models.rwkv6.decay_base_init`` and its
+    group norm's scale 1 and bias 0."""
     leaf = name.rsplit(".", 1)[-1]
     if leaf in EMBED_NAMES:
         _scaled_normal_(p, p.shape[1] ** -0.5, gen)
     elif leaf == "scale":
         p.fill_(0.0 if norm == "rmsnorm" else 1.0)
-    elif leaf in ("bias", "conv_b"):
+    elif leaf in ("bias", "conv_b", "gn_bias"):
         p.zero_()
+    elif leaf == "gn_scale":
+        p.fill_(1.0)
+    elif leaf in ("mu_x", "mu_k", "mu_r"):
+        p.fill_(0.5)
+    elif leaf in ("shift_w2", "bonus_u"):
+        _scaled_normal_(p, 0.02, gen)
+    elif leaf == "mu":
+        _scaled_normal_(p, 0.02, gen)
+        p.add_(0.5)
+    elif leaf == "decay_base":
+        from repro_torch.models.rwkv6 import decay_base_init
+        p.copy_(decay_base_init(p.shape[0], p.dtype, p.device))
     elif leaf == "conv_w":
         _scaled_normal_(p, 0.1, gen)
     elif leaf == "log_lambda":

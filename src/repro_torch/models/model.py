@@ -1,8 +1,9 @@
 """Top-level model: embeddings, decoder stack, LM head.
 
 Port of :mod:`repro.models.model` for the decoders, dense,
-mixture-of-experts and hybrid (RG-LRU and local attention,
-recurrentgemma-2b), as an ``nn.Module`` that holds its parameters:
+mixture-of-experts, hybrid (RG-LRU and local attention,
+recurrentgemma-2b) and RWKV6 (rwkv6-3b), as an ``nn.Module`` that holds
+its parameters:
 
   model = Model(cfg).init(seed)            # on the card unless device= given
   logits, aux = model.forward(tokens)
@@ -23,9 +24,10 @@ parameter is made with ``requires_grad=False``, so serving builds no
 graph), and K3's gradient is its backward kernel
 (``kernels.flash_attention.ops``). ``prefill`` and ``decode_step`` run
 under ``torch.no_grad()``. ``encode`` and ``fill_cross_cache`` wait for
-later slices; M-RoPE, RWKV6 and encoder-decoder configs raise. The
-hybrid's scan (``kernels.rglru_scan``) and K3 at head_dim 256 have no
-backward kernel: on the card they raise where a gradient is asked for.
+later slices; M-RoPE and encoder-decoder configs raise. The hybrid's
+scan (``kernels.rglru_scan``), K3 at head_dim 256 and RWKV6's recurrence
+(``kernels.rwkv6_wkv``) have no backward kernel: on the card they raise
+where a gradient is asked for.
 """
 from __future__ import annotations
 

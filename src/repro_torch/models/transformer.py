@@ -14,9 +14,12 @@ Mixers ``attn``/``swa`` and ``rglru`` (``models.rglru``: RecurrentGemma's
 (rglru, rglru, swa) pattern; its layer cache is ``{"rec": {"h", "conv"}}``
 where an attention layer's is ``{"kv": ...}``); dense MLPs and MoE
 (``models.moe``: the capacity from the config in ``layer_apply``, lossless
-in ``layer_prefill`` and ``layer_decode``, as the reference). A layer's aux
+in ``layer_prefill`` and ``layer_decode``, as the reference). Mixer
+``rwkv6`` with the ``channel_mix`` MLP (``models.rwkv6``; its layer cache is
+``{"rec": {"S", "shift"}, "cmix_shift"}``, the channel mix's last normed
+input beside the time mix's state, as the reference's). A layer's aux
 loss is 0 unless it is an MoE layer; the leading ``first_dense`` layers
-(moonshot's layer 0) keep a dense MLP. RWKV6 and cross-attention raise
+(moonshot's layer 0) keep a dense MLP. Cross-attention raises
 ``NotImplementedError`` (ROADMAP queue 1, item 11).
 """
 from __future__ import annotations
@@ -31,15 +34,16 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.layers import is_gated, make_norm, mlp_apply, mlp_init
 
 _WAITS = "is not ported yet (ROADMAP queue 1, item 11: LM substrate)"
 
 
 def _check_kinds(cfg: ArchConfig, kind: str, mlp_kind: str) -> None:
-    if kind not in ("attn", "swa", "rglru"):
+    if kind not in ("attn", "swa", "rglru", "rwkv6"):
         raise NotImplementedError(f"mixer {kind!r} {_WAITS}")
-    if mlp_kind not in ("dense", "moe"):
+    if mlp_kind not in ("dense", "moe", "channel_mix"):
         raise NotImplementedError(f"{mlp_kind!r} MLP {_WAITS}")
     if cfg.cross_attention:
         raise NotImplementedError(f"cross-attention {_WAITS}")
@@ -55,10 +59,14 @@ def layer_init(cfg: ArchConfig, layer_idx: int, dtype, device) -> nn.ModuleDict:
          "norm_mlp": norm_init(cfg.d_model, dtype, device)}
     if cfg.mixer_kind(layer_idx) == "rglru":
         p["rglru"] = rglru_mod.rglru_init(cfg, dtype, device)
+    elif cfg.mixer_kind(layer_idx) == "rwkv6":
+        p["rwkv"] = rwkv_mod.rwkv6_init(cfg, dtype, device)
     else:
         p["attn"] = attn.attn_init(cfg, dtype, device)
     if cfg.mlp_kind(layer_idx) == "moe":
         p["moe"] = moe_mod.moe_init(cfg, dtype, device)
+    elif cfg.mlp_kind(layer_idx) == "channel_mix":
+        p["cmix"] = rwkv_mod.channel_mix_init(cfg, dtype, device)
     else:
         p["mlp"] = mlp_init(cfg.d_model, cfg.d_ff, dtype, device,
                             is_gated(cfg.activation))
@@ -66,12 +74,16 @@ def layer_init(cfg: ArchConfig, layer_idx: int, dtype, device) -> nn.ModuleDict:
 
 
 def _ffn(params, cfg: ArchConfig, mlp_kind: str, h, capacity_factor):
-    """The layer's MLP or MoE on the normed h. Returns (h, aux loss)."""
+    """The layer's MLP, MoE or full-sequence channel mix on the normed h.
+    Returns (h, aux loss)."""
     if mlp_kind == "moe":
         return moe_mod.moe_apply(params["moe"], cfg, h,
                                  capacity_factor=capacity_factor)
-    return (mlp_apply(params["mlp"], h, cfg.activation),
-            torch.zeros((), dtype=torch.float32, device=h.device))
+    if mlp_kind == "channel_mix":
+        out = rwkv_mod.channel_mix_full(params["cmix"], h)
+    else:
+        out = mlp_apply(params["mlp"], h, cfg.activation)
+    return out, torch.zeros((), dtype=torch.float32, device=h.device)
 
 
 def layer_apply(params, cfg: ArchConfig, kind: str, mlp_kind: str, x, *,
@@ -84,6 +96,8 @@ def layer_apply(params, cfg: ArchConfig, kind: str, mlp_kind: str, x, *,
     h = norm(params["norm_mixer"], x)
     if kind == "rglru":
         h = rglru_mod.rglru_apply(params["rglru"], cfg, h)
+    elif kind == "rwkv6":
+        h = rwkv_mod.rwkv6_apply(params["rwkv"], cfg, h)
     else:
         window = cfg.window if kind == "swa" else None
         h = attn.attn_apply(params["attn"], cfg, h, positions=positions,
@@ -104,6 +118,11 @@ def layer_cache_init(cfg: ArchConfig, kind: str, batch, max_len, dtype,
     if kind == "rglru":
         return {"rec": rglru_mod.rglru_state_init(batch, cfg, dtype,
                                                   device=device)}
+    if kind == "rwkv6":
+        return {"rec": rwkv_mod.rwkv6_state_init(batch, cfg, dtype,
+                                                 device=device),
+                "cmix_shift": torch.zeros((batch, cfg.d_model), dtype=dtype,
+                                          device=device)}
     ring = min(max_len, cfg.window) if kind == "swa" and cfg.window else max_len
     return {"kv": attn.cache_init(attn.CacheSpec(
         batch, ring, cfg.n_kv_heads, cfg.head_dim, dtype, quant=cfg.kv_quant,
@@ -120,13 +139,22 @@ def layer_decode(params, cfg: ArchConfig, kind: str, mlp_kind: str, x,
         h, rec = rglru_mod.rglru_decode_step(params["rglru"], cfg, h,
                                              cache["rec"])
         cache = {**cache, "rec": rec}
+    elif kind == "rwkv6":
+        h, rec = rwkv_mod.rwkv6_decode_step(params["rwkv"], cfg, h,
+                                            cache["rec"])
+        cache = {**cache, "rec": rec}
     else:
         window = cfg.window if kind == "swa" else None
         h, kv = attn.attn_decode_step(params["attn"], cfg, h, cache["kv"],
                                       pos, window=window)
         cache = {**cache, "kv": kv}
     x = x + h
-    h, _ = _ffn(params, cfg, mlp_kind, norm(params["norm_mlp"], x), None)
+    h = norm(params["norm_mlp"], x)
+    if mlp_kind == "channel_mix":
+        h, shift = rwkv_mod.channel_mix_decode(params["cmix"], h,
+                                               cache["cmix_shift"])
+        return x + h, {**cache, "cmix_shift": shift}
+    h, _ = _ffn(params, cfg, mlp_kind, h, None)
     return x + h, cache
 
 
@@ -139,13 +167,19 @@ def layer_prefill(params, cfg: ArchConfig, kind: str, mlp_kind: str, x, *,
     if kind == "rglru":
         h, rec = rglru_mod.rglru_prefill(params["rglru"], cfg, h)
         cache = {"rec": rec}
+    elif kind == "rwkv6":
+        h, rec = rwkv_mod.rwkv6_prefill(params["rwkv"], cfg, h)
+        cache = {"rec": rec}
     else:
         window = cfg.window if kind == "swa" else None
         h, kv = attn.attn_prefill(params["attn"], cfg, h, positions=positions,
                                   window=window, max_len=max_len)
         cache = {"kv": kv}
     x = x + h
-    h, _ = _ffn(params, cfg, mlp_kind, norm(params["norm_mlp"], x), None)
+    h = norm(params["norm_mlp"], x)
+    if mlp_kind == "channel_mix":
+        cache["cmix_shift"] = h[:, -1].clone()   # the last normed input
+    h, _ = _ffn(params, cfg, mlp_kind, h, None)
     return x + h, cache
 
 

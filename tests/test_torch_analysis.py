@@ -156,3 +156,15 @@ def test_each_hot_path_sync_of_the_port_is_a_declared_one():
     assert seen["core/abo.py"] and set(seen["core/abo.py"]) == {"RPR001"}
     assert seen["engine/scheduler.py"] and \
         set(seen["engine/scheduler.py"]) == {"RPR001"}
+
+
+@pytest.mark.parametrize("rel", ["models/rwkv6.py",
+                                 "kernels/rwkv6_wkv/ops.py",
+                                 "kernels/rwkv6_wkv/ref.py"])
+def test_rwkv6_prefill_path_has_no_host_sync(rel):
+    """RWKV6's time mix and W's wrapper are hot paths with no designed
+    sync: RPR001 reads them and finds nothing, with no allow to hide one."""
+    from pathlib import Path
+    src = (Path("src/repro_torch") / rel).read_text()
+    assert _ALLOW not in src
+    assert tlint.lint_file(rel, _HOT + src) == []

@@ -51,6 +51,14 @@ on the card bit for bit and on a repeat, in bf16 and float32, its two
 shortcuts exact on every input they can see, and raising on what it does
 not take (float32 included: channels in groups of 4, 16-byte aligned);
 the reduced model on the card against the CPU.
+
+rwkv6-3b's kernel: W (``rwkv6_wkv``, port only: RWKV6's WKV recurrence)
+against its plain version run on the card at ``WKV_SHAPES`` (the model's
+layer shape cut to T = 1024, a T that is no multiple of a tile, the
+reduced config's float32 head of 16), y and the last state each within
+WKV_TOL of the plain version's max |value|, overall and per head, the same
+bits on a repeat; raising on a head size other than 16 or 64, a stride
+and a gradient; the reduced model on the card against the CPU.
 """
 import pytest
 import torch
@@ -82,6 +90,8 @@ from repro_torch.kernels.griewank.ref import griewank_aggregates_ref
 from repro_torch.kernels.rglru_scan.ops import (rglru_lru,
                                                 shortcut_mismatches)
 from repro_torch.kernels.rglru_scan.ref import rglru_lru_ref
+from repro_torch.kernels.rwkv6_wkv.ops import rwkv6_wkv
+from repro_torch.kernels.rwkv6_wkv.ref import wkv_ref
 from repro_torch.models.model import Model
 from repro_torch.objectives import GRIEWANK, OBJECTIVES
 
@@ -121,6 +131,13 @@ SCAN_SHAPES = [(1, 8192, 2560), (3, 1000, 2568), (2, 64, 4), (1, 1, 300),
                (2, 65, 260)]
 LRU_SHAPES = [(1, 8192, 2560), (3, 1000, 2568), (2, 64, 8), (1, 1, 296),
               (2, 97, 264), (4, 50, 64)]
+# W at rwkv6-3b's (b, T, H, hd) cut to T = 1024, a T no tile divides, and
+# the reduced config's float32 head of 16; its limit: max |got - want| over
+# max |want|, of y and of the last state, overall and per head
+WKV_SHAPES = [(1, 1024, 40, 64, torch.bfloat16),
+              (2, 77, 40, 64, torch.bfloat16),
+              (3, 1000, 4, 16, torch.float32)]
+WKV_TOL = 1e-5     # chip_smoke.py's: 1.9e-6 at most measured (PERF.md)
 ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-3}
 ATTN_ROW_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-3}
 AGG_TOL = 1e-3     # times (1 + |a_in|)
@@ -423,7 +440,7 @@ def test_flash_attention_wrapper_rejects_on_cuda(cuda):
 @pytest.mark.parametrize("arch", ["mistral-nemo-12b", "h2o-danube-3-4b",
                                   "granite-20b", "internlm2-20b",
                                   "olmoe-1b-7b", "moonshot-v1-16b-a3b",
-                                  "recurrentgemma-2b"])
+                                  "recurrentgemma-2b", "rwkv6-3b"])
 def test_reduced_model_on_the_card_matches_cpu(cuda, arch):
     cfg = reduced(ARCHS[arch])
     cpu = Model(cfg, device="cpu").init(0)
@@ -431,11 +448,14 @@ def test_reduced_model_on_the_card_matches_cpu(cuda, arch):
     card.load_state_dict(cpu.state_dict())
     toks = torch.randint(0, cfg.vocab_size, (2, 50),
                          generator=torch.Generator().manual_seed(2))
-    n_rec = sum(cfg.mixer_kind(i) == "rglru" for i in range(cfg.n_layers))
-    before, scans = flash_attention.launches, rglru_lru.launches
+    kinds = [cfg.mixer_kind(i) for i in range(cfg.n_layers)]
+    before, scans, wkvs = (flash_attention.launches, rglru_lru.launches,
+                           rwkv6_wkv.launches)
     lg, _ = card.forward(toks.to(cuda))
-    assert flash_attention.launches == before + cfg.n_layers - n_rec
-    assert rglru_lru.launches == scans + n_rec
+    assert flash_attention.launches == before + sum(
+        k in ("attn", "swa") for k in kinds)
+    assert rglru_lru.launches == scans + kinds.count("rglru")
+    assert rwkv6_wkv.launches == wkvs + kinds.count("rwkv6")
     want, _ = cpu.forward(toks)
     assert float((lg.cpu() - want).abs().max()) < 1e-4
     max_len = cfg.window or 64
@@ -1084,3 +1104,65 @@ def test_rglru_scan_refuses_what_it_does_not_serve(cuda):
     off = torch.zeros(8 * 4 + 2, device=cuda)[2:].view(1, 8, 4)  # 8 bytes
     with pytest.raises(ValueError, match="aligned"):
         rglru_lru(off, xi, xr, lam)
+
+
+def _wkv_inputs(shape, dtype, device, seed):
+    """r, k, v N(0, 1) in dtype; logw = -exp(lw) with lw spread over the
+    channels as rwkv6's decay base (-6 to -0.5) plus N(0, 0.25): decays
+    from 0.37 to 0.9975, so that some heads carry S far; u N(0, 0.25)."""
+    b, t, h, hd = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    r, k, v = (torch.randn((b, t, h, hd), generator=g, device=device).to(
+        dtype) for _ in range(3))
+    base = torch.linspace(-6.0, -0.5, h * hd, device=device).view(h, hd)
+    lw = base + 0.5 * torch.randn((b, t, h, hd), generator=g, device=device)
+    u = 0.5 * torch.randn((h, hd), generator=g, device=device)
+    return r, k, v, -torch.exp(lw), u
+
+
+def _rel(got, want, dims):
+    """max |got - want| over max |want|, over ``dims`` (a head's
+    elements)."""
+    return ((got - want).abs().amax(dims)
+            / want.abs().amax(dims).clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("case", WKV_SHAPES)
+def test_rwkv6_wkv_matches_plain(cuda, case):
+    """W against its plain version on the card: y and the last state
+    within WKV_TOL of the plain version's max |value|, overall and for
+    each head; the same bits on a repeat; one launch a call."""
+    *shape, dtype = case
+    r, k, v, logw, u = _wkv_inputs(tuple(shape), dtype, cuda, sum(shape))
+    before = rwkv6_wkv.launches
+    y, S = rwkv6_wkv(r, k, v, logw, u)
+    y2, S2 = rwkv6_wkv(r, k, v, logw, u)
+    torch.cuda.synchronize()
+    assert rwkv6_wkv.launches == before + 2
+    assert y.dtype == S.dtype == torch.float32
+    assert tuple(S.shape) == (shape[0], shape[2], shape[3], shape[3])
+    assert torch.equal(y, y2) and torch.equal(S, S2)
+    want_y, want_s = wkv_ref(r, k, v, logw, u)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(S).all())
+    assert float(_rel(y, want_y, (0, 1, 2, 3))) <= WKV_TOL
+    assert float(_rel(S, want_s, (0, 1, 2, 3))) <= WKV_TOL
+    assert float(_rel(y, want_y, (0, 1, 3)).max()) <= WKV_TOL
+    assert float(_rel(S, want_s, (0, 2, 3)).max()) <= WKV_TOL
+
+
+def test_rwkv6_wkv_refuses_what_it_does_not_serve(cuda):
+    """No head size but 16 and 64, no stride, no gradient; no fallback."""
+    r, k, v, logw, u = _wkv_inputs((1, 8, 2, 32), torch.bfloat16, cuda, 1)
+    with pytest.raises(ValueError, match="head sizes"):
+        rwkv6_wkv(r, k, v, logw, u)
+    r, k, v, logw, u = _wkv_inputs((1, 8, 2, 64), torch.bfloat16, cuda, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        rwkv6_wkv(*(x.transpose(1, 2).contiguous().transpose(1, 2)
+                    for x in (r, k, v, logw)), u)
+    with pytest.raises(ValueError, match="no backward"):
+        rwkv6_wkv(r, k, v, logw, u.clone().requires_grad_(True))
+    with pytest.raises(ValueError, match="no backward"):
+        rwkv6_wkv(r.float().requires_grad_(True), k.float(), v.float(), logw,
+                  u)
+    y, S = rwkv6_wkv(r[:, :0], k[:, :0], v[:, :0], logw[:, :0], u)
+    assert y.shape == (1, 0, 2, 64) and not S.any()

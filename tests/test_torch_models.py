@@ -15,7 +15,8 @@ recurrentgemma-2b (7 layers: 2 groups of (rglru, rglru, swa) and an rglru
 tail, window 32, MQA), whose prefill and decode run past the window (the
 ring wraps) and whose RG-LRU layers' decode state (float32 h, the conv's
 last inputs) is held beside the attention layers' ring caches; its serving
-steps and the serve launcher too.
+steps and the serve launcher too. rwkv6-3b's serving steps and launcher
+are held here as well (its model and layers in tests/test_torch_rwkv6.py).
 
 Tolerance: 1e-4 max abs on logits (|logits| <= ~5) and caches, layers
 1e-5. Measured (CPU, tests/torch_parity_report.py): <= 3.5e-6 on logits.
@@ -48,6 +49,7 @@ DENSE = ["mistral-nemo-12b", "h2o-danube-3-4b", "granite-20b",
          "internlm2-20b"]
 MOE = ["olmoe-1b-7b", "moonshot-v1-16b-a3b"]
 HYBRID = ["recurrentgemma-2b"]
+RWKV = ["rwkv6-3b"]
 
 
 def _np(x):
@@ -246,6 +248,13 @@ def test_hybrid_serving_steps_match_reference(arch):
     _serving_steps_match_reference(arch)
 
 
+@pytest.mark.parametrize("arch", RWKV)
+def test_rwkv6_serving_steps_match_reference(arch):
+    """rwkv6-3b's cache holds no ``kv``: the decode step's slot check
+    reads 0 slots and lets it through."""
+    _serving_steps_match_reference(arch)
+
+
 def _serving_steps_match_reference(arch):
     jm, params, tm = _pair(arch, seed=7)
     mesh = make_host_mesh(1)
@@ -283,6 +292,11 @@ def test_moe_serve_launcher_gives_greedy_tokens_of_forward(arch, capsys):
 
 @pytest.mark.parametrize("arch", HYBRID)
 def test_hybrid_serve_launcher_gives_greedy_tokens_of_forward(arch, capsys):
+    _serve_launcher_gives_greedy_tokens_of_forward(arch, capsys)
+
+
+@pytest.mark.parametrize("arch", RWKV)
+def test_rwkv6_serve_launcher_gives_greedy_tokens_of_forward(arch, capsys):
     _serve_launcher_gives_greedy_tokens_of_forward(arch, capsys)
 
 
@@ -349,8 +363,7 @@ def test_init_draws_the_rglru_rules():
     assert "decoder.2.attn.wq" in sd and "decoder.2.rglru.w_x" not in sd
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-3b", "qwen2-vl-7b",
-                                  "whisper-small"])
+@pytest.mark.parametrize("arch", ["qwen2-vl-7b", "whisper-small"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model(TC.reduced(TC.ARCHS[arch]), device=CPU)

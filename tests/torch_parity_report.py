@@ -11,7 +11,11 @@ Griewank and the sphere, the plain attention against the JAX package's
 interpreted kernel and plain version, the reduced dense models with the
 reference's weights carried across, and their training path (the loss and
 its gradients, ABO-ZO's candidate losses, AdamW's update with clipping on
-and whole AdamW steps, on tests/test_torch_train.py's inputs). The
+and whole AdamW steps, on tests/test_torch_train.py's inputs), and
+RWKV6's pieces, its recurrence's plain version, a layer and the reduced
+rwkv6-3b on tests/test_torch_rwkv6.py's inputs, and how far a relative
+1e-6 nudge of RWKV6's recurrence moves a 32-layer random-weight model's
+logits in each package (``rwkv6_sensitivity``, ~2 min). The
 tolerances in the tests and in PERF.md come from these numbers. ``--only
 NAME ...`` runs some sections.
 """
@@ -175,6 +179,150 @@ def models_report() -> dict:
     return out
 
 
+def rwkv6_report() -> dict:
+    """RWKV6's pieces, the WKV recurrence, a layer and the reduced model on
+    tests/test_torch_rwkv6.py's inputs: max abs differences beside the
+    reference's max abs value."""
+    import repro.models.rwkv6 as JR
+    import repro.models.transformer as JT
+    import repro_torch.models.rwkv6 as TR
+    import test_torch_rwkv6 as case
+    from repro_torch.kernels.rwkv6_wkv.ref import wkv_ref
+    from repro_torch.models import transformer as tfm
+
+    def diff(got, want):
+        want = np.asarray(want, dtype=np.float32)
+        return [float(np.abs(np.asarray(got, np.float32) - want).max()),
+                float(np.abs(want).max())]
+
+    w = case.make_weights()
+    cfg, jcfg = case.CFG, case.JCFG
+    out = {}
+    x, xp = case._pair_x(0, 33)
+    out["ddlerp"] = max(diff(g, j) for g, j in zip(
+        TR._ddlerp(w["t"], torch.from_numpy(x), torch.from_numpy(xp)),
+        JR._ddlerp(w["j"], jnp.asarray(x), jnp.asarray(xp))))
+    xw = case._inputs(1, 2, 33, 64)
+    out["decay"] = diff(TR._decay(w["t"], torch.from_numpy(xw)),
+                        JR._decay(w["j"], jnp.asarray(xw)))
+    y = case._inputs(2, 2, 9, 64, scale=3.0) + 1.0
+    out["group_norm"] = diff(TR._group_norm(w["t"], torch.from_numpy(y), 4),
+                             JR._group_norm(w["j"], jnp.asarray(y), 4))
+    for t in case.SEQ_LENS:
+        x = case._inputs(3 + t, 2, t, 64)
+        xj = jnp.asarray(x)
+        xpj = jnp.pad(xj, ((0, 0), (1, 0), (0, 0)))[:, :-1]
+        r, k, v, _, logw = JR._project(w["j"], jcfg, xj, xpj)
+        seen = []
+        gn = JR._group_norm
+        JR._group_norm = lambda p, y, n, eps=1e-5: seen.append(y) or gn(
+            p, y, n, eps)
+        try:
+            JR.rwkv6_apply(w["j"], jcfg, xj)
+        finally:
+            JR._group_norm = gn
+        s_want = JR.rwkv6_prefill(w["j"], jcfg, xj)[1]["S"]
+        yt, st = wkv_ref(*(torch.from_numpy(np.array(a))
+                           for a in (r, k, v, logw)), w["t"]["bonus_u"])
+        out[f"wkv_y_T{t}"] = diff(yt.reshape(2, t, 64), seen[0])
+        out[f"wkv_S_T{t}"] = diff(st, s_want)
+    x = case._inputs(4, 2, 24, 64)
+    out["time_mix"] = diff(TR.rwkv6_apply(w["t"], cfg, torch.from_numpy(x)),
+                           JR.rwkv6_apply(w["j"], jcfg, jnp.asarray(x)))
+    _, st = TR.rwkv6_prefill(w["t"], cfg, torch.from_numpy(x[:, :16]))
+    _, sj = JR.rwkv6_prefill(w["j"], jcfg, jnp.asarray(x[:, :16]))
+    dt, _ = TR.rwkv6_decode_step(w["t"], cfg, torch.from_numpy(x[:, 16:17]),
+                                 st)
+    dj, _ = JR.rwkv6_decode_step(w["j"], jcfg, jnp.asarray(x[:, 16:17]), sj)
+    out["decode_step"] = diff(dt, dj)
+    x, _ = case._pair_x(5, 21)
+    out["channel_mix"] = diff(TR.channel_mix_full(w["tc"], torch.from_numpy(x)),
+                              JR.channel_mix_full(w["jc"], jnp.asarray(x)))
+    jp = JT.layer_init(jax.random.PRNGKey(6), jcfg, 0, jnp.float32)
+    tp = tfm.layer_init(cfg, 0, torch.float32, "cpu")
+    with torch.no_grad():
+        for part, leaves in jp.items():
+            for name, a in leaves.items():
+                tp[part][name].copy_(torch.from_numpy(np.array(a)))
+    x = case._inputs(7, 2, 20, 64)
+    out["layer"] = diff(tfm.layer_apply(tp, cfg, "rwkv6", "channel_mix",
+                                        torch.from_numpy(x), positions=None)[0],
+                        JT.layer_apply(jp, jcfg, "rwkv6", "channel_mix",
+                                       jnp.asarray(x), positions=None)[0])
+    jm = JModel(jcfg)
+    params = jm.init(jax.random.PRNGKey(3))
+    tm = params_from_jax(cfg, jax.tree.map(np.asarray, params), device="cpu")
+    toks = np.random.RandomState(4).randint(0, 512, (2, 36))
+    out["model_forward"] = diff(tm.forward(torch.from_numpy(toks))[0],
+                                jm.forward(params, jnp.asarray(toks))[0])
+    pt, ct = tm.prefill(torch.from_numpy(toks[:, :30]), max_len=64)
+    pj, cj = jm.prefill(params, jnp.asarray(toks[:, :30]), max_len=64)
+    out["model_prefill"] = diff(pt, pj)
+    out["model_cache_S"] = max(
+        diff(lc["rec"]["S"], want["S"])
+        for lc, want in zip(ct, case._layer_caches(cj)))
+    gt, _ = tm.decode_step(torch.from_numpy(toks[:, 30:31]), ct, 30)
+    gj, _ = jm.decode_step(params, jnp.asarray(toks[:, 30:31]), cj,
+                           jnp.asarray(30))
+    out["model_decode"] = diff(gt, gj)
+    return out
+
+
+def rwkv6_sensitivity_report() -> dict:
+    """How far a relative 1e-6 nudge of the recurrence's output, in every
+    layer, moves a random-weight RWKV6's logits, in both packages on the
+    same weights and the same nudge: rwkv6-3b's pattern cut to d 512
+    (8 heads of 64, d_ff 1792), 32 layers, vocab 4096, T 64, in float32 and
+    bf16. Max over positions of max |diff| over max |logit|, and the share
+    of positions whose argmax agrees."""
+    import dataclasses
+
+    import repro.models.rwkv6 as JR
+    from repro_torch.models import rwkv6 as TR
+
+    def distance(a, b):
+        a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+        return [float((np.abs(a - b).max(-1) / np.abs(b).max(-1)).max()),
+                float((a.argmax(-1) == b.argmax(-1)).mean())]
+
+    t = 64
+    nudge = 1 + 1e-6 * np.random.RandomState(0).normal(
+        size=(1, t, 512)).astype(np.float32)
+    toks = np.random.RandomState(1).randint(0, 4096, (1, t))
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        shape = dict(d_model=512, n_layers=32, rwkv_heads=8, n_heads=8,
+                     n_kv_heads=8, d_ff=1792, vocab_size=4096, dtype=dt)
+        jcfg = dataclasses.replace(J_ARCHS["rwkv6-3b"], **shape)
+        jm = JModel(jcfg)
+        params = jm.init(jax.random.PRNGKey(0))
+        tm = params_from_jax(dataclasses.replace(T_ARCHS["rwkv6-3b"],
+                                                 **shape),
+                             jax.tree.map(np.asarray, params), device="cpu")
+        base_j = jm.forward(params, jnp.asarray(toks))[0]
+        gn = JR._group_norm
+        JR._group_norm = lambda p, y, n, eps=1e-5: gn(
+            p, y * jnp.asarray(nudge), n, eps)
+        try:
+            nudged_j = jm.forward(params, jnp.asarray(toks))[0]
+        finally:
+            JR._group_norm = gn
+        with torch.no_grad():
+            base_t = tm.forward(torch.from_numpy(toks))[0].float()
+            wkv = TR.rwkv6_wkv
+            TR.rwkv6_wkv = lambda *a: (
+                wkv(*a)[0] * torch.from_numpy(nudge).view(1, t, 8, 64),
+                wkv(*a)[1])
+            try:
+                nudged_t = tm.forward(torch.from_numpy(toks))[0].float()
+            finally:
+                TR.rwkv6_wkv = wkv
+        out[dt] = {"jax": distance(nudged_j[0], base_j[0]),
+                   "port": distance(nudged_t[0].numpy(), base_t[0].numpy()),
+                   "port_vs_jax": distance(base_t[0].numpy(), base_j[0])}
+    return out
+
+
 def training_report() -> dict:
     """tests/test_torch_train.py's comparisons, measured: the largest
     discrepancy each holds to a tolerance."""
@@ -252,7 +400,9 @@ def main() -> None:
                     ("solves", lambda: solves_report(args.n_solve)),
                     ("attention", attention_report),
                     ("models", models_report),
-                    ("training", training_report)):
+                    ("training", training_report),
+                    ("rwkv6", rwkv6_report),
+                    ("rwkv6_sensitivity", rwkv6_sensitivity_report)):
         if args.only is None or key in args.only:
             print(json.dumps({key: fn()}), flush=True)
 

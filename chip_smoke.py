@@ -141,6 +141,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12
 PEAK_BF16_OPS_S = 989e12
+PEAK_TF32_OPS_S = 495e12
 # K2 is bound by instruction issue, not by its float32 operations: each
 # coordinate runs the library sequences of rsqrt, sin/cos (one range
 # reduction for the pair) and log1p or log. Its bound counts the
@@ -458,8 +459,10 @@ HYBRID_PHASE_S = 60
 # Phase 18, RWKV6 at full width (``[rwkv6]``): rwkv6-3b (32 layers of the
 # time mix, 40 heads of 64, and the channel mix at d_ff 8960), bf16,
 # random weights from --seed, nothing cut. Before the model, W against its
-# plain version at WKV_SHAPES (the layer shape, a T no tile divides, the
-# reduced config's float32 head of 16): y and the last state within
+# plain version at WKV_SHAPES (the layer shape, a T no chunk divides, the
+# reduced config's float32 head of 16, and a strong-decay draw, the decay
+# base + 3, at a T no chunk divides; the last entry is that shift of the
+# decay's log-log): y and the last state within
 # WKV_TOL of the plain version's max |value|, overall and per head, twice
 # the same bits. The prefill step on one LM_T-token request; the forward
 # against the same forward with W's plain version (W within WKV_TOL on
@@ -474,8 +477,10 @@ HYBRID_PHASE_S = 60
 # rwkv6_sensitivity; PERF.md, RWKV6). So the bf16 logits and decode seam
 # are read, and held in the float32 run, where that gain stays small.
 RWKV_ARCH = "rwkv6-3b"
-WKV_SHAPES = [(1, LM_T, 40, 64, "bfloat16"), (2, 77, 40, 64, "bfloat16"),
-              (3, 1000, 4, 16, "float32")]
+WKV_SHAPES = [(1, LM_T, 40, 64, "bfloat16", 0.0),
+              (2, 77, 40, 64, "bfloat16", 0.0),
+              (3, 1000, 4, 16, "float32", 0.0),
+              (1, 1000, 40, 64, "bfloat16", 3.0)]
 # pinned from the card (PERF.md, RWKV6): 1.9e-6 at most, over WKV_SHAPES
 # and every layer's own inputs in bf16 and float32
 WKV_TOL = 1e-5
@@ -3443,24 +3448,35 @@ def hybrid_phase(dev, seed: int) -> tuple[dict, dict]:
 def wkv_bound(b, t, h, hd, itemsize) -> tuple[float, str]:
     """Least time for W on (b, t, h, hd): r, k, v (of ``itemsize`` bytes)
     and logw (float32) read once, u read once, y and the last state
-    written once (float32); against five float32 operations an element of
-    the state a step (5·b·h·hd²·t): regrouped as y_t = r_tᵀS + (r_t·(u ⊙
-    k_t))·v_t, y takes one multiply-add an element (the rest is O(hd) a
-    step), and S ← w ⊙ S + k_t v_tᵀ one multiply and one multiply-add."""
+    written once (float32); against the recurrence's five float32
+    operations an element of the state a step (5·b·h·hd²·t: y_t regrouped
+    as r_tᵀS + (r_t·(u ⊙ k_t))·v_t, one multiply-add an element; S ← w ⊙ S
+    + k_t v_tᵀ, one multiply and one multiply-add) on the tensor cores,
+    where W runs them, as three TF32 products each (split TF32)."""
     n = b * t * h * hd
     return bound_ms(3 * itemsize * n + 4 * n + 4 * n + 4 * h * hd
-                    + 4 * b * h * hd * hd, 5 * b * h * hd * hd * t)
+                    + 4 * b * h * hd * hd, 3 * 5 * b * h * hd * hd * t,
+                    PEAK_TF32_OPS_S)
 
 
-def wkv_inputs(dev, g, shape, dtype):
+def wkv_cuda_core_ms(b, t, h, hd) -> float:
+    """The same 5·b·h·hd²·t float32 operations at the CUDA cores' rate:
+    the bound W was held to before its products moved to the tensor cores
+    (its earlier step design), printed beside the bound."""
+    return 1e3 * 5 * b * h * hd * hd * t / PEAK_F32_OPS_S
+
+
+def wkv_inputs(dev, g, shape, dtype, shift=0.0):
     """r, k, v N(0, 1) in dtype; logw = -exp(lw), lw spread over the
-    channels as rwkv6's decay base (-6 to -0.5) plus N(0, 0.25), so decays
-    run from 0.37 to 0.9975; u N(0, 0.25), float32."""
+    channels as rwkv6's decay base (-6 to -0.5) plus ``shift`` plus N(0,
+    0.25), so decays run from 0.37 to 0.9975 at shift 0 (at 3, the
+    fastest channels decay by e^-12 a step); u N(0, 0.25), float32."""
     import torch
     b, t, h, hd = shape
     r, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
                for _ in range(3))
-    base = torch.linspace(-6.0, -0.5, h * hd, device=dev).view(h, hd)
+    base = shift + torch.linspace(-6.0, -0.5, h * hd, device=dev).view(
+        h, hd)
     lw = base + 0.5 * torch.randn(shape, generator=g, device=dev)
     u = 0.5 * torch.randn((h, hd), generator=g, device=dev)
     return r, k, v, -torch.exp(lw), u
@@ -3486,9 +3502,9 @@ def wkv_readings(dev, seed: int) -> dict:
 
     g = torch.Generator(device=dev).manual_seed(seed)
     worst = {"y": 0.0, "state": 0.0, "abs": 0.0}
-    for *shape, dt in WKV_SHAPES[::-1]:       # the model's shape last
+    for *shape, dt, shift in WKV_SHAPES[::-1]:   # the model's shape last
         dtype = getattr(torch, dt)
-        r, k, v, logw, u = wkv_inputs(dev, g, tuple(shape), dtype)
+        r, k, v, logw, u = wkv_inputs(dev, g, tuple(shape), dtype, shift)
         before = rwkv6_wkv.launches
         (y, st), (y2, st2) = (rwkv6_wkv(r, k, v, logw, u),
                               rwkv6_wkv(r, k, v, logw, u))
@@ -3501,7 +3517,8 @@ def wkv_readings(dev, seed: int) -> dict:
         rel_y, head_y = wkv_rel(y, want_y, (0, 1, 3))
         rel_s, head_s = wkv_rel(st, want_s, (0, 2, 3))
         err = float((y - want_y).abs().max())
-        print(f"[W] {tuple(shape)} {dt}: y max abs diff {err:.4g} over max "
+        print(f"[W] {tuple(shape)} {dt}, decay shift {shift}: y max abs "
+              f"diff {err:.4g} over max "
               f"|y| {float(want_y.abs().max()):.4g}: {rel_y:.4g}, per head "
               f"max {max(head_y):.4g}; last state {rel_s:.4g}, per head max "
               f"{max(head_s):.4g} (limit {WKV_TOL}); the same bits on a "
@@ -3535,8 +3552,11 @@ def wkv_readings(dev, seed: int) -> dict:
     w_bound, w_by = wkv_bound(b, t, h, hd, r.element_size())
     print(f"[W] {tuple(r.shape)} {r.dtype}, in turns: kernel {t_ms['kernel']} "
           f"ms, plain loop {t_ms['plain']} ms; bound {w_bound:.4f} ms "
-          f"({w_by}), {w_bound / mean['kernel']:.1%} of it; no library call "
+          f"({w_by}), {w_bound / mean['kernel']:.1%} of it (the same "
+          f"operations on the CUDA cores, the step design's bound: "
+          f"{wkv_cuda_core_ms(b, t, h, hd):.4f} ms); no library call "
           f"computes the recurrence | {nvidia_smi_line()}", flush=True)
+    wkv_build_report()
     check(w_bound <= mean["kernel"], "W beat its bound: the bound is not a "
           "floor")
     del r, k, v, logw, y, y2, st, st2, want_y, want_s
@@ -3551,6 +3571,39 @@ def wkv_readings(dev, seed: int) -> dict:
             "rel_err_y": worst["y"], "rel_err_state": worst["state"],
             "max_abs_err_of": "y, over WKV_SHAPES; rel_err_*: max |diff| "
                               "over max |plain|"}
+
+
+def wkv_build_report() -> None:
+    """What ptxas said of W's build (registers, shared memory, spills, each
+    instantiation), its dynamic shared memory a CTA, and its SASS counted
+    (benchmarks_torch.w_sass): tensor-core products and TMA loads in every
+    instantiation, bulk copies between CTAs in those of head size 64 (a
+    cluster of four), no atomic."""
+    import ctypes
+
+    from benchmarks_torch.w_sass import count, disassemble
+    from repro_torch.kernels import _build
+    log = (_build.build_dir() / "rwkv6_wkv.log").read_text()
+    for line in log.splitlines():
+        if any(w in line for w in ("Compiling entry", "registers", "spill",
+                                   "smem")):
+            print(f"[W] ptxas: {line.strip()}", flush=True)
+    lib = _build.load("rwkv6_wkv")
+    lib.rwkv6_wkv_smem_bytes.restype = ctypes.c_int
+    print(f"[W] dynamic shared memory a CTA at head size 64: bf16 "
+          f"{lib.rwkv6_wkv_smem_bytes(64, 1)} B, float32 "
+          f"{lib.rwkv6_wkv_smem_bytes(64, 0)} B; at 16: bf16 "
+          f"{lib.rwkv6_wkv_smem_bytes(16, 1)} B, float32 "
+          f"{lib.rwkv6_wkv_smem_bytes(16, 0)} B", flush=True)
+    sass = count(disassemble())
+    for name, by in sass.items():
+        print(f"[W] SASS {name}: {by}", flush=True)
+    check(all(by["HMMA"] > 0 and by["UTMALDG"] > 0
+              and (by["UBLKCP"] > 0 or "Li64E" not in name)
+              and by["ATOM"] + by["ATOMS"] + by["RED"] == 0
+              for name, by in sass.items()),
+          "W's SASS lacks tensor-core products or TMA loads, or at head size "
+          "64 the bulk copies between the cluster's CTAs, or holds an atomic")
 
 
 @contextlib.contextmanager

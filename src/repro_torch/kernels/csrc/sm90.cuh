@@ -1,10 +1,11 @@
-// The Hopper building blocks of the TMA + wgmma kernels
-// (flash_attention_sm90.cu, flash_attention_sm90_d256.cu,
-// flash_attention_bwd_sm90.cu): mbarriers, TMA tile loads, shared-memory
-// matrix descriptors with 128-byte swizzle, the bf16 wgmma m64n128k16 with
-// both operands in shared memory or A in registers, m64n64k16 from shared
+// The Hopper building blocks of the TMA kernels (flash_attention_sm90.cu,
+// flash_attention_sm90_d256.cu, flash_attention_bwd_sm90.cu and
+// rwkv6_wkv.cu): mbarriers, TMA tile loads, shared-memory matrix
+// descriptors with 128-byte swizzle, the bf16 wgmma m64n128k16 with both
+// operands in shared memory or A in registers, m64n64k16 from shared
 // memory, m64n256k16 with A in registers, and the host-side tensor-map
-// encoding. sm_90a only.
+// encoding; for rwkv6_wkv.cu the split-TF32 mma.sync m16n8k8 and plain
+// (unswizzled) row boxes. sm_90a only.
 #pragma once
 
 #include <cuda.h>
@@ -213,6 +214,31 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// ------------------------------------------------------------ split TF32 --
+// A finite float32 x as hi + lo for TF32 products: hi is x rounded to TF32
+// (the low 13 bits zero, ties away from zero: an integer add and a mask,
+// where cvt.rna.tf32.f32 costs a compare and selects besides), lo = x - hi
+// exactly, |lo| <= 2^-11 |x|, whose low bits the tensor core drops.
+// hi·hi + hi·lo + lo·hi carries a product to ~2^-21 of its size (plain
+// TF32 to ~2^-11).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d (16 x 8, float32) += A (16 x 8, TF32, row) · B (8 x 8, TF32, col), the
+// mma.sync fragments: a0 (g, c), a1 (g + 8, c), a2 (g, c + 4), a3 (g + 8,
+// c + 4); b0 (c, g), b1 (c + 4, g); d0-d1 (g, 2c, 2c + 1), d2-d3 (g + 8,
+// ...), with g = lane / 4 and c = lane % 4.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // ------------------------------------------------------------------- host --
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
@@ -261,6 +287,31 @@ int encode(CUtensorMap* map, const void* ptr, int b, int h, int s, int d,
       fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
          dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(r);
+}
+
+// A contiguous (b, s, h, d) tensor of `type` (elements of `bytes`), read
+// in boxes of `box_d` x 1 head x `box_s` rows, not swizzled: a box lands
+// in shared memory as box_s rows of box_d elements. Rows past s read as
+// zero.
+int encode_rows(CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
+                int bytes, int b, int s, int h, int d, int box_d, int box_s) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return kEncodeError + CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(h),
+                              static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t row = static_cast<cuuint64_t>(d) * bytes;
+  const cuuint64_t strides[3] = {row, row * h, row * h * s};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_d), 1,
+                             static_cast<cuuint32_t>(box_s), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r =
+      fn(map, type, 4, const_cast<void*>(ptr), dims, strides, box, elem,
+         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(r);
 }

@@ -9,10 +9,14 @@ stands for the ``jax.lax.scan`` of ``rwkv6_apply`` and ``rwkv6_prefill``
 in ``src/repro/models/rwkv6.py``.
 
 On a CUDA tensor it launches the kernel (one launch a call, counted in
-``rwkv6_wkv.launches``), held to the plain version by a tolerance (the dk
-sum runs in another fixed order); on a CPU tensor it runs the plain
+``rwkv6_wkv.launches``): the recurrence in chunks of 16 steps, the chunk's
+products with the state and with v on the tensor cores in split TF32, a
+cluster of hd / 16 CTAs a head (``ref.wkv_chunked`` is its arithmetic in
+plain PyTorch). It is held to the plain version by a tolerance, not bit
+for bit; two runs give the same bits. On a CPU tensor it runs the plain
 version. No fallback. The kernel has no backward: on a CUDA tensor that
-requires grad the op raises rather than stop the gradient.
+requires grad the op raises rather than stop the gradient. Its tiles
+arrive by TMA, so r, k, v and logw must start on 16 bytes.
 """
 # repro: hot-path — RWKV6's prefill and forward; no host sync by construction
 from __future__ import annotations
@@ -64,7 +68,7 @@ def _check(r, k, v, logw, u) -> bool:
 
 def _kernel_takes(tensors) -> None:
     """Raise on what the kernel does not take: a gradient, a stride, a head
-    size other than 16 or 64."""
+    size other than 16 or 64, a start off 16 bytes."""
     if torch.is_grad_enabled() and any(x.requires_grad for x in tensors):
         raise ValueError("rwkv6_wkv's kernel has no backward: no gradient is "
                          "taken through RWKV6's recurrence on the card")
@@ -73,6 +77,9 @@ def _kernel_takes(tensors) -> None:
     if tensors[0].shape[-1] not in HEAD_DIMS:
         raise ValueError(f"rwkv6_wkv's kernel takes head sizes {HEAD_DIMS}, "
                          f"not {tensors[0].shape[-1]}")
+    if any(x.data_ptr() % 16 for x in tensors[:4]):
+        raise ValueError("rwkv6_wkv's kernel needs r, k, v and logw aligned "
+                         "to 16 bytes (its tiles arrive by TMA)")
 
 
 def _launch(r, k, v, logw, u, y, state) -> bool:

@@ -54,11 +54,12 @@ the reduced model on the card against the CPU.
 
 rwkv6-3b's kernel: W (``rwkv6_wkv``, port only: RWKV6's WKV recurrence)
 against its plain version run on the card at ``WKV_SHAPES`` (the model's
-layer shape cut to T = 1024, a T that is no multiple of a tile, the
-reduced config's float32 head of 16), y and the last state each within
-WKV_TOL of the plain version's max |value|, overall and per head, the same
-bits on a repeat; raising on a head size other than 16 or 64, a stride
-and a gradient; the reduced model on the card against the CPU.
+layer shape cut to T = 1024, a T that is no multiple of a chunk, the
+reduced config's float32 head of 16, a strong-decay draw), y and the last
+state each within WKV_TOL of the plain version's max |value|, overall and
+per head, the same bits on a repeat; raising on a head size other than 16
+or 64, a stride, a gradient and a start off 16 bytes; the reduced model
+on the card against the CPU.
 """
 import pytest
 import torch
@@ -131,12 +132,16 @@ SCAN_SHAPES = [(1, 8192, 2560), (3, 1000, 2568), (2, 64, 4), (1, 1, 300),
                (2, 65, 260)]
 LRU_SHAPES = [(1, 8192, 2560), (3, 1000, 2568), (2, 64, 8), (1, 1, 296),
               (2, 97, 264), (4, 50, 64)]
-# W at rwkv6-3b's (b, T, H, hd) cut to T = 1024, a T no tile divides, and
-# the reduced config's float32 head of 16; its limit: max |got - want| over
-# max |want|, of y and of the last state, overall and per head
-WKV_SHAPES = [(1, 1024, 40, 64, torch.bfloat16),
-              (2, 77, 40, 64, torch.bfloat16),
-              (3, 1000, 4, 16, torch.float32)]
+# W at rwkv6-3b's (b, T, H, hd) cut to T = 1024, a T no chunk divides, the
+# reduced config's float32 head of 16, and a strong-decay draw (the decay
+# base + 3: the fastest channels decay by e^-12 a step, where cumulative
+# decays over a chunk overflow unless split) at a T no chunk divides; the
+# last entry is that shift of the decay's log-log. Its limit: max |got -
+# want| over max |want|, of y and of the last state, overall and per head
+WKV_SHAPES = [(1, 1024, 40, 64, torch.bfloat16, 0.0),
+              (2, 77, 40, 64, torch.bfloat16, 0.0),
+              (3, 1000, 4, 16, torch.float32, 0.0),
+              (1, 1000, 40, 64, torch.bfloat16, 3.0)]
 WKV_TOL = 1e-5     # chip_smoke.py's: 1.9e-6 at most measured (PERF.md)
 ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-3}
 ATTN_ROW_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-3}
@@ -1106,15 +1111,17 @@ def test_rglru_scan_refuses_what_it_does_not_serve(cuda):
         rglru_lru(off, xi, xr, lam)
 
 
-def _wkv_inputs(shape, dtype, device, seed):
+def _wkv_inputs(shape, dtype, device, seed, shift=0.0):
     """r, k, v N(0, 1) in dtype; logw = -exp(lw) with lw spread over the
-    channels as rwkv6's decay base (-6 to -0.5) plus N(0, 0.25): decays
-    from 0.37 to 0.9975, so that some heads carry S far; u N(0, 0.25)."""
+    channels as rwkv6's decay base (-6 to -0.5) plus ``shift`` plus N(0,
+    0.25): decays from 0.37 to 0.9975 at shift 0, so that some heads carry
+    S far; u N(0, 0.25)."""
     b, t, h, hd = shape
     g = torch.Generator(device=device).manual_seed(seed)
     r, k, v = (torch.randn((b, t, h, hd), generator=g, device=device).to(
         dtype) for _ in range(3))
-    base = torch.linspace(-6.0, -0.5, h * hd, device=device).view(h, hd)
+    base = shift + torch.linspace(-6.0, -0.5, h * hd, device=device).view(
+        h, hd)
     lw = base + 0.5 * torch.randn((b, t, h, hd), generator=g, device=device)
     u = 0.5 * torch.randn((h, hd), generator=g, device=device)
     return r, k, v, -torch.exp(lw), u
@@ -1132,8 +1139,9 @@ def test_rwkv6_wkv_matches_plain(cuda, case):
     """W against its plain version on the card: y and the last state
     within WKV_TOL of the plain version's max |value|, overall and for
     each head; the same bits on a repeat; one launch a call."""
-    *shape, dtype = case
-    r, k, v, logw, u = _wkv_inputs(tuple(shape), dtype, cuda, sum(shape))
+    *shape, dtype, shift = case
+    r, k, v, logw, u = _wkv_inputs(tuple(shape), dtype, cuda, sum(shape),
+                                   shift)
     before = rwkv6_wkv.launches
     y, S = rwkv6_wkv(r, k, v, logw, u)
     y2, S2 = rwkv6_wkv(r, k, v, logw, u)
@@ -1151,7 +1159,8 @@ def test_rwkv6_wkv_matches_plain(cuda, case):
 
 
 def test_rwkv6_wkv_refuses_what_it_does_not_serve(cuda):
-    """No head size but 16 and 64, no stride, no gradient; no fallback."""
+    """No head size but 16 and 64, no stride, no gradient, no start off 16
+    bytes; no fallback."""
     r, k, v, logw, u = _wkv_inputs((1, 8, 2, 32), torch.bfloat16, cuda, 1)
     with pytest.raises(ValueError, match="head sizes"):
         rwkv6_wkv(r, k, v, logw, u)
@@ -1166,3 +1175,6 @@ def test_rwkv6_wkv_refuses_what_it_does_not_serve(cuda):
                   u)
     y, S = rwkv6_wkv(r[:, :0], k[:, :0], v[:, :0], logw[:, :0], u)
     assert y.shape == (1, 0, 2, 64) and not S.any()
+    off = torch.empty(r.numel() + 1, dtype=r.dtype, device=cuda)[1:]
+    with pytest.raises(ValueError, match="16 bytes"):
+        rwkv6_wkv(off.view(r.shape), k, v, logw, u)

@@ -208,6 +208,12 @@ ATTN_SHAPES = [
     (1, 10, 1, 333, 333, 256, True, 96),         # ragged, window
     (1, 2, 2, 100, 300, 256, False, None),       # non-causal, sq != sk
     (1, 8, 8, 1024, 1024, 256, True, None),      # causal, no window
+    # the head_dim 256 kernel's clusters and persistent walk: a 5/1 group,
+    # whose last head has no partner and whose shared and solo tiles both
+    # outnumber the grid; GQA in pairs at batch 2 (40 tiles); one tile
+    (3, 5, 1, 6000, 6000, 256, True, 1000),
+    (2, 8, 2, 640, 640, 256, True, 300),
+    (1, 2, 1, 77, 77, 256, True, None),
     (1, 10, 1, 8192, 8192, 256, True, 2048),     # recurrentgemma-2b's layer
 ]
 LM_ATTN_SHAPE = (1, 32, 8, 8192, 8192, 128, True, None)
@@ -1465,11 +1471,24 @@ def http_phase(dev, uninterrupted: dict) -> None:
     check(total <= HTTP_PHASE_S, f"the serving phase took {total:.1f} s")
 
 
+def poison_next_output(q) -> None:
+    """Leave the output's memory NaN for the next attention call, whose
+    first allocation is its output: with the allocator's cache emptied, the
+    freed NaN block of the output's size is the free block that fits it
+    best (for an output of a MB or more, the only one). So a query tile
+    that a kernel never writes reads NaN, not a stale right answer."""
+    import torch
+    torch.cuda.empty_cache()
+    torch.full_like(q, float("nan"))
+    # the temporary is freed at once, its block back in the cache
+
+
 def attention_readings(dev, seed: int) -> list[dict]:
     """K3 against its plain version at every shape of ATTN_SHAPES in bf16
-    and float32, each through the kernel ``choose_kernel`` names for it:
-    per case the kernel, the max abs and the per-row error, and whether
-    the kernel's own launch count moved and both errors are within their
+    and float32, each through the kernel ``choose_kernel`` names for it,
+    twice: per case the kernel, the max abs and the per-row error, whether
+    the two calls gave the same bits, and whether the kernel's own launch
+    count moved, the bits repeated and both errors are within their
     limits."""
     import torch
     from repro_torch.kernels.flash_attention import ops
@@ -1491,22 +1510,31 @@ def attention_readings(dev, seed: int) -> list[dict]:
             kernel = ops.choose_kernel(q, k, v)
             wrapper = getattr(ops, kernel)
             before = wrapper.launches
+            poison_next_output(q)
             got = ops.flash_attention(q, k, v, causal=causal, window=window)
             launched = wrapper.launches == before + 1
+            poison_next_output(q)
+            again = ops.flash_attention(q, k, v, causal=causal,
+                                        window=window)
             want = ops.flash_attention_plain(q, k, v, causal=causal,
                                              window=window)
             torch.cuda.synchronize()
+            # no atomics anywhere: a second call gives the same bits, and a
+            # race (a stage read before it lands) shows as a difference
+            bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+            repeat = bool(torch.equal(got.contiguous().view(bits),
+                                      again.contiguous().view(bits)))
             name = str(dtype).split(".")[-1]
             err = float((got.float() - want.float()).abs().max())
             row = row_rel_err(got, want)
             out.append({"shape": shape, "dtype": name, "kernel": kernel,
-                        "abs": err, "row": row, "ok": (
-                            launched
+                        "abs": err, "row": row, "repeat": repeat, "ok": (
+                            launched and repeat
                             and tuple(got.shape) == tuple(want.shape)
                             and bool(torch.isfinite(got).all())
                             and err < ATTN_TOL[name]
                             and row < ATTN_ROW_TOL[name])})
-            del q, k, v, got, want
+            del q, k, v, got, again, want
     return out
 
 
@@ -1522,6 +1550,18 @@ def k3_bound(b, hq, hkv, t, d, causal=True, peak=PEAK_BF16_OPS_S,
         pairs = t * (t + 1) / 2 if causal else t * t
     return bound_ms(itemsize * (2 * b * hq * t * d + 2 * b * hkv * t * d),
                     4 * b * hq * d * pairs, peak)
+
+
+def d256_release_order() -> dict:
+    """K3 at head_dim 256's stage releases in its SASS, as
+    ``benchmarks_torch.k3_sass`` reads them: a release right after a
+    product, with no wait for it, is a race that outputs rarely show."""
+    from benchmarks_torch.k3_sass import disassemble, releases
+    order = releases(disassemble())
+    print(f"[K3] head_dim 256 SASS: {order['products']} products, "
+          f"{order['arrivals']} mbarrier arrivals, {len(order['early'])} of "
+          "them after a product with no wait since", flush=True)
+    return order
 
 
 def attention_phase(dev, seed: int) -> tuple[dict, dict, dict]:
@@ -1540,10 +1580,12 @@ def attention_phase(dev, seed: int) -> tuple[dict, dict, dict]:
     for r in attention_readings(dev, seed):
         print(f"[K3] {r['shape']} {r['dtype']} via {r['kernel']}: max abs err "
               f"{r['abs']:.3g} (limit {ATTN_TOL[r['dtype']]}), per row "
-              f"{r['row']:.3g} (limit {ATTN_ROW_TOL[r['dtype']]})", flush=True)
+              f"{r['row']:.3g} (limit {ATTN_ROW_TOL[r['dtype']]}), the same "
+              f"bits on a repeat {r.get('repeat', '-')}", flush=True)
         check(r["ok"], f"K3 ({r['kernel']}) disagrees with its plain version "
-              f"at {r['shape']} {r['dtype']}, or did not launch (or, at "
-              "float32 and head_dim 256, was not refused)")
+              f"at {r['shape']} {r['dtype']}, or with itself on a repeat, or "
+              "did not launch (or, at float32 and head_dim 256, was not "
+              "refused)")
         if r["shape"] == LM_ATTN_SHAPE:
             main_err[r["dtype"]] = (r["abs"], r["row"], r["kernel"])
         if r["shape"] == D256_SHAPE and r["dtype"] == "bfloat16":
@@ -1555,6 +1597,9 @@ def attention_phase(dev, seed: int) -> tuple[dict, dict, dict]:
           and main_err["float32"][2] == "flash_attention_mma"
           and d256_err is not None,
           f"the model's layer shape went to {main_err}")
+    order = d256_release_order()
+    check(not order["early"], "K3 at head_dim 256 frees a stage right after "
+          f"a product, before waiting for it (SASS at {order['early']})")
 
     def timed(t, reps):
         """Both kernels and SDPA (the yardstick) at (1, 32/8, t, 128) bf16

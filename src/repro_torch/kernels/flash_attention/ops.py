@@ -12,9 +12,10 @@ inputs' dtype, head_dim and alignment:
   of shared-memory stages, wgmma) for bf16 with head_dim 120 or 128 and
   16-byte-aligned pointers and strides: the dense models' prefill;
 * ``flash_attention_sm90_d256`` (``csrc/flash_attention_sm90_d256.cu``:
-  the same design laid out for head_dim 256, 64-key blocks in two stages)
-  for bf16 with head_dim 256 and the same alignment: recurrentgemma-2b's
-  local attention;
+  laid out for head_dim 256, 64-key blocks, K and V shared by a cluster of
+  two CTAs, a persistent grid that ``d256_plan`` sizes) for bf16 with
+  head_dim 256 and the same alignment: recurrentgemma-2b's local
+  attention;
 * ``flash_attention_mma`` (``csrc/flash_attention.cu``: mma.sync in bf16,
   CUDA cores in float32) for everything else it takes (head_dim a
   multiple of 8 up to 128).
@@ -100,9 +101,64 @@ def _launcher_sm90_d256():
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                    + [ctypes.c_longlong] * 12
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                      ctypes.c_void_p, ctypes.c_void_p])
+                      ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib, fn
+
+
+@functools.cache
+def _d256_slots(device_index: int) -> dict[int, int]:
+    """How many clusters of 1 and of 2 CTAs of the head_dim 256 kernel the
+    card holds at once (the CUDA occupancy query, once a device)."""
+    lib = _build.load("flash_attention_sm90_d256")
+    fn = lib.flash_attention_sm90_d256_slots
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    slots = {}
+    with torch.cuda.device(device_index):
+        for cluster in (1, 2):
+            n = fn(cluster)
+            if n <= 0:
+                _build.check(lib, -n, "flash_attention_sm90_d256_slots")
+                raise RuntimeError("flash_attention_sm90_d256 fits no "
+                                   f"cluster of {cluster} on the card")
+            slots[cluster] = n
+    return slots
+
+
+D256_BLOCK_Q = 128      # query rows a tile of the head_dim 256 kernel
+
+
+def d256_tiles(b, hq, hkv, sq) -> tuple[int, int, int]:
+    """The work of ``flash_attention_sm90_d256``: (CTAs a cluster, shared
+    tiles, solo tiles), as its ``geometry`` counts them.
+
+    A tile is 128 query rows of one (batch, query head). Where a kv head
+    serves two or more query heads, the kernel runs clusters of 2: the two
+    CTAs take the same query block of two heads of one group, a shared
+    tile, and share each K and V tile (one load, multicast to both); a
+    group's last head when the group is odd has no partner and is a solo
+    tile, one CTA's. Where hq = hkv every tile is solo, and the cluster
+    is 1."""
+    group = hq // hkv
+    cluster = 2 if group >= 2 else 1
+    n_qb = -(-sq // D256_BLOCK_Q)
+    pairs = group // 2 if cluster == 2 else 0
+    return (cluster, n_qb * b * hkv * pairs,
+            n_qb * b * hkv * (group - 2 * pairs))
+
+
+def d256_plan(b, hq, hkv, sq, slots) -> tuple[int, int]:
+    """The launch of ``flash_attention_sm90_d256``: (CTAs a cluster, CTAs
+    in the grid). A pure function of the shape and of ``slots``, the
+    clusters of each size the card holds at once. The grid is persistent:
+    as many clusters as the card holds at once, or as there are tiles
+    (``d256_tiles``) to give them (a cluster a shared tile, a CTA a solo
+    tile), whichever is fewer."""
+    cluster, n_shared, n_solo = d256_tiles(b, hq, hkv, sq)
+    clusters = min(max(n_shared, -(-n_solo // cluster), 1), slots[cluster])
+    return cluster, cluster * clusters
 
 
 @functools.cache
@@ -334,12 +390,13 @@ def flash_attention_sm90_d256(q, k, v, *, causal=True, window=None,
     if sq == 0 or b * hq == 0:
         return out
     lib, fn = _launcher_sm90_d256()
+    cluster, ctas = d256_plan(b, hq, hkv, sq, _d256_slots(q.device.index))
     with torch.cuda.device(q.device):
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   b, hq, hkv, sq, sk, *_tma_strides(q), *_tma_strides(k),
                   *_tma_strides(v), *out.stride()[:3], int(bool(causal)),
                   int(window or 0), d ** -0.5 * math.log2(math.e), lse_ptr,
-                  _stream(q))
+                  cluster, ctas, _stream(q))
     _build.check(lib, code, "flash_attention_sm90_d256")
     flash_attention_sm90_d256.launches += 1
     return out

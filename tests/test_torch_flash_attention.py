@@ -216,6 +216,103 @@ def test_d256_forward_has_no_gradient_kernel():
         ops.check_bwd(q)
 
 
+# d256_plan: (b, hq, hkv, sq, clusters the card holds of 1 and of 2 CTAs)
+# -> (CTAs a cluster, CTAs in the grid)
+H100_SLOTS = {1: 132, 2: 66}
+D256_PLANS = [
+    # recurrentgemma-2b's layer: 64 query blocks x 5 pairs = 320 shared
+    # tiles, walked by the 66 clusters the card holds
+    ((1, 10, 1, 8192, H100_SLOTS), (2, 132)),
+    # MHA: no two heads share a kv head, 64 solo tiles
+    ((1, 8, 8, 1024, H100_SLOTS), (1, 64)),
+    # 5/1: 47 blocks x 3 batches x 2 pairs shared, x 1 lone head solo
+    ((3, 5, 1, 6000, H100_SLOTS), (2, 132)),
+    # GQA in pairs at batch 2: 40 shared tiles, 80 CTAs, no walk
+    ((2, 8, 2, 640, H100_SLOTS), (2, 80)),
+    # one tile
+    ((1, 2, 1, 77, H100_SLOTS), (2, 2)),
+    # 3/1 at one block: a shared tile and a solo one, one cluster
+    ((1, 3, 1, 100, H100_SLOTS), (2, 2)),
+    # MHA with more solo tiles than CTAs the card holds
+    ((2, 8, 8, 8192, H100_SLOTS), (1, 132)),
+    # a card holding fewer clusters of two (a smaller part, another
+    # kernel's neighbours): the grid follows it
+    ((1, 10, 1, 8192, {1: 114, 2: 57}), (2, 114)),
+]
+
+
+@pytest.mark.parametrize("args,want", D256_PLANS,
+                         ids=[str(a[:4]) for a, _ in D256_PLANS])
+def test_d256_plan(args, want):
+    assert ops.d256_plan(*args) == want
+
+
+@pytest.mark.parametrize("args", [a for a, _ in D256_PLANS]
+                         + [(2, 6, 2, 300, {1: 5, 2: 3}),
+                            (1, 7, 1, 1000, {1: 3, 2: 1})],
+                         ids=lambda a: str(a[:4]))
+def test_d256_tiles_count_every_head_once(args):
+    """Each (query block, batch, query head) is in one tile: a shared tile
+    holds two heads of one kv head, a solo tile one; clusters of two only
+    where a kv head serves two or more heads, and then only an odd group's
+    last head is solo. The grid ``d256_plan`` gives has no cluster without
+    a tile and no more than the card holds."""
+    b, hq, hkv, sq, slots = args
+    cluster, n_shared, n_solo = ops.d256_tiles(b, hq, hkv, sq)
+    n_qb = -(-sq // ops.D256_BLOCK_Q)
+    group = hq // hkv
+    assert 2 * n_shared + n_solo == n_qb * b * hq
+    assert cluster == (2 if group >= 2 else 1)
+    assert n_solo == n_qb * b * hkv * (group % 2 if cluster == 2 else group)
+    plan_cluster, ctas = ops.d256_plan(*args)
+    assert plan_cluster == cluster and ctas % cluster == 0
+    clusters = ctas // cluster
+    assert 1 <= clusters <= slots[cluster]
+    assert clusters <= max(n_shared, -(-n_solo // cluster), 1)
+
+
+# a consumer step of the head_dim 256 kernel as cuobjdump prints it: S and
+# P·V issued, the wait for S, K's release, the wait for P·V, V's release
+_D256_STEP = [
+    "WARPGROUP.ARRIVE",
+    "HGMMA.64x64x16.F32.BF16 R152, gdesc[UR20], R152, gsb0",
+    "HGMMA.64x256x16.F32.BF16 R24, R196, gdesc[UR20].tnspB, R24, gsb0",
+    "WARPGROUP.DEPBAR.LE gsb0, 0x1",
+    "@P0 SYNCS.ARRIVE.TRANS64.RED.A1T0 RZ, [UR22], RZ",
+    "WARPGROUP.DEPBAR.LE gsb0, 0x0",
+    "@!P0 SYNCS.ARRIVE.TRANS64.ART0 RZ, [UR12+0x30020], R7",
+]
+
+
+def _sass(functions):
+    """A cuobjdump -sass listing of ``{function name: [instructions]}``."""
+    lines = []
+    for name, body in functions.items():
+        lines.append(f"\t\tFunction : {name}")
+        lines += [f"        /*{16 * k:04x}*/   {ins} ;   /* 0x0 */"
+                  for k, ins in enumerate(body)]
+    return "\n".join(lines)
+
+
+@pytest.mark.parametrize("body,other,early", [
+    (_D256_STEP, [], []),
+    # K released before the wait for S: the planted fault's order
+    (_D256_STEP[:3] + [_D256_STEP[4], _D256_STEP[3]] + _D256_STEP[5:], [],
+     ["0x30"]),
+    # another kernel's order is not read
+    (_D256_STEP, _D256_STEP[:3] + _D256_STEP[4:5], []),
+], ids=["shipped", "release_before_wait", "other_kernel"])
+def test_d256_release_order_reads_the_sass(body, other, early):
+    """``benchmarks_torch.k3_sass.releases``, which the smoke and the fault
+    check run on the card's build: an mbarrier arrival after a product
+    with no wait since is early; one after a wait is not."""
+    from benchmarks_torch.k3_sass import KERNEL, releases
+    sass = _sass({f"_ZN4anon{KERNEL}E4Geom": body,
+                  "_ZN4anon20flash_attn_sm90E4Geom": other})
+    got = releases(sass)
+    assert got == {"arrivals": 2, "products": 2, "early": early}
+
+
 def _bwd_routing_cases():
     """(name, q, k, v, out, dout, backward kernel that
     ``choose_bwd_kernel`` must name)."""

@@ -124,6 +124,12 @@ D256_SHAPES = [
     (1, 10, 1, 333, 333, 256, True, 96),         # ragged, window
     (1, 2, 2, 100, 300, 256, False, None),       # non-causal, sq != sk
     (1, 8, 8, 1024, 1024, 256, True, None),      # causal, no window
+    # the clusters and the persistent walk: a 5/1 group (its last head has
+    # no partner; shared and solo tiles both outnumber the grid), GQA in
+    # pairs at batch 2, a single tile
+    (3, 5, 1, 6000, 6000, 256, True, 1000),
+    (2, 8, 2, 640, 640, 256, True, 300),
+    (1, 2, 1, 77, 77, 256, True, None),
     (1, 10, 1, 8192, 8192, 256, True, 2048),     # the model's layer shape
 ]
 # S at recurrentgemma-2b's (batch, T, lru_width), a ragged one, and edges
@@ -957,12 +963,15 @@ def test_reduced_bf16_model_takes_an_adamw_step_through_the_hopper_bwd(cuda):
 @pytest.mark.parametrize("shape", D256_SHAPES)
 def test_flash_attention_sm90_d256_matches_plain(cuda, shape):
     """The Hopper kernel at head_dim 256 through the op's routing; only its
-    own launch count moves; two calls give the same bits."""
+    own launch count moves; two calls give the same bits. The output's
+    memory is left NaN beforehand, so a tile the walk skips shows."""
     causal, window = shape[6], shape[7]
     q, k, v = _qkv(shape, torch.bfloat16, cuda)
     assert choose_kernel(q, k, v) == "flash_attention_sm90_d256"
     counts = [w.launches for w in (flash_attention_sm90_d256,
                                    flash_attention_sm90, flash_attention_mma)]
+    torch.cuda.empty_cache()
+    torch.full_like(q, float("nan"))     # freed at once, its block cached
     got = flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert [w.launches for w in (flash_attention_sm90_d256,

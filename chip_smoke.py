@@ -117,8 +117,26 @@ Phases, in order; any failure exits non-zero before the result line:
      the forward (read; ms a step); the same model in float32: W per
      layer, the logits at every position, the prefill step's and the
      decode seam held; the serve launcher (8 requests, 4 slots);
- 19. one JSON line with every kernel's launches, error and times;
- 20. the last line, ``{"ok": true, "device": {...}}``.
+ 19. Nelder-Mead, the paper's baseline (``[nm]``, NM_SPHERE): the sphere
+     at n = 2; ABO's fun below Nelder-Mead's at n = 200 with Nelder-Mead's
+     budget ABO's own fe; its chunks as CUDA graphs against the same
+     chunks run eagerly, in turns; the MemoryError at n = 1e5 under 8 GiB, raised
+     before any allocation; one run read at n = 1e4 (wall, iterations,
+     host reads, peak memory against ``simplex_bytes``);
+ 20. the port's examples (``[examples]``): each ``examples_torch/`` script
+     in a child process on the card, importing no JAX (quickstart at
+     n = 1e6 held to 1e-6, calibrate_watershed at n = 1e5 held to the JAX
+     package's residual, solve_service's 12 jobs drained, serve_decode's
+     12 requests answered, train_lm_abo's losses finite);
+ 21. whisper-small at full width (``[whisper]``, WHISPER_ARCH): K3 at the
+     encoder's and the cross-attention's shapes against its plain version
+     and timed in turns with SDPA; the prefill step (the forward with
+     frames: 36 launches, all of the mma.sync kernel; wall, tokens/s, peak
+     memory); the forward against its plain-attention run (K3 on every
+     encoder, self and cross layer's own q, k, v; the logits at every
+     position); fill_cross_cache and 8 decode steps against the forward;
+ 22. one JSON line with every kernel's launches, error and times;
+ 23. the last line, ``{"ok": true, "device": {...}}``.
 
 Imports torch and the port only. Exits non-zero, printing no result, when
 no CUDA device is present or the port's sources are not beside this file.
@@ -495,6 +513,53 @@ RWKV_DECODE_TOL = 1e-3
 # the phase's time limit: the plain forward steps every layer's
 # recurrence in Python (8192 steps x 32 layers)
 RWKV_PHASE_S = 120
+
+# Phase 19 ([nm]): Nelder-Mead, the paper's baseline, on the card. The
+# claims of tests/test_abo.py at its sizes: the sphere at n = 2 from 5.0
+# below 1e-6 within 2000 evaluations; at n = 200 from 141.6, ABO's fun
+# below Nelder-Mead's with Nelder-Mead's budget ABO's own fe (Griewank in
+# its direct form, griewank_naive: the tile form pads each of the 201
+# vertices to 4096 coordinates); the MemoryError at n = 1e5 under 8 GiB.
+# Then one run read, not held: n = 1e4 (a 400 MB float32 simplex) at
+# max_fe = 5n (a shrink costs n evaluations).
+NM_SPHERE = (2, 5.0, 2000)
+NM_N, NM_X0 = 200, 141.6
+NM_TURN_IT = 640           # iterations of each graph-or-eager turn at NM_N
+NM_CRASH_N, NM_BUDGET = 100_000, 8 << 30
+NM_READ_N = 10_000
+NM_READ_FE = 5 * NM_READ_N
+NM_PHASE_S = 120
+
+# Phase 20 ([examples]): each examples_torch/ script in a child process on
+# the card, all at once (each reads its own device times). quickstart at
+# its default n = 1e6 is held to phase 6's 1e-6; calibrate_watershed at
+# n = 1e5 to the JAX package's own residual there (examples/
+# calibrate_watershed.py's objective, abo_minimize with n_passes=6, XLA:CPU,
+# float32) with 0.1% for the card's order of summation; solve_service
+# drains its 12 jobs; serve_decode answers its 12 requests; train_lm_abo
+# runs EXAMPLE_TRAIN_STEPS of each optimizer to finite losses.
+EXAMPLE_WATERSHED_N = 100_000
+EXAMPLE_WATERSHED_JAX = 0.0060116201639175415
+EXAMPLE_TRAIN_STEPS = 5
+EXAMPLES_PHASE_S = 180
+
+# Phase 21 ([whisper]): whisper-small at full width (arXiv:2212.04356; 12
+# encoder and 12 decoder layers, d 768, 12/12 heads of 64, vocab 51,865),
+# bf16, random weights from the seed, nothing cut. The frames stand in for
+# the stubbed conv front end: (WHISPER_B, encoder_len = 1500, 768) from the
+# seed; the decoder reads WHISPER_T tokens, whisper's published text
+# context. K3 runs at head_dim 64 on the mma.sync kernel: the encoder's
+# self-attention (non-causal, 1500 keys: 23 blocks of 64 and a ragged 28),
+# the decoder's causal self-attention and its cross-attention (sq = 448,
+# sk = 1500), 36 launches a forward.
+WHISPER_ARCH = "whisper-small"
+WHISPER_B, WHISPER_T = 4, 448
+WHISPER_DECODE = 8
+# fill_cross_cache + 8 decode steps against the forward's logits at
+# positions 0..7, over the max |logit|: pinned from the first card reading,
+# 0.01207 (PERF.md, whisper-small), at about twice it
+WHISPER_DECODE_TOL = 0.025
+WHISPER_PHASE_S = 60
 
 
 def fail(msg: str) -> None:
@@ -980,6 +1045,7 @@ def ckpt_phase(dev, uninterrupted: dict) -> None:
         snaps.append((ms, sum(f.stat().st_size for f in step.iterdir())))
         return out
 
+    parts: dict = {}           # the phase's wall in parts, from its prints
     cases = (("snapshot kill", CKPT_SNAPSHOT_KILL, ["--ckpt-every", "1"],
               "tmp_snapshot", {}),
              ("journal kill", CKPT_JOURNAL_KILL, ["--journal-every", "2"],
@@ -990,14 +1056,17 @@ def ckpt_phase(dev, uninterrupted: dict) -> None:
         t0 = time.perf_counter()
         out = ckpt_child(ENGINE_MAIN + ["--ckpt-dir", d] + flags, inject,
                          timeout=CKPT_PHASE_S)
+        t_child = time.perf_counter() - t0
         print(f"[ckpt] {what}: solve_server {' '.join(flags)} under "
               f"REPRO_INJECT_FAULTS={inject} exited {out.returncode} after "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
+              f"{t_child:.1f} s", flush=True)
         check(out.returncode == 137, f"[ckpt] {what}: the child exited "
               f"{out.returncode}, not 137: {out.stderr[-2000:]}")
+        t0 = time.perf_counter()
         rc, kinds = run_fsck(d, repair=False)
         rc_fix, _ = run_fsck(d, repair=True)
         rc_after, kinds_after = run_fsck(d, repair=False)
+        t_fsck = time.perf_counter() - t0
         print(f"[ckpt] {what}: fsck exit {rc} findings {kinds}; --repair "
               f"exit {rc_fix}; then exit {rc_after} findings {kinds_after}",
               flush=True)
@@ -1041,10 +1110,19 @@ def ckpt_phase(dev, uninterrupted: dict) -> None:
               f"max {max(ms, default=0.0):.1f} ms)", flush=True)
         check(left and durable, f"[ckpt] {what}: nothing was left to resume")
         check(bool(ms), f"[ckpt] {what}: the resumed run cut no snapshot")
+        parts[what] = {"child to its kill": t_child,
+                       "3 fsck processes": t_fsck, "resume": t_resume,
+                       "resumed drain": t_run}
         del eng
     shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
     total = time.perf_counter() - t_phase
+    named = sum(sum(p.values()) for p in parts.values())
+    print(f"[ckpt] phase parts (s): "
+          + "; ".join(f"{w}: " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                           p.items())
+                      for w, p in parts.items())
+          + f"; the rest (checks, copies) {total - named:.1f}", flush=True)
     print(f"[ckpt] phase took {total:.1f} s (limit {CKPT_PHASE_S} s) | "
           f"{nvidia_smi_line()}", flush=True)
     check(total <= CKPT_PHASE_S, f"the checkpoint phase took {total:.1f} s")
@@ -1325,9 +1403,11 @@ def http_phase(dev, uninterrupted: dict) -> None:
         # the 24 submissions arrive as one burst, as phase 7 submits them
         # all before its drain, and each client long-polls its own job
         recs = [{"job": job, "statuses": []} for job in HTTP_JOBS]
+        t_burst = time.perf_counter()
         t0 = time.time()
         in_threads(client(port, ()), recs, t_end)
         wall = max(rec.get("t_done", math.inf) for rec in recs) - t0
+        t_burst = time.perf_counter() - t_burst
         steps = json.loads(http_call(port, "GET", "/stats")[1])["steps"]
         lat = probe_readings(probe, stop_a, probe_a)["ms"]
         # one more /result a size with the engine idle: what building and
@@ -1335,7 +1415,9 @@ def http_phase(dev, uninterrupted: dict) -> None:
         again = {n: http_call(port, "GET", f"/result?job_id={rec['jid']}")
                  for rec in recs[:len(HTTP_MIX)]
                  for n in [rec["job"][1]]}
+        t_stop = time.perf_counter()
         rc = stop_child(child)
+        t_stop = time.perf_counter() - t_stop
         ok_lat = [v for v in lat if v is not None]
         statuses = sorted({s for rec in recs for s in rec["statuses"]})
         check(not any("error" in rec for rec in recs), f"[http] (a) a "
@@ -1380,13 +1462,16 @@ def http_phase(dev, uninterrupted: dict) -> None:
               f"probes, 0 failed, p50 {pct(ok_lat, 0.5):.2f} ms, max "
               f"{max(ok_lat):.2f} ms", flush=True)
 
+        t_a = time.perf_counter() - t_phase
         # ---- (b) the router, worker 0 killed -------------------------------
+        t_b = time.perf_counter()
         rport = wait_port_file(pf_b, router, 60)
         # the router serves once both workers listen
         st, data, _, _ = http_call(rport, "GET", "/healthz", timeout=150)
         health = json.loads(data)
         check(st == 200 and health["status"] == "ok", f"[http] (b) the "
               f"router is not healthy: {st} {health}")
+        t_healthy = time.perf_counter() - t_b
         stop_b, probe_b = (os.path.join(root, f"b.{s}")
                            for s in ("stop", "probe.json"))
         probe = start([sys.executable, "-c", HTTP_PROBE, str(rport),
@@ -1399,7 +1484,9 @@ def http_phase(dev, uninterrupted: dict) -> None:
         seen = probe_readings(probe, stop_b, probe_b)
         health = json.loads(http_call(rport, "GET", "/healthz")[1])
         st_m, metrics, _, _ = http_call(rport, "GET", "/metrics")
+        t_stop_b = time.perf_counter()
         rc = stop_child(router)
+        t_stop_b = time.perf_counter() - t_stop_b
         statuses = [s for rec in recs for s in rec["statuses"]]
         errors = [rec["error"] for rec in recs if "error" in rec]
         lost = [rec["job"] for rec in recs if "out" not in rec]
@@ -1455,6 +1542,13 @@ def http_phase(dev, uninterrupted: dict) -> None:
         print(f"[http] (b) every fun and history bit for bit (w1's phase "
               f"7's, w0's abo_minimize's on the card); replies with x, held "
               f"too: {with_x} of 6 each", flush=True)
+        t_b = time.perf_counter() - t_b
+        print(f"[http] phase parts (s): (a) {t_a:.1f}: spawn to listening "
+              f"{t_ready:.1f} (the 6 references on the card {t_solo:.1f} of "
+              f"it), the burst's clients {t_burst:.1f}, SIGTERM to exit "
+              f"{t_stop:.1f}; (b) {t_b:.1f}: until the router is healthy "
+              f"{t_healthy:.1f}, the jobs {wall:.1f}, SIGTERM to exit "
+              f"{t_stop_b:.1f}", flush=True)
     finally:
         for p in procs:
             if p.poll() is None:
@@ -2101,12 +2195,18 @@ def train_bwd_readings(dev, seed: int) -> list[dict]:
 
 
 def bwd_times(dev, seed: int, b, hq, hkv, t, d, reps: int, dtype="bfloat16",
-              plain=True) -> dict:
+              plain=True, device_only=False) -> dict:
     """The K3-bwd kernels that take (b, hq/hkv, t, d) causal in ``dtype``
     (the Hopper one in bf16 at head_dim 120 or 128, the mma.sync one always)
     and SDPA's backward, timed in turns (Hopper, mma, SDPA, SDPA, mma,
     Hopper), each over ``reps`` calls; the plain version's time unless
-    ``plain`` is False; the bound. The lse and O come from the forward."""
+    ``plain`` is False; the bound. The lse and O come from the forward.
+
+    With ``device_only``, each turn is timed twice, by ``cuda_ms`` (events
+    around the host's loop: a host stall between calls counts) and then by
+    ``queued_ms`` (the calls queued behind a device sleep: device time
+    alone); ``turns`` and ``ms`` are the second, ``turns_events`` the
+    first."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa
@@ -2131,13 +2231,18 @@ def bwd_times(dev, seed: int, b, hq, hkv, t, d, reps: int, dtype="bfloat16",
     for fn in runs.values():
         fn()                                              # warm-up
     turns = {n: [] for n in runs}
+    events = {n: [] for n in runs}
     for n in order:
-        turns[n].append(cuda_ms(runs[n], reps))
+        if device_only:
+            events[n].append(cuda_ms(runs[n], reps))
+            turns[n].append(queued_ms(runs[n], reps))
+        else:
+            turns[n].append(cuda_ms(runs[n], reps))
     peak, size = ((PEAK_BF16_OPS_S, 2) if dt == torch.bfloat16
                   else (PEAK_F32_OPS_S, 4))
     bound, by = bwd_bound(b, hq, hkv, t, d, peak=peak, itemsize=size)
     out = {"shape": f"{dtype} ({b}, {hq}/{hkv}, {t}, {d}) causal",
-           "turns": turns,
+           "turns": turns, "turns_events": events if device_only else None,
            "ms": {n: sum(x) / len(x) for n, x in turns.items()},
            "plain_ms": (cuda_ms(lambda: fa.flash_attention_bwd_plain(
                q, k, v, dout), 3) if plain else None),
@@ -2155,9 +2260,15 @@ def print_bwd_times(tag: str, r: dict) -> None:
               if "sm90" in ms else "")
     plain = (f"plain {r['plain_ms']:.3f} ms, " if r["plain_ms"] is not None
              else "")
-    print(f"{tag} K3-bwd at {r['shape']}, in turns: {hopper}mma.sync "
+    timer = ("device only (queued_ms), " if r["turns_events"] is not None
+             else "")
+    print(f"{tag} K3-bwd at {r['shape']}, in turns, {timer}{hopper}mma.sync "
           f"{r['turns']['mma']} ms, SDPA's backward {r['turns']['sdpa']} ms; "
           f"{plain}bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+    if r["turns_events"] is not None:
+        print(f"{tag} K3-bwd at {r['shape']}, the same turns by events "
+              f"around the host's loop (cuda_ms): {r['turns_events']} ms",
+              flush=True)
 
 
 def bwd_long_reading(dev, seed: int) -> dict:
@@ -2675,7 +2786,11 @@ def moe_kernel_times(dev, seed: int) -> dict:
           "K3 disagrees with its plain version at the MoE layer shape")
     del q, k, v, runs
 
-    r = bwd_times(dev, seed, TRAIN_B, 16, 16, TRAIN_T, 128, 20, plain=False)
+    # device time alone: at ~0.18 ms a call of three launches and a Python
+    # wrapper, a host stall inside the events' window once read 1.2305 ms
+    # (PERF.md section 7); the events' reading is printed beside it
+    r = bwd_times(dev, seed, TRAIN_B, 16, 16, TRAIN_T, 128, 20, plain=False,
+                  device_only=True)
     print_bwd_times("[moe]", r)
     ms = r["ms"]
     check(ms["sm90"] < ms["mma"], f"the Hopper K3-bwd ({ms['sm90']:.4f} ms) "
@@ -2683,6 +2798,8 @@ def moe_kernel_times(dev, seed: int) -> dict:
           "olmoe's AdamW shape")
     out["bwd"] = {"shape": r["shape"], "ms": ms["sm90"],
                   "library_ms": ms["sdpa"], "mma_ms": ms["mma"],
+                  "timer": "queued_ms (device only)",
+                  "turns_events": r["turns_events"],
                   "bound_ms": r["bound_ms"], "bound_by": r["bound_by"]}
     return out
 
@@ -3866,6 +3983,506 @@ def rwkv6_phase(dev, seed: int) -> dict:
     return wkv
 
 
+# ---------------------------------------------------------------------------
+# phase 19: Nelder-Mead, the paper's baseline
+# ---------------------------------------------------------------------------
+def nm_graph_turns(dev) -> tuple[list, list]:
+    """Nelder-Mead at NM_N for NM_TURN_IT iterations with each chunk
+    replayed as a CUDA graph and, with GRAPH_MAX_BYTES set to 0, run
+    eagerly, in turns (graph, eager, eager, graph): ms an iteration of
+    each, wall over iterations; checks that both give the same bits."""
+    import importlib
+
+    import torch
+    from repro_torch.objectives import griewank_naive
+    from repro_torch.optim import nelder_mead
+    mod = importlib.import_module("repro_torch.optim.nelder_mead")
+    x0 = torch.full((NM_N,), NM_X0, device=dev)
+    ms, out = {"graph": [], "eager": []}, {}
+    saved = mod.GRAPH_MAX_BYTES
+    for how in ("graph", "eager", "eager", "graph"):
+        mod.GRAPH_MAX_BYTES = saved if how == "graph" else 0
+        try:
+            t0 = time.perf_counter()
+            r = nelder_mead(griewank_naive, x0,
+                            max_fe=NM_N + 1 + 2 * NM_TURN_IT)
+            ms[how].append(1e3 * (time.perf_counter() - t0) / r.iterations)
+        finally:
+            mod.GRAPH_MAX_BYTES = saved
+        out[how] = r
+    check(torch.equal(out["graph"].x, out["eager"].x)
+          and out["graph"].fe == out["eager"].fe,
+          "Nelder-Mead's graph replay differs from its eager chunks")
+    return ms["graph"], ms["eager"]
+
+
+def nm_phase(dev, seed: int) -> dict:
+    """Phase 19 (see NM_SPHERE): Nelder-Mead on the card. Returns the
+    readings of its run at NM_READ_N."""
+    import torch
+    from repro_torch.core import abo_minimize
+    from repro_torch.objectives import GRIEWANK, griewank_naive
+    from repro_torch.optim import nelder_mead, simplex_bytes
+
+    smi = nvidia_smi_line()
+    t_phase = time.perf_counter()
+    n, x0, max_fe = NM_SPHERE
+    t0 = time.perf_counter()
+    r = nelder_mead(lambda x: torch.sum(x * x),
+                    torch.full((n,), x0, device=dev), max_fe=max_fe)
+    print(f"[nm] sphere n={n} from {x0}: fun {r.fun!r} (limit 1e-6), fe "
+          f"{r.fe}, {r.iterations} iterations, converged {r.converged}, "
+          f"{time.perf_counter() - t0:.2f} s | {smi}", flush=True)
+    check(r.fun < 1e-6 and r.x.device.type == dev.type,
+          f"Nelder-Mead on the sphere ended at {r.fun}")
+
+    abo = abo_minimize(GRIEWANK, NM_N, device=dev)
+    stats: dict = {}
+    t0 = time.perf_counter()
+    nm = nelder_mead(griewank_naive, torch.full((NM_N,), NM_X0, device=dev),
+                     max_fe=abo.fe, stats=stats)
+    wall = time.perf_counter() - t0
+    print(f"[nm] Griewank n={NM_N} from {NM_X0} at Nelder-Mead's max_fe = "
+          f"ABO's fe {abo.fe}: ABO fun {abo.fun!r}, Nelder-Mead fun "
+          f"{nm.fun!r} (fe {nm.fe}, {nm.iterations} iterations, "
+          f"{stats['host_reads']} host reads, {wall:.2f} s, "
+          f"{1e3 * wall / max(nm.iterations, 1):.4f} ms an iteration) | "
+          f"{smi}", flush=True)
+    check(abo.fun < nm.fun and abo.fe <= nm.fe + 1,
+          f"ABO ({abo.fun}, fe {abo.fe}) does not beat Nelder-Mead "
+          f"({nm.fun}, fe {nm.fe}) at equal evaluations")
+    graph, eager = nm_graph_turns(dev)
+    print(f"[nm] n={NM_N}, {NM_TURN_IT} iterations, in turns: chunks of 64 "
+          f"replayed as one CUDA graph each {graph} ms an iteration "
+          f"(capture included), the same chunks eagerly {eager} ms, the same "
+          f"bits | {smi}", flush=True)
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    try:
+        nelder_mead(griewank_naive, torch.zeros(NM_CRASH_N, device=dev),
+                    memory_budget_bytes=NM_BUDGET)
+        crashed = None
+    except MemoryError as e:
+        crashed = str(e)
+    print(f"[nm] n={NM_CRASH_N} under a {NM_BUDGET} B budget: MemoryError "
+          f"{crashed!r}; device memory allocated {before} B before, "
+          f"{torch.cuda.memory_allocated()} B after", flush=True)
+    check(crashed is not None and torch.cuda.memory_allocated() == before,
+          f"Nelder-Mead at n={NM_CRASH_N} did not refuse before allocating")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    x0 = torch.full((NM_READ_N,), NM_X0, device=dev)
+    base = torch.cuda.memory_allocated()
+    stats = {}
+    t0 = time.perf_counter()
+    big = nelder_mead(griewank_naive, x0, max_fe=NM_READ_FE, stats=stats)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    need = simplex_bytes(NM_READ_N)
+    read = {"n": NM_READ_N, "max_fe": NM_READ_FE, "fun": big.fun,
+            "fe": big.fe, "iterations": big.iterations,
+            "host_reads": stats["host_reads"], "wall_s": wall,
+            "ms_per_iteration": 1e3 * wall / max(big.iterations, 1),
+            "peak_bytes": peak, "simplex_bytes": need}
+    print(f"[nm] read, not held: Griewank n={NM_READ_N} from {NM_X0}, "
+          f"max_fe {NM_READ_FE}: fun {big.fun!r}, fe {big.fe}, "
+          f"{big.iterations} iterations, {stats['host_reads']} host reads "
+          f"(one a chunk of 64 and the result's), wall {wall:.2f} s "
+          f"({read['ms_per_iteration']:.4f} ms an iteration); peak device "
+          f"memory {peak} B = {peak / need:.3f} x simplex_bytes {need} | "
+          f"{smi}", flush=True)
+    check(math.isfinite(big.fun) and big.iterations > 0,
+          "the Nelder-Mead run at n = 1e4 did not run")
+    del x0, big
+    torch.cuda.empty_cache()
+    total = time.perf_counter() - t_phase
+    print(f"[nm] phase took {total:.1f} s (limit {NM_PHASE_S} s) | {smi}",
+          flush=True)
+    check(total <= NM_PHASE_S, f"the Nelder-Mead phase took {total:.1f} s")
+    return read
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the port's examples
+# ---------------------------------------------------------------------------
+# Run in each [examples] child: refuses JAX, the JAX package and its
+# benchmarks at import, then runs the example script named by the second
+# argument as __main__ with the rest of the arguments (the first is the
+# port's source directory).
+EXAMPLE_CHILD = r"""
+import runpy
+import sys
+FOREIGN = ("jax", "jaxlib", "repro", "benchmarks")
+
+
+class NoForeign:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in FOREIGN:
+            raise ImportError(f"a chip_smoke child imported {name}")
+        return None
+
+
+sys.meta_path.insert(0, NoForeign())
+sys.path.insert(0, sys.argv[1])
+sys.argv = sys.argv[2:]
+runpy.run_path(sys.argv[0], run_name="__main__")
+foreign = sorted(m for m in sys.modules if m.split(".")[0] in FOREIGN)
+if foreign:
+    raise SystemExit(f"a chip_smoke child imported {foreign[:5]}")
+"""
+
+
+def _printed(out: str, prefix: str) -> str:
+    """The rest of the first line of ``out`` that starts with ``prefix``."""
+    for line in out.splitlines():
+        if line.startswith(prefix):
+            return line[len(prefix):]
+    fail(f"no line starting {prefix!r} in:\n{out[-2000:]}")
+
+
+def examples_phase() -> dict:
+    """Phase 20 (see EXAMPLE_WATERSHED_N): each examples_torch/ script in a
+    child process on the card, all at once. Returns each one's wall and
+    what it printed that the phase holds."""
+    import shutil
+    smi = nvidia_smi_line()
+    t_phase = time.perf_counter()
+    root = os.path.join(ROOT, "build", "examples_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    runs = {"quickstart": [],
+            "calibrate_watershed": ["--n", str(EXAMPLE_WATERSHED_N)],
+            "solve_service": [],
+            "serve_decode": [],
+            "train_lm_abo": ["--steps", str(EXAMPLE_TRAIN_STEPS),
+                             "--ckpt-dir", os.path.join(root, "train")]}
+    procs, logs = {}, {}
+    try:
+        for name, argv in runs.items():
+            logs[name] = open(os.path.join(root, f"{name}.log"), "w+")
+            procs[name] = (time.perf_counter(), subprocess.Popen(
+                [sys.executable, "-c", EXAMPLE_CHILD,
+                 os.path.join(ROOT, "src"),
+                 os.path.join(ROOT, "examples_torch", f"{name}.py"), *argv],
+                stdout=logs[name], stderr=subprocess.STDOUT, text=True))
+        walls, outs = {}, {}
+        for name, (t0, proc) in procs.items():
+            left = EXAMPLES_PHASE_S - (time.perf_counter() - t_phase)
+            try:
+                rc = proc.wait(timeout=max(left, 1.0))
+            except subprocess.TimeoutExpired:
+                rc = None
+            walls[name] = time.perf_counter() - t0
+            logs[name].seek(0)
+            outs[name] = logs[name].read()
+            print(f"[examples] {name} {' '.join(runs[name])}: exit {rc} "
+                  f"after {walls[name]:.1f} s (beside the other four)",
+                  flush=True)
+            for line in outs[name].splitlines():
+                print(f"[examples]   {line}", flush=True)
+            check(rc == 0, f"[examples] {name} exited {rc}:\n"
+                  f"{outs[name][-3000:]}")
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+        for log in logs.values():
+            log.close()
+    quick = float(_printed(outs["quickstart"], "  best objective : ")
+                  .split()[0])
+    water = float(_printed(outs["calibrate_watershed"], "  J(k) residual  : "))
+    limit = EXAMPLE_WATERSHED_JAX * 1.001
+    steps = [line for line in outs["solve_service"].splitlines()
+             if line.startswith("  step ")]
+    adamw = float(_printed(outs["train_lm_abo"], "AdamW : loss ").split()[0])
+    zo = float(_printed(outs["train_lm_abo"], "ABO-ZO: loss ").split()[0])
+    held = {"quickstart_fun": quick, "watershed_residual": water,
+            "solve_service_last_step": steps[-1] if steps else None,
+            "serve": _printed(outs["serve_decode"], "[serve] "),
+            "train_losses": (adamw, zo), "walls": walls}
+    print(f"[examples] quickstart fun {quick!r} (limit 1e-6); watershed "
+          f"residual {water!r} as printed (limit {limit!r}: the JAX "
+          f"package's {EXAMPLE_WATERSHED_JAX!r} x 1.001); solve_service "
+          f"{held['solve_service_last_step']!r}; serve_decode "
+          f"{held['serve']!r}; train_lm_abo losses AdamW {adamw!r}, ABO-ZO "
+          f"{zo!r} | {smi}", flush=True)
+    check(quick < 1e-6, f"[examples] quickstart ended at {quick}")
+    check(water <= limit, f"[examples] the watershed residual {water} is "
+          f"above {limit}")
+    check(bool(steps) and "done=12" in steps[-1],
+          "[examples] solve_service did not drain its 12 jobs")
+    check(held["serve"].startswith("12/12 requests"),
+          "[examples] serve_decode did not answer its 12 requests")
+    check(math.isfinite(adamw) and math.isfinite(zo),
+          "[examples] train_lm_abo's losses are not finite")
+    shutil.rmtree(root, ignore_errors=True)
+    total = time.perf_counter() - t_phase
+    print(f"[examples] phase took {total:.1f} s (limit {EXAMPLES_PHASE_S} "
+          f"s) | {smi}", flush=True)
+    check(total <= EXAMPLES_PHASE_S, f"the examples phase took {total:.1f} s")
+    return held
+
+
+# ---------------------------------------------------------------------------
+# phase 21: whisper-small, the encoder-decoder
+# ---------------------------------------------------------------------------
+def k3_bound_cross(b, hq, hkv, sq, sk, d, peak=PEAK_BF16_OPS_S,
+                   itemsize=2) -> tuple[float, str]:
+    """Least time for non-causal attention of sq queries over sk keys: Q,
+    K, V and O moved once; 4·d FLOP a (query, key) pair."""
+    return bound_ms(itemsize * (2 * b * hq * sq * d + 2 * b * hkv * sk * d),
+                    4 * b * hq * d * sq * sk, peak)
+
+
+@contextlib.contextmanager
+def plain_attention_read(layers: list):
+    """As ``plain_attention``, appending each call's (kind, overall, per
+    row) to ``layers``: kind "encoder" (non-causal, sq = sk), "cross"
+    (non-causal, sq != sk) or "self" (causal); overall the max |K3 -
+    plain| over the max |plain|, per row ``row_rel_err``."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_plain)
+    from repro_torch.models import attention
+
+    def both(q, k, v, *, causal=True, window=None):
+        want = flash_attention_plain(q, k, v, causal=causal, window=window)
+        with torch.no_grad():
+            got = flash_attention(q, k, v, causal=causal, window=window)
+            kind = ("self" if causal else
+                    "encoder" if q.shape[2] == k.shape[2] else "cross")
+            layers.append((kind, float((got.float() - want.float()).abs()
+                                       .max() / want.float().abs().max()),
+                           row_rel_err(got, want)))
+        return want
+
+    saved = attention.flash_attention
+    attention.flash_attention = both
+    try:
+        yield
+    finally:
+        attention.flash_attention = saved
+
+
+def whisper_k3_times(dev, seed: int, cfg) -> dict:
+    """K3 (the mma.sync kernel) at the encoder's (B, 12/12, 1500, 64) and
+    the cross-attention's (B, 12/12, 448 x 1500, 64), bf16 non-causal,
+    against the plain version, then timed in turns with SDPA (kernel, SDPA,
+    SDPA, kernel) beside the plain version and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa
+    out = {}
+    h, d, te = cfg.n_heads, cfg.head_dim, cfg.encoder_len
+    for what, sq in (("encoder", te), ("cross", WHISPER_T)):
+        q, k, v = _qkv(dev, seed, WHISPER_B, h, h, sq, te, d, torch.bfloat16)
+        kernel = fa.choose_kernel(q, k, v)
+        got = fa.flash_attention_mma(q, k, v, causal=False)
+        want = fa.flash_attention_plain(q, k, v, causal=False)
+        err = float((got.float() - want.float()).abs().max())
+        row_bf16 = row_rel_err(got, want)
+        # the bf16 plain version rounds its scores to bf16, which moves a
+        # long row's small outputs by ~0.019 of their max: the kernel
+        # (float32 scores) is held to the plain version on float64 copies
+        # of the inputs, and to be no further from it than that is
+        exact = fa.flash_attention_plain(q.double(), k.double(), v.double(),
+                                         causal=False)
+        row = row_rel_err(got, exact)
+        row_plain = row_rel_err(want, exact)
+        del exact
+        runs = {"kernel": lambda: fa.flash_attention_mma(q, k, v,
+                                                         causal=False),
+                "sdpa": lambda: F.scaled_dot_product_attention(q, k, v)}
+        for fn in runs.values():
+            fn()                                           # warm-up
+        ms = {n: [] for n in runs}
+        for n in ("kernel", "sdpa", "sdpa", "kernel"):
+            ms[n].append(cuda_ms(runs[n], 20))
+        plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v,
+                                                            causal=False), 3)
+        bound, by = k3_bound_cross(WHISPER_B, h, h, sq, te, d)
+        mean = {n: sum(x) / len(x) for n, x in ms.items()}
+        shape = f"bf16 ({WHISPER_B}, {h}/{h}, {sq} x {te}, {d}) non-causal"
+        print(f"[whisper] K3 at the {what}'s {shape} via {kernel}: max abs "
+              f"err {err:.3g} (limit {ATTN_TOL['bfloat16']}), per row "
+              f"{row_bf16:.3g} against the bf16 plain version (read), "
+              f"{row:.3g} against it on float64 inputs (limit "
+              f"{ATTN_ROW_TOL['bfloat16']}; the bf16 plain version's own "
+              f"{row_plain:.3g}); in turns "
+              f"kernel {ms['kernel']} ms, SDPA {ms['sdpa']} ms "
+              f"({mean['kernel'] / mean['sdpa']:.3f}x SDPA's time); plain "
+              f"{plain_ms:.3f} ms; bound {bound:.5f} ms ({by}), "
+              f"{bound / mean['kernel']:.1%} of it | {nvidia_smi_line()}",
+              flush=True)
+        check(kernel == "flash_attention_mma" and err < ATTN_TOL["bfloat16"]
+              and row < ATTN_ROW_TOL["bfloat16"] and row <= row_plain,
+              f"K3 at whisper's {what} shape went to {kernel} or disagrees "
+              "with its plain version")
+        out[what] = {"shape": shape, "max_abs_err": err,
+                     "row_rel_err_f64_inputs": row,
+                     "row_rel_err_bf16_plain": row_bf16,
+                     "ms": mean["kernel"], "turns": ms["kernel"],
+                     "library_ms": mean["sdpa"], "plain_ms": plain_ms,
+                     "bound_ms": bound, "bound_by": by}
+        del q, k, v, got, want, runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def whisper_phase(dev, seed: int) -> dict:
+    """Phase 21 (see WHISPER_ARCH). Returns the mma.sync kernel's whisper
+    readings for its entry of the kernels line, its launches those of the
+    prefill step."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_mma, flash_attention_sm90,
+        flash_attention_sm90_d256)
+    from repro_torch.models.model import Model
+    from repro_torch.train.steps import make_prefill_step
+
+    smi = nvidia_smi_line()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg = ARCHS[WHISPER_ARCH]
+    times = whisper_k3_times(dev, seed, cfg)
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev).init(seed)
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in model.parameters())
+    par_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"[whisper] {WHISPER_ARCH}: {n_par} parameters (config n_params "
+          f"{cfg.n_params()}; {par_bytes / 1e9:.3f} GB bf16), "
+          f"{cfg.encoder_layers} encoder and {cfg.n_layers} decoder layers, "
+          f"d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.head_dim}, vocab {cfg.vocab_size}; drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (WHISPER_B, WHISPER_T),
+                           generator=gen, device=dev)
+    frames = torch.randn((WHISPER_B, cfg.encoder_len, cfg.d_model),
+                         generator=gen, device=dev).to(cfg.param_dtype)
+    batch = {"tokens": tokens, "frames": frames}
+    step = make_prefill_step(model)
+    step(batch)                                           # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = flash_attention_mma.launches = 0
+    flash_attention_sm90.launches = flash_attention_sm90_d256.launches = 0
+    t0 = time.perf_counter()
+    last = step(batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = flash_attention_mma.launches
+    others = flash_attention_sm90.launches + flash_attention_sm90_d256.launches
+    peak = torch.cuda.max_memory_allocated()
+    want_k3 = cfg.encoder_layers + 2 * cfg.n_layers
+    print(f"[whisper] forward (the prefill step), {WHISPER_B} x {WHISPER_T} "
+          f"tokens over {WHISPER_B} x {cfg.encoder_len} frames: wall "
+          f"{wall:.4f} s, {WHISPER_B * WHISPER_T / wall:.1f} decoder tokens/s "
+          f"({WHISPER_B * cfg.encoder_len / wall:.1f} frames/s); K3 launches: "
+          f"flash_attention_mma {launches} (want {want_k3}), the Hopper "
+          f"kernels {others}; peak device memory {peak} B = "
+          f"{peak / par_bytes:.4f} x the parameter bytes | {smi}", flush=True)
+    check(launches == want_k3 and others == 0
+          and flash_attention.launches == want_k3,
+          f"the whisper forward launched flash_attention_mma {launches} "
+          f"times and the Hopper kernels {others}, want {want_k3} and 0")
+    check(tuple(last.shape) == (WHISPER_B, cfg.vocab_size)
+          and bool(torch.isfinite(last).all()),
+          "whisper's logits are not finite or of the wrong shape")
+
+    # K3 on every layer's own q, k, v, and the logits at every position,
+    # against the same forward with the plain attention
+    full, _ = model.forward(tokens, frames=frames)
+    layers: list = []
+    t0 = time.perf_counter()
+    with plain_attention_read(layers):
+        ref, _ = model.forward(tokens, frames=frames)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    kinds = {k: [(a, r) for kk, a, r in layers if kk == k]
+             for k in ("encoder", "self", "cross")}
+    diff = (full.float() - ref.float()).abs().amax(-1)        # (b, t)
+    scale = ref.float().abs().amax(-1)
+    pos_rel = diff / scale
+    same_last = (full[:, -1].argmax(-1) == ref[:, -1].argmax(-1)).tolist()
+    same = float((full.argmax(-1) == ref.argmax(-1)).double().mean())
+    abs_max = max(a for _, a, _ in layers)
+    row_max = max(r for _, _, r in layers)
+    for k, v in kinds.items():
+        print(f"[whisper] K3 vs plain on each {k} layer's own q, k, v "
+              f"({len(v)} layers): overall (max abs diff over max |plain|) "
+              f"{max(a for a, _ in v):.4g}, per row "
+              f"{max(r for _, r in v):.4g} (limits "
+              f"{ATTN_TOL['bfloat16']}, {ATTN_ROW_TOL['bfloat16']}); per "
+              f"layer {[round(r, 5) for _, r in v]}", flush=True)
+    print(f"[whisper] logits max abs diff over max |logit| per position "
+          f"(plain run {plain_wall:.2f} s): max {float(pos_rel.max()):.4g} "
+          f"(limit {LM_REL_TOL_PLAIN}), last position per row "
+          f"{[round(float(x), 5) for x in pos_rel[:, -1]]}; argmax equal at "
+          f"{same:.4f} of positions, at the last {same_last}", flush=True)
+    check([len(kinds[k]) for k in kinds] == [cfg.encoder_layers,
+                                             cfg.n_layers, cfg.n_layers]
+          and abs_max < ATTN_TOL["bfloat16"]
+          and row_max < ATTN_ROW_TOL["bfloat16"],
+          "K3 disagrees with its plain version on whisper's own q, k, v")
+    check(float(pos_rel.max()) <= LM_REL_TOL_PLAIN and same_last[0],
+          "whisper's forward disagrees with its plain-attention run")
+    err = float((last.float() - ref[:, -1].float()).abs().max())
+    print(f"[whisper] prefill-step logits vs the plain forward's last "
+          f"position: max abs diff {err:.4g}, relative "
+          f"{err / float(scale[:, -1].max()):.4g}", flush=True)
+    check(err <= LM_REL_TOL_PLAIN * float(scale[:, -1].max()),
+          "whisper's prefill step disagrees with its plain-attention run")
+    del ref, last
+
+    # serving: fill_cross_cache, then decode against the forward
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache = model.fill_cross_cache(model.init_cache(WHISPER_B,
+                                                    WHISPER_DECODE),
+                                   frames)
+    torch.cuda.synchronize()
+    fill_ms = 1e3 * (time.perf_counter() - t0)
+    outs = []
+    t0 = time.perf_counter()
+    for i in range(WHISPER_DECODE):
+        lg, cache = model.decode_step(tokens[:, i:i + 1], cache, i)
+        outs.append(lg[:, 0].float())
+    torch.cuda.synchronize()
+    dec_ms = 1e3 * (time.perf_counter() - t0) / WHISPER_DECODE
+    got = torch.stack(outs, dim=1)                         # (b, 8, V)
+    want = full[:, :WHISPER_DECODE].float()
+    dec_err = (got - want).abs().amax(-1)
+    dec_rel = float(dec_err.max()) / float(want.abs().max())
+    dec_same = float((got.argmax(-1) == want.argmax(-1)).double().mean())
+    print(f"[whisper] fill_cross_cache {fill_ms:.2f} ms, then "
+          f"{WHISPER_DECODE} decode steps vs the forward at positions "
+          f"0..{WHISPER_DECODE - 1}: relative {dec_rel:.4g} (limit "
+          f"{WHISPER_DECODE_TOL}), max abs diff per position "
+          f"{[round(float(x), 4) for x in dec_err.amax(0)]}, argmax equal "
+          f"at {dec_same:.4f}; {dec_ms:.2f} ms per decode step | {smi}",
+          flush=True)
+    check(dec_rel <= WHISPER_DECODE_TOL,
+          "whisper's fill_cross_cache + decode disagrees with the forward")
+    del model, full, cache, got, want, outs
+    torch.cuda.empty_cache()
+    total = time.perf_counter() - t_phase
+    print(f"[whisper] phase took {total:.1f} s (limit {WHISPER_PHASE_S} s) "
+          f"| {smi}", flush=True)
+    check(total <= WHISPER_PHASE_S, f"the whisper phase took {total:.1f} s")
+    return {"launches": {f"{WHISPER_ARCH} prefill step ({WHISPER_B} x "
+                         f"{WHISPER_T} tokens, {WHISPER_B} x "
+                         f"{cfg.encoder_len} frames)": launches},
+            "layers_overall_rel_err": abs_max, "layers_row_rel_err": row_max,
+            "logits_rel": float(pos_rel.max()), "decode_rel": dec_rel,
+            "forward_wall_s": wall, "decode_ms": dec_ms, **times}
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4154,12 +4771,21 @@ def main() -> None:
     # ---- 18. RWKV6 ----------------------------------------------------------
     wkv = rwkv6_phase(dev, args.seed)
 
+    # ---- 19. Nelder-Mead, the paper's baseline ------------------------------
+    nm_phase(dev, args.seed)
+
+    # ---- 20. the examples -----------------------------------------------------
+    examples_phase()
+
+    # ---- 21. whisper-small, the encoder-decoder -----------------------------
+    k3_mma["whisper"] = whisper_phase(dev, args.seed)
+
     foreign = sorted(m for m in sys.modules if m.split(".")[0]
                      in ("jax", "jaxlib", "repro", "benchmarks"))
     check(not foreign, f"the smoke imported {foreign[:5]}: JAX, the JAX "
           "package or its benchmarks")
 
-    # ---- 19. kernels line ---------------------------------------------------
+    # ---- 22. kernels line ---------------------------------------------------
     # each kernel's MoE readings beside those of its first path: K3 and
     # K3-bwd at the MoE models' MHA layer shape, P over the whole olmoe
     bwd, _, perturb = train_kernels
@@ -4199,7 +4825,7 @@ def main() -> None:
     kernels.append(wkv)
     print(json.dumps({"kernels": kernels}))
 
-    # ---- 20. result -------------------------------------------------------
+    # ---- 23. result -------------------------------------------------------
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

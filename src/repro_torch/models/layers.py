@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-EMBED_NAMES = ("embed", "unembed", "pos_embed")
+EMBED_NAMES = ("embed", "unembed", "pos_embed", "enc_pos_embed")
 
 
 # ---------------------------------------------------------------------------

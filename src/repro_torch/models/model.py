@@ -1,16 +1,23 @@
-"""Top-level model: embeddings, decoder stack, LM head.
+"""Top-level model: embeddings, decoder stack, (optional) encoder, LM head.
 
 Port of :mod:`repro.models.model` for the decoders, dense,
 mixture-of-experts, hybrid (RG-LRU and local attention,
-recurrentgemma-2b) and RWKV6 (rwkv6-3b), as an ``nn.Module`` that holds
-its parameters:
+recurrentgemma-2b) and RWKV6 (rwkv6-3b), and for the encoder-decoder
+(whisper-small), as an ``nn.Module`` that holds its parameters:
 
   model = Model(cfg).init(seed)            # on the card unless device= given
-  logits, aux = model.forward(tokens)
+  logits, aux = model.forward(tokens)      # frames=... for an encoder-decoder
   loss, metrics = model.loss(batch, remat=True)
   logits, cache = model.prefill(tokens, max_len=...)
   cache = model.init_cache(batch, max_len)
   logits, cache = model.decode_step(tokens, cache, pos)
+
+An encoder-decoder (``cfg.encoder_layers > 0``) runs its encoder over
+(stubbed) frame embeddings ``(b, Te, d)`` — the conv front end is a stub,
+as in the reference — and every decoder layer cross-attends the encoder's
+output: ``forward(tokens, frames=...)`` and ``loss`` with
+``batch["frames"]``. It is served by ``fill_cross_cache`` and then
+``decode_step``; ``prefill`` refuses it, as the reference's does.
 
 ``Model(cfg)`` allocates the parameters uninitialised on the device, in
 ``cfg.param_dtype`` (an MoE router in float32, as the reference's);
@@ -23,32 +30,32 @@ parameters' gradients on with ``model.requires_grad_(True)`` (every
 parameter is made with ``requires_grad=False``, so serving builds no
 graph), and K3's gradient is its backward kernel
 (``kernels.flash_attention.ops``). ``prefill`` and ``decode_step`` run
-under ``torch.no_grad()``. ``encode`` and ``fill_cross_cache`` wait for
-later slices; M-RoPE and encoder-decoder configs raise. The hybrid's
+under ``torch.no_grad()``, and so does ``fill_cross_cache``. M-RoPE
+configs raise (ROADMAP queue 1, item 11 step 4). The hybrid's
 scan (``kernels.rglru_scan``), K3 at head_dim 256 and RWKV6's recurrence
 (``kernels.rwkv6_wkv``) have no backward kernel: on the card they raise
 where a gradient is asked for.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import draw_, embed_init, make_norm
-
-_WAITS = "is not ported yet (ROADMAP queue 1, item 11: LM substrate)"
 
 
 class Model(nn.Module):
     def __init__(self, cfg: ArchConfig, *, device=None):
         super().__init__()
         if cfg.mrope:
-            raise NotImplementedError(f"M-RoPE (qwen2-vl) {_WAITS}")
-        if cfg.encoder_layers > 0:
-            raise NotImplementedError(f"the encoder-decoder path {_WAITS}")
+            raise NotImplementedError("M-RoPE (qwen2-vl) is not ported yet "
+                                      "(ROADMAP queue 1, item 11 step 4)")
         self.cfg = cfg
         self.device = resolve_device(device)
         dtype, dev = cfg.param_dtype, self.device
@@ -60,6 +67,17 @@ class Model(nn.Module):
                         embed_init(cfg.vocab_size, cfg.d_model, dtype, dev))
         self.pos_embed = (embed_init(cfg.max_position, cfg.d_model, dtype, dev)
                           if cfg.pos_embed == "learned" else None)
+        if cfg.encoder_layers > 0:
+            self.encoder = tfm.stack_init(self._encoder_cfg(), dtype, dev)
+            self.enc_norm = norm_init(cfg.d_model, dtype, dev)
+            self.enc_pos_embed = embed_init(cfg.encoder_len, cfg.d_model,
+                                            dtype, dev)
+
+    def _encoder_cfg(self) -> ArchConfig:
+        return dataclasses.replace(
+            self.cfg, n_layers=self.cfg.encoder_layers, pattern=("attn",),
+            cross_attention=False, n_experts=0, first_dense=0,
+            use_rope=False)
 
     # ------------------------------------------------------------------ init
     @torch.no_grad()
@@ -98,18 +116,41 @@ class Model(nn.Module):
             positions = torch.arange(t, device=tokens.device)[None].expand(b, t)
         return positions
 
+    # ------------------------------------------------------------- encoder
+    def encode(self, frames):
+        """Whisper-style encoder over (stubbed) frame embeddings (b, Te, d):
+        learned positions, a non-causal stack, the final norm."""
+        x = frames.to(self.cfg.param_dtype)
+        x = x + self.enc_pos_embed[:x.shape[1]][None]
+        x, _ = tfm.stack_apply(self.encoder, self._encoder_cfg(), x,
+                               positions=None, causal=False)
+        _, norm = make_norm(self.cfg.norm)
+        return norm(self.enc_norm, x)
+
+    def _cross_kvs(self, enc_out):
+        """Each decoder layer's cross (k, v), in layer order."""
+        return [attn_mod.cross_kv(lp["cross"], self.cfg, enc_out)
+                for lp in self.decoder]
+
     # ------------------------------------------------------------- forward
-    def forward(self, tokens, *, positions=None, last_only=False,
-                remat=False):
+    def forward(self, tokens, *, positions=None, frames=None,
+                last_only=False, remat=False):
         """Full-sequence logits (b, t, V), or (b, 1, V) of the last position
         with ``last_only``. Returns (logits, aux), aux the MoE layers'
         summed load-balancing loss (0 for a dense model), each MoE layer at
         the config's capacity. ``remat`` recomputes each pattern unit of the
-        layer groups in the backward pass (``transformer.stack_apply``)."""
-        x = self._embed(tokens)
-        x, aux = tfm.stack_apply(self.decoder, self.cfg, x,
+        layer groups in the backward pass (``transformer.stack_apply``).
+        An encoder-decoder needs ``frames``: every decoder layer then
+        cross-attends the encoder's output (the reference's
+        ``_forward_encdec``)."""
+        cross = None
+        if self.cfg.encoder_layers > 0:
+            if frames is None:
+                raise ValueError("enc-dec arch needs frames")
+            cross = self._cross_kvs(self.encode(frames))
+        x, aux = tfm.stack_apply(self.decoder, self.cfg, self._embed(tokens),
                                  positions=self._positions(tokens, positions),
-                                 causal=True, remat=remat)
+                                 causal=True, cross_kvs=cross, remat=remat)
         if last_only:
             x = x[:, -1:]
         return self._logits(x), aux
@@ -117,12 +158,12 @@ class Model(nn.Module):
     # ------------------------------------------------------------------ loss
     def loss(self, batch, *, remat=False):
         """Next-token cross-entropy on float32 logits. batch: tokens (b,
-        t+1) [+ positions]. Returns (loss, {"ce", "aux"}); an MoE config's
-        loss is ``ce + 0.01·aux``."""
+        t+1) [+ positions, frames]. Returns (loss, {"ce", "aux"}); an MoE
+        config's loss is ``ce + 0.01·aux``."""
         tokens = batch["tokens"]
         inputs, labels = tokens[:, :-1], tokens[:, 1:]
         logits, aux = self.forward(inputs, positions=batch.get("positions"),
-                                   remat=remat)
+                                   frames=batch.get("frames"), remat=remat)
         logp = torch.log_softmax(logits.float(), dim=-1)
         del logits
         ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]
@@ -132,17 +173,35 @@ class Model(nn.Module):
 
     # ----------------------------------------------------------------- cache
     def init_cache(self, batch, max_len, dtype=None):
+        """Per-layer decode caches; an encoder-decoder's attention layers
+        also hold zeroed ``cross_k``/``cross_v`` of ``encoder_len`` keys
+        (``fill_cross_cache`` replaces them)."""
         return tfm.stack_cache_init(self.cfg, batch, max_len,
                                     dtype or self.cfg.param_dtype,
+                                    with_cross=self.cfg.encoder_layers > 0,
                                     device=self.device)
+
+    @torch.no_grad()
+    def fill_cross_cache(self, cache, frames):
+        """Run the encoder once and put each layer's projected cross K/V in
+        its cache. Like the reference, this *replaces* ``cross_k`` and
+        ``cross_v`` with the (b, hkv, Te, hd) projections of these frames,
+        so frames shorter than ``encoder_len`` give shorter cross caches."""
+        for lc, (k, v) in zip(cache, self._cross_kvs(self.encode(frames))):
+            lc["cross_k"], lc["cross_v"] = k, v
+        return cache
 
     @torch.no_grad()
     def prefill(self, tokens, *, max_len, positions=None):
         """Forward the prompt AND build the decode cache in one pass.
 
         Returns (logits (b, t, V), cache); decode_step continues from
-        pos = t.
+        pos = t. Not for an encoder-decoder (whisper uses
+        ``fill_cross_cache`` and decode, its decoder prompt being the short
+        task prefix), as in the reference.
         """
+        if self.cfg.encoder_layers > 0:
+            raise ValueError("use fill_cross_cache for enc-dec")
         x = self._embed(tokens)
         x, cache = tfm.stack_prefill(
             self.decoder, self.cfg, x,

@@ -6,8 +6,11 @@ numpy arrays — ``jax.tree.map(np.asarray, repro.models.model.Model(cfg)
 .init(key))`` — and returns a :class:`~repro_torch.models.model.Model`
 holding the same numbers. Weights are ``(d_in, d_out)`` in both packages, so
 each leaf is a plain copy. The reference stacks its repeated layer groups
-along a leading ``n_groups`` axis (``decoder["groups"]``); they are
-unstacked here into the per-layer modules, in layer order.
+along a leading ``n_groups`` axis (``decoder["groups"]``, and an
+encoder-decoder's ``encoder["groups"]``); they are unstacked here into the
+per-layer modules, in layer order. An encoder-decoder's ``enc_norm`` and
+``enc_pos_embed``, and each decoder layer's ``cross`` and ``norm_cross``,
+are carried the same way.
 ``opt_state_from_jax`` does the same for the reference's AdamW state.
 
 ``reference_leaves(cfg)`` lists the reference tree's leaves in
@@ -53,22 +56,32 @@ def _stack(trees: list):
     return _Stacked(trees)
 
 
-def _reference_tree(cfg: ArchConfig, model) -> dict:
-    """The reference's parameter tree with port names (or ``_Stacked``
-    names) at its leaves."""
+def _stack_tree(cfg: ArchConfig, layers, prefix: str) -> dict:
+    """A stack's subtree in the reference's head/groups/tail layout."""
     head, n_groups, unit, tail = tfm.stack_layout(cfg)
-    layer = [_names(lp, f"decoder.{i}") for i, lp in enumerate(model.decoder)]
+    layer = [_names(lp, f"{prefix}.{i}") for i, lp in enumerate(layers)]
     base = cfg.first_dense
     groups = ([_stack([layer[base + g * unit + j] for g in range(n_groups)])
                for j in range(unit)] if n_groups > 0 else None)
-    tree = {"decoder": {"head": [layer[i] for i in head], "groups": groups,
-                        "tail": [layer[i] for i in tail]},
+    return {"head": [layer[i] for i in head], "groups": groups,
+            "tail": [layer[i] for i in tail]}
+
+
+def _reference_tree(cfg: ArchConfig, model) -> dict:
+    """The reference's parameter tree with port names (or ``_Stacked``
+    names) at its leaves."""
+    tree = {"decoder": _stack_tree(cfg, model.decoder, "decoder"),
             "embed": "embed",
             "norm_final": _names(model.norm_final, "norm_final")}
     if model.unembed is not None:
         tree["unembed"] = "unembed"
     if model.pos_embed is not None:
         tree["pos_embed"] = "pos_embed"
+    if cfg.encoder_layers > 0:
+        tree["encoder"] = _stack_tree(model._encoder_cfg(), model.encoder,
+                                      "encoder")
+        tree["enc_norm"] = _names(model.enc_norm, "enc_norm")
+        tree["enc_pos_embed"] = "enc_pos_embed"
     return tree
 
 

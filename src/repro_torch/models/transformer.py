@@ -1,6 +1,7 @@
-"""Decoder stack: per-layer modules in layer order, applied in a loop.
+"""Decoder (and encoder) stack: per-layer modules in layer order, applied
+in a loop.
 
-Port of :mod:`repro.models.transformer` for the decoders. The
+Port of :mod:`repro.models.transformer`. The
 reference groups layers into repeating pattern units and scans stacked
 copies (``jax.lax.scan``); the port keeps one module per layer in an
 ``nn.ModuleList`` in layer index order (the reference's head, groups
@@ -19,8 +20,11 @@ in ``layer_prefill`` and ``layer_decode``, as the reference). Mixer
 ``{"rec": {"S", "shift"}, "cmix_shift"}``, the channel mix's last normed
 input beside the time mix's state, as the reference's). A layer's aux
 loss is 0 unless it is an MoE layer; the leading ``first_dense`` layers
-(moonshot's layer 0) keep a dense MLP. Cross-attention raises
-``NotImplementedError`` (ROADMAP queue 1, item 11).
+(moonshot's layer 0) keep a dense MLP. With ``cfg.cross_attention``
+(whisper's decoder) an attention layer also holds ``cross`` and
+``norm_cross``: after the mixer it attends the encoder's projected keys
+and values (``cross_kv`` in ``layer_apply``; ``cross_k``/``cross_v`` in
+its decode cache, from ``layer_cache_init(with_cross=True)``).
 """
 from __future__ import annotations
 
@@ -37,23 +41,19 @@ from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.layers import is_gated, make_norm, mlp_apply, mlp_init
 
-_WAITS = "is not ported yet (ROADMAP queue 1, item 11: LM substrate)"
 
-
-def _check_kinds(cfg: ArchConfig, kind: str, mlp_kind: str) -> None:
+def _check_kinds(kind: str, mlp_kind: str) -> None:
     if kind not in ("attn", "swa", "rglru", "rwkv6"):
-        raise NotImplementedError(f"mixer {kind!r} {_WAITS}")
+        raise ValueError(kind)
     if mlp_kind not in ("dense", "moe", "channel_mix"):
-        raise NotImplementedError(f"{mlp_kind!r} MLP {_WAITS}")
-    if cfg.cross_attention:
-        raise NotImplementedError(f"cross-attention {_WAITS}")
+        raise ValueError(mlp_kind)
 
 
 # ---------------------------------------------------------------------------
 # single layer
 # ---------------------------------------------------------------------------
 def layer_init(cfg: ArchConfig, layer_idx: int, dtype, device) -> nn.ModuleDict:
-    _check_kinds(cfg, cfg.mixer_kind(layer_idx), cfg.mlp_kind(layer_idx))
+    _check_kinds(cfg.mixer_kind(layer_idx), cfg.mlp_kind(layer_idx))
     norm_init, _ = make_norm(cfg.norm)
     p = {"norm_mixer": norm_init(cfg.d_model, dtype, device),
          "norm_mlp": norm_init(cfg.d_model, dtype, device)}
@@ -63,6 +63,9 @@ def layer_init(cfg: ArchConfig, layer_idx: int, dtype, device) -> nn.ModuleDict:
         p["rwkv"] = rwkv_mod.rwkv6_init(cfg, dtype, device)
     else:
         p["attn"] = attn.attn_init(cfg, dtype, device)
+        if cfg.cross_attention:
+            p["cross"] = attn.attn_init(cfg, dtype, device)
+            p["norm_cross"] = norm_init(cfg.d_model, dtype, device)
     if cfg.mlp_kind(layer_idx) == "moe":
         p["moe"] = moe_mod.moe_init(cfg, dtype, device)
     elif cfg.mlp_kind(layer_idx) == "channel_mix":
@@ -89,9 +92,7 @@ def _ffn(params, cfg: ArchConfig, mlp_kind: str, h, capacity_factor):
 def layer_apply(params, cfg: ArchConfig, kind: str, mlp_kind: str, x, *,
                 positions, causal=True, cross_kv=None):
     """Full-sequence layer. Returns (x, aux_loss)."""
-    _check_kinds(cfg, kind, mlp_kind)
-    if cross_kv is not None:
-        raise NotImplementedError(f"cross-attention {_WAITS}")
+    _check_kinds(kind, mlp_kind)
     _, norm = make_norm(cfg.norm)
     h = norm(params["norm_mixer"], x)
     if kind == "rglru":
@@ -103,6 +104,10 @@ def layer_apply(params, cfg: ArchConfig, kind: str, mlp_kind: str, x, *,
         h = attn.attn_apply(params["attn"], cfg, h, positions=positions,
                             window=window, causal=causal)
     x = x + h
+    if cross_kv is not None:
+        h = norm(params["norm_cross"], x)
+        x = x + attn.attn_apply(params["cross"], cfg, h, positions=None,
+                                causal=False, kv_override=cross_kv)
     h, aux = _ffn(params, cfg, mlp_kind, norm(params["norm_mlp"], x), "cfg")
     return x + h, aux
 
@@ -112,9 +117,7 @@ def layer_apply(params, cfg: ArchConfig, kind: str, mlp_kind: str, x, *,
 # ---------------------------------------------------------------------------
 def layer_cache_init(cfg: ArchConfig, kind: str, batch, max_len, dtype,
                      with_cross: bool, device=None):
-    if with_cross:
-        raise NotImplementedError(f"cross-attention {_WAITS}")
-    _check_kinds(cfg, kind, "dense")
+    _check_kinds(kind, "dense")
     if kind == "rglru":
         return {"rec": rglru_mod.rglru_state_init(batch, cfg, dtype,
                                                   device=device)}
@@ -124,15 +127,21 @@ def layer_cache_init(cfg: ArchConfig, kind: str, batch, max_len, dtype,
                 "cmix_shift": torch.zeros((batch, cfg.d_model), dtype=dtype,
                                           device=device)}
     ring = min(max_len, cfg.window) if kind == "swa" and cfg.window else max_len
-    return {"kv": attn.cache_init(attn.CacheSpec(
+    c = {"kv": attn.cache_init(attn.CacheSpec(
         batch, ring, cfg.n_kv_heads, cfg.head_dim, dtype, quant=cfg.kv_quant,
         device=device))}
+    if with_cross:
+        c["cross_k"] = torch.zeros(
+            (batch, cfg.n_kv_heads, cfg.encoder_len, cfg.head_dim),
+            dtype=dtype, device=device)
+        c["cross_v"] = torch.zeros_like(c["cross_k"])
+    return c
 
 
 def layer_decode(params, cfg: ArchConfig, kind: str, mlp_kind: str, x,
                  cache, pos):
     """One-token decode. x: (b, 1, d). Returns (x, cache)."""
-    _check_kinds(cfg, kind, mlp_kind)
+    _check_kinds(kind, mlp_kind)
     _, norm = make_norm(cfg.norm)
     h = norm(params["norm_mixer"], x)
     if kind == "rglru":
@@ -149,6 +158,12 @@ def layer_decode(params, cfg: ArchConfig, kind: str, mlp_kind: str, x,
                                       pos, window=window)
         cache = {**cache, "kv": kv}
     x = x + h
+    if "cross_k" in cache:
+        h = norm(params["norm_cross"], x)
+        h, _ = attn.attn_decode_step(
+            params["cross"], cfg, h, None, pos,
+            kv_override=(cache["cross_k"], cache["cross_v"]))
+        x = x + h
     h = norm(params["norm_mlp"], x)
     if mlp_kind == "channel_mix":
         h, shift = rwkv_mod.channel_mix_decode(params["cmix"], h,
@@ -161,7 +176,7 @@ def layer_decode(params, cfg: ArchConfig, kind: str, mlp_kind: str, x,
 def layer_prefill(params, cfg: ArchConfig, kind: str, mlp_kind: str, x, *,
                   positions, max_len):
     """Full-sequence layer that also emits the post-sequence decode cache."""
-    _check_kinds(cfg, kind, mlp_kind)
+    _check_kinds(kind, mlp_kind)
     _, norm = make_norm(cfg.norm)
     h = norm(params["norm_mixer"], x)
     if kind == "rglru":
@@ -222,9 +237,13 @@ def _remat_wrap(fn, remat):
 
 
 def stack_apply(layers, cfg: ArchConfig, x, *, positions, causal=True,
-                cross_kv=None, remat=False):
+                cross_kvs=None, remat=False):
     """Full-sequence stack. Returns (x, aux). ``remat`` recomputes each
-    pattern unit of the groups in the backward pass (``_remat_wrap``)."""
+    pattern unit of the groups in the backward pass (``_remat_wrap``).
+    ``cross_kvs`` gives each layer its own cross (k, v) (the
+    encoder-decoder's; the reference loops its layers for it in
+    ``Model._forward_encdec``, its ``stack_apply`` taking one (k, v) for
+    every layer)."""
     head, n_groups, unit, tail = stack_layout(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -233,7 +252,9 @@ def stack_apply(layers, cfg: ArchConfig, x, *, positions, causal=True,
         for i in range(first, first + count):
             x, a = layer_apply(layers[i], cfg, cfg.mixer_kind(i),
                                cfg.mlp_kind(i), x, positions=positions,
-                               causal=causal, cross_kv=cross_kv)
+                               causal=causal,
+                               cross_kv=(None if cross_kvs is None
+                                         else cross_kvs[i]))
             a_sum = a_sum + a
         return x, a_sum
 

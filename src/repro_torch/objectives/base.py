@@ -137,9 +137,9 @@ class SeparableObjective:
             xt = rows[:, c0 * tile:(c0 + k) * tile].reshape(n_rows, k, tile)
             parts.append(self._tile_sums(xt, c0, n_valid, agg_dtype))
         if tail:
-            xt = torch.zeros((n_rows, 1, tile), dtype=rows.dtype,
-                             device=rows.device)
-            xt[:, 0, :tail] = rows[:, n_full * tile:]
+            # padded out of place, so the evaluation runs under vmap
+            xt = torch.nn.functional.pad(rows[:, n_full * tile:],
+                                         (0, tile - tail)).view(n_rows, 1, tile)
             parts.append(self._tile_sums(xt, n_full, n_valid, agg_dtype))
         if not parts:
             return torch.zeros((n_rows, self.n_aggs), dtype=agg_dtype,

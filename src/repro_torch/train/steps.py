@@ -35,7 +35,8 @@ def make_train_step(model, *, optimizer: str = "adamw", remat=True,
     """adamw:  ``step(opt_state, batch) -> (opt_state, metrics)``
     abo_zo: ``step(opt_state, batch, key) -> (opt_state, metrics)``
 
-    ``batch`` is ``{"tokens": (b, t + 1)}`` on the model's device; the
+    ``batch`` is ``{"tokens": (b, t + 1)}`` (and an encoder-decoder's
+    ``"frames"``, which ``Model.loss`` passes on) on the model's device; the
     model's parameters are updated in place. metrics: ``loss`` (0-d
     tensor), and for AdamW ``ce``, ``aux`` and ``gnorm``."""
     if optimizer not in ("adamw", "abo_zo"):
@@ -123,6 +124,7 @@ def make_prefill_step(model):
     def prefill(batch):
         logits, _ = model.forward(batch["tokens"],
                                   positions=batch.get("positions"),
+                                  frames=batch.get("frames"),
                                   last_only=True)
         return logits[:, -1]
     return prefill

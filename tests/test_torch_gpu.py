@@ -52,6 +52,14 @@ shortcuts exact on every input they can see, and raising on what it does
 not take (float32 included: channels in groups of 4, 16-byte aligned);
 the reduced model on the card against the CPU.
 
+whisper-small's K3 shapes (mma.sync, head_dim 64; ``WHISPER_SHAPES``):
+the encoder's non-causal 1500 keys (a ragged last block), cross-attention
+with sq != sk, and the decoder's causal self-attention, the bf16 kernel
+held to the plain version on float64 copies of its inputs (the bf16
+plain version rounds its scores, and is the less exact of the two there); the reduced
+encoder-decoder on the card against the CPU. Nelder-Mead on the card: a
+chunk replayed as a CUDA graph gives the eager chunks' bits.
+
 rwkv6-3b's kernel: W (``rwkv6_wkv``, port only: RWKV6's WKV recurrence)
 against its plain version run on the card at ``WKV_SHAPES`` (the model's
 layer shape cut to T = 1024, a T that is no multiple of a chunk, the
@@ -113,6 +121,14 @@ ATTN_SHAPES = [
     (1, 32, 8, 8192, 8192, 128, True, None),     # the model's layer shape
     (1, 16, 16, 1024, 1024, 128, True, None),    # MHA: the MoE models'
     (1, 16, 16, 8192, 8192, 128, True, None),    # their layer shape
+]
+# whisper-small's (mma.sync at head_dim 64): the encoder's 1500 keys (23
+# blocks of 64 and a ragged 28), cross-attention (sq != sk, the same
+# ragged keys), the decoder's causal self-attention
+WHISPER_SHAPES = [
+    (4, 12, 12, 1500, 1500, 64, False, None),
+    (4, 12, 12, 448, 1500, 64, False, None),
+    (4, 12, 12, 448, 448, 64, True, None),
 ]
 # the shapes the Hopper kernel serves: bf16 with head_dim 120 or 128
 SM90_SHAPES = [s for s in ATTN_SHAPES if s[5] in (120, 128)]
@@ -358,6 +374,40 @@ def test_flash_attention_kernel_matches_plain(cuda, shape, dtype):
     assert _row_rel_err(got, want) < ATTN_ROW_TOL[dtype]
 
 
+@pytest.mark.parametrize("shape", WHISPER_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_kernel_at_whisper_shapes(cuda, shape, dtype):
+    """At long non-causal rows the bf16 plain version is the less exact of
+    the two: it rounds the scores to bf16 before the softmax (as the
+    reference's ``attention_ref`` does), which moves a row of 1500 small
+    outputs by ~0.019 of its max, where the kernel, with float32 scores,
+    is ~0.0056 from the plain version run on float64 copies of the same
+    inputs (float32 scores; an H100). So the kernel is held to that run
+    (max abs and per row within ATTN_TOL and ATTN_ROW_TOL), to the bf16
+    plain version in max abs, and to be no further from that run per row
+    than the bf16 plain version is; in float32, to the plain version as
+    ATTN_SHAPES are."""
+    causal = shape[6]
+    q, k, v = _qkv(shape, dtype, cuda)
+    before = flash_attention_mma.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_mma.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal)
+    assert got.shape == want.shape and got.dtype == dtype
+    err = float((got.float() - want.float()).abs().max())
+    assert err < ATTN_TOL[dtype], err
+    if dtype == torch.float32:
+        assert _row_rel_err(got, want) < ATTN_ROW_TOL[dtype]
+        return
+    exact = flash_attention_plain(q.double(), k.double(), v.double(),
+                                  causal=causal)
+    assert float((got.double() - exact).abs().max()) < ATTN_TOL[dtype]
+    row = _row_rel_err(got, exact)
+    assert row < ATTN_ROW_TOL[dtype], row
+    assert row <= _row_rel_err(want, exact)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_attention_kernel_strided_and_unaligned(cuda, dtype):
     """The model's (b, t, h, d) projections read through transposed views,
@@ -474,6 +524,57 @@ def test_reduced_model_on_the_card_matches_cpu(cuda, arch):
     for i in range(44, 50):
         lg, cache = card.decode_step(toks[:, i:i + 1].to(cuda), cache, i)
         assert float((lg[:, 0].cpu() - want[:, i]).abs().max()) < 1e-4
+
+
+def test_reduced_whisper_on_the_card_matches_cpu(cuda):
+    """The encoder-decoder on the card against the CPU: the forward with
+    frames (one K3 launch a layer, encoder, self and cross, all mma.sync at
+    head_dim 16), then fill_cross_cache and decode."""
+    cfg = reduced(ARCHS["whisper-small"])
+    cpu = Model(cfg, device="cpu").init(0)
+    card = Model(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (2, 20), generator=g)
+    frames = torch.randn(2, cfg.encoder_len, cfg.d_model, generator=g)
+    before, mma = flash_attention.launches, flash_attention_mma.launches
+    lg, _ = card.forward(toks.to(cuda), frames=frames.to(cuda))
+    n_k3 = cfg.encoder_layers + 2 * cfg.n_layers
+    assert flash_attention.launches == before + n_k3
+    assert flash_attention_mma.launches == mma + n_k3
+    want, _ = cpu.forward(toks, frames=frames)
+    assert float((lg.cpu() - want).abs().max()) < 1e-4
+    cache = card.fill_cross_cache(card.init_cache(2, 32), frames.to(cuda))
+    for i in range(20):
+        lg, cache = card.decode_step(toks[:, i:i + 1].to(cuda), cache, i)
+        assert float((lg[:, 0].cpu() - want[:, i]).abs().max()) < 1e-4
+
+
+def test_nelder_mead_on_the_card(cuda, monkeypatch):
+    """Nelder-Mead on the card: a chunk replayed as a CUDA graph gives the
+    eager chunks' bits (x, fun, fe, iterations), also one iteration a
+    read; the sphere from 5.0 ends below 1e-6 with the CPU's fe and
+    iterations."""
+    import importlib
+    from repro_torch.objectives import griewank_naive
+    from repro_torch.optim import nelder_mead
+    mod = importlib.import_module("repro_torch.optim.nelder_mead")
+    x0 = torch.full((50,), 141.6, device=cuda)
+    graphed = nelder_mead(griewank_naive, x0, max_fe=3001)
+    monkeypatch.setattr(mod, "GRAPH_MAX_BYTES", 0)
+    for chunk in (64, 1):
+        monkeypatch.setattr(mod, "CHUNK", chunk)
+        eager = nelder_mead(griewank_naive, x0, max_fe=3001)
+        assert torch.equal(graphed.x, eager.x)
+        assert (graphed.fun, graphed.fe, graphed.iterations) == \
+            (eager.fun, eager.fe, eager.iterations)
+    monkeypatch.undo()
+    r = nelder_mead(lambda x: torch.sum(x * x),
+                    torch.full((2,), 5.0, device=cuda), max_fe=2000)
+    rc = nelder_mead(lambda x: torch.sum(x * x), torch.full((2,), 5.0),
+                     max_fe=2000)
+    assert r.fun < 1e-6 and r.x.device.type == "cuda"
+    assert (r.fe, r.iterations) == (rc.fe, rc.iterations)
 
 
 def _moe_margin(x, router, k) -> float:

@@ -365,6 +365,14 @@ def test_init_draws_the_rglru_rules():
 
 @pytest.mark.parametrize("arch", ["qwen2-vl-7b", "whisper-small"])
 def test_unported_families_raise(arch):
+    """qwen2-vl (M-RoPE) still waits. whisper-small's encoder-decoder is
+    ported (tests/test_torch_whisper.py); what it refuses is the
+    reference's refusal: ``prefill`` (serve it by ``fill_cross_cache``)."""
+    if arch == "whisper-small":
+        m = Model(TC.reduced(TC.ARCHS[arch]), device=CPU)
+        with pytest.raises(ValueError, match="fill_cross_cache"):
+            m.prefill(torch.zeros(1, 4, dtype=torch.int64), max_len=8)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model(TC.reduced(TC.ARCHS[arch]), device=CPU)
 
@@ -376,9 +384,10 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         m.init_cache(1, 8)
     x = torch.zeros(1, 4, 64)
+    mrope = dataclasses.replace(cfg, mrope=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tattn.attn_apply(m.decoder[0]["attn"], cfg, x, positions=None,
-                         kv_override=(x, x))
+        tattn.attn_apply(m.decoder[0]["attn"], mrope, x,
+                         positions=torch.zeros(1, 3, 4, dtype=torch.int64))
     with pytest.raises(NotImplementedError):
         tserve.main(["--arch", "mistral-nemo-12b", "--reduced",
                      "--model-parallel", "2", "--device", CPU])

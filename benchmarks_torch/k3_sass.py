@@ -1,10 +1,13 @@
-"""Where K3 at head_dim 256 frees its shared-memory stages, from its SASS.
+"""Where K3 at head_dim 256 or 64 frees its shared-memory stages, from its
+SASS.
 
     PYTHONPATH=src python -m benchmarks_torch.k3_sass            # on the H100
+    PYTHONPATH=src python -m benchmarks_torch.k3_sass --kernel d64
     PYTHONPATH=src python -m benchmarks_torch.k3_sass --sass F   # a saved dump
 
-A consumer of ``csrc/flash_attention_sm90_d256.cu`` frees a Q, K or V
-stage with an mbarrier arrival (``SYNCS.ARRIVE``) once the tensor-core
+A consumer of ``csrc/flash_attention_sm90_d256.cu`` (or of
+``csrc/flash_attention_sm90_d64.cu``, each of its instantiations read on
+its own) frees a Q, K or V stage with an mbarrier arrival (``SYNCS.ARRIVE``) once the tensor-core
 products that read it are done, which it learns by waiting on their
 groups (``WARPGROUP.DEPBAR``). An arrival issued after a product
 (``HGMMA``) with no wait between them lets the producer's next TMA load
@@ -28,40 +31,53 @@ import sys
 from benchmarks_torch.k2_sass import instructions, opcode
 
 KERNEL = "flash_attn_sm90_d256"
+# --kernel: (the kernel's name in its functions' names, its library)
+KERNELS = {"d256": (KERNEL, "flash_attention_sm90_d256"),
+           "d64": ("flash_attn_sm90_d64", "flash_attention_sm90_d64")}
 
 
-def disassemble() -> str:
-    """Build the kernels and return ``cuobjdump -sass`` of K3 at 256."""
+def disassemble(library: str = "flash_attention_sm90_d256") -> str:
+    """Build the kernels and return ``cuobjdump -sass`` of one library."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     from repro_torch.kernels import _build
     _build.build_all()
-    lib = _build.build_dir() / "flash_attention_sm90_d256.so"
+    lib = _build.build_dir() / f"{library}.so"
     out = subprocess.run([f"{CUDA_HOME}/bin/cuobjdump", "-sass", str(lib)],
                          capture_output=True, text=True, check=True)
     return out.stdout
 
 
-def releases(sass: str) -> dict:
+def _functions(sass: str, kernel: str) -> list[str]:
+    """The names of the functions whose name holds ``kernel`` (one a
+    template instantiation)."""
+    return [line.split("Function :", 1)[1].strip()
+            for line in sass.splitlines()
+            if "Function :" in line and kernel in line]
+
+
+def releases(sass: str, kernel: str = KERNEL) -> dict:
     """{"arrivals": mbarrier arrivals, "products": HGMMA instructions,
     "early": addresses of the arrivals that follow a product with no wait
-    on the products' groups between them}."""
-    ins = instructions(sass, KERNEL)
-    if not ins:
-        raise ValueError(f"no SASS for {KERNEL}")
+    on the products' groups between them}, summed over every function
+    whose name holds ``kernel``, each read on its own."""
+    names = _functions(sass, kernel)
+    if not names:
+        raise ValueError(f"no SASS for {kernel}")
     out = {"arrivals": 0, "products": 0, "early": []}
-    unwaited = False
-    for addr, i in ins:
-        op = opcode(i)
-        if op.startswith("HGMMA"):
-            out["products"] += 1
-            unwaited = True
-        elif op.startswith("WARPGROUP.DEPBAR"):
-            unwaited = False
-        elif op.startswith("SYNCS.ARRIVE"):
-            out["arrivals"] += 1
-            if unwaited:
-                out["early"].append(hex(addr))
+    for name in names:
+        unwaited = False
+        for addr, i in instructions(sass, name):
+            op = opcode(i)
+            if op.startswith("HGMMA"):
+                out["products"] += 1
+                unwaited = True
+            elif op.startswith("WARPGROUP.DEPBAR"):
+                unwaited = False
+            elif op.startswith("SYNCS.ARRIVE"):
+                out["arrivals"] += 1
+                if unwaited:
+                    out["early"].append(hex(addr))
     return out
 
 
@@ -70,13 +86,15 @@ def main(argv=None) -> dict:
     ap.add_argument("--sass", default=None,
                     help="read a saved cuobjdump -sass dump instead of "
                          "building and disassembling")
+    ap.add_argument("--kernel", choices=sorted(KERNELS), default="d256")
     args = ap.parse_args(argv)
+    kernel, library = KERNELS[args.kernel]
     if args.sass:
         with open(args.sass) as f:
             sass = f.read()
     else:
-        sass = disassemble()
-    result = releases(sass)
+        sass = disassemble(library)
+    result = releases(sass, kernel)
     print(json.dumps(result))
     if result["early"]:
         sys.exit(1)

@@ -43,11 +43,14 @@ Phases, in order; any failure exits non-zero before the result line:
      jobs pending: zero lost jobs, only deliberate 503s, w0 restarted
      (time to recover printed), and every fun and history bit for bit
      (w1's phase 7's, w0's ``abo_minimize``'s);
- 11. K3 (flash attention, three kernels) against its plain version in bf16
+ 11. K3 (flash attention, four kernels) against its plain version in bf16
      and float32 at the shapes of ``ATTN_SHAPES`` (max abs and per row),
      each shape through the kernel that ``choose_kernel`` gives it (bf16
-     at head_dim 256 through ``flash_attention_sm90_d256``; float32 there
-     must be refused); the
+     at head_dim 256 through ``flash_attention_sm90_d256``, float32 there
+     must be refused; bf16 at head_dim 64 through
+     ``flash_attention_sm90_d64``, the mma.sync kernel also called
+     directly there); both Hopper d = 256 and d = 64 kernels' stage
+     releases read in their SASS; the
      Hopper kernel (``flash_attention_sm90``), the mma.sync kernel
      (``flash_attention_mma``) and ``scaled_dot_product_attention`` timed in
      turns at the model's layer shape (T = 8192) and at T = 32768, beside
@@ -129,10 +132,13 @@ Phases, in order; any failure exits non-zero before the result line:
      package's residual, solve_service's 12 jobs drained, serve_decode's
      12 requests answered, train_lm_abo's losses finite);
  21. whisper-small at full width (``[whisper]``, WHISPER_ARCH): K3 at the
-     encoder's and the cross-attention's shapes against its plain version
-     and timed in turns with SDPA; the prefill step (the forward with
-     frames: 36 launches, all of the mma.sync kernel; wall, tokens/s, peak
-     memory); the forward against its plain-attention run (K3 on every
+     encoder's, the cross-attention's and the decoder's self-attention
+     shapes, the Hopper d = 64 kernel and the mma.sync kernel against the
+     plain version, then both and SDPA timed in turns (the d = 64 kernel
+     must beat the mma.sync one at the encoder and cross shapes); the
+     prefill step (the forward with frames: 36 launches, all of
+     ``flash_attention_sm90_d64``; wall, tokens/s, peak memory); the
+     forward against its plain-attention run (K3 on every
      encoder, self and cross layer's own q, k, v; the logits at every
      position); fill_cross_cache and 8 decode steps against the forward;
  22. one JSON line with every kernel's launches, error and times;
@@ -233,9 +239,15 @@ ATTN_SHAPES = [
     (2, 8, 2, 640, 640, 256, True, 300),
     (1, 2, 1, 77, 77, 256, True, None),
     (1, 10, 1, 8192, 8192, 256, True, 2048),     # recurrentgemma-2b's layer
+    # head_dim 64's Hopper kernel (bf16): whisper-small's encoder (1500
+    # ragged keys and query rows), MQA with a window, GQA over 2000 keys
+    # with a four-way key split
+    (4, 12, 12, 1500, 1500, 64, False, None),
+    (2, 8, 1, 1000, 1000, 64, True, 300),
+    (2, 8, 2, 300, 2000, 64, False, None),
 ]
 LM_ATTN_SHAPE = (1, 32, 8, 8192, 8192, 128, True, None)
-D256_SHAPE = ATTN_SHAPES[-1]
+D256_SHAPE = (1, 10, 1, 8192, 8192, 256, True, 2048)
 ATTN_TOL = {"bfloat16": 2e-2, "float32": 2e-3}
 ATTN_ROW_TOL = {"bfloat16": 2e-2, "float32": 1e-3}
 LM_ARCH = "mistral-nemo-12b"
@@ -1583,7 +1595,13 @@ def attention_readings(dev, seed: int) -> list[dict]:
     twice: per case the kernel, the max abs and the per-row error, whether
     the two calls gave the same bits, and whether the kernel's own launch
     count moved, the bits repeated and both errors are within their
-    limits."""
+    limits. At bf16 head_dim 64 the mma.sync kernel, which the op no longer
+    sends there, is also called directly and held the same way (a reading
+    of its own, ``direct``). A bf16 row of more than 1024 keys (non-causal,
+    sk > 1024) is held per row to the plain version on float64 copies of
+    the inputs, and to be no further from it than the bf16 plain version
+    is, as phase 21 holds whisper's shapes: the bf16 plain version rounds
+    its scores, which moves such rows by ~0.02 of their max."""
     import torch
     from repro_torch.kernels.flash_attention import ops
     out = []
@@ -1601,34 +1619,53 @@ def attention_readings(dev, seed: int) -> list[dict]:
                             "kernel": "none (refused)", "abs": 0.0,
                             "row": 0.0, "ok": refused})
                 continue
-            kernel = ops.choose_kernel(q, k, v)
-            wrapper = getattr(ops, kernel)
-            before = wrapper.launches
-            poison_next_output(q)
-            got = ops.flash_attention(q, k, v, causal=causal, window=window)
-            launched = wrapper.launches == before + 1
-            poison_next_output(q)
-            again = ops.flash_attention(q, k, v, causal=causal,
-                                        window=window)
+            name = str(dtype).split(".")[-1]
             want = ops.flash_attention_plain(q, k, v, causal=causal,
                                              window=window)
-            torch.cuda.synchronize()
-            # no atomics anywhere: a second call gives the same bits, and a
-            # race (a stage read before it lands) shows as a difference
-            bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
-            repeat = bool(torch.equal(got.contiguous().view(bits),
-                                      again.contiguous().view(bits)))
-            name = str(dtype).split(".")[-1]
-            err = float((got.float() - want.float()).abs().max())
-            row = row_rel_err(got, want)
-            out.append({"shape": shape, "dtype": name, "kernel": kernel,
-                        "abs": err, "row": row, "repeat": repeat, "ok": (
-                            launched and repeat
-                            and tuple(got.shape) == tuple(want.shape)
-                            and bool(torch.isfinite(got).all())
-                            and err < ATTN_TOL[name]
-                            and row < ATTN_ROW_TOL[name])})
-            del q, k, v, got, again, want
+            exact = None
+            if name == "bfloat16" and not causal and shape[4] > 1024:
+                exact = ops.flash_attention_plain(
+                    q.double(), k.double(), v.double(), causal=causal,
+                    window=window)
+            kernel = ops.choose_kernel(q, k, v)
+            runs = [(kernel, False)]
+            if name == "bfloat16" and shape[5] == 64:
+                runs.append(("flash_attention_mma", True))
+            for kname, direct in runs:
+                wrapper = getattr(ops, kname)
+                call = wrapper if direct else ops.flash_attention
+                before = wrapper.launches
+                poison_next_output(q)
+                got = call(q, k, v, causal=causal, window=window)
+                launched = wrapper.launches == before + 1
+                poison_next_output(q)
+                again = call(q, k, v, causal=causal, window=window)
+                torch.cuda.synchronize()
+                # no atomics anywhere: a second call gives the same bits,
+                # and a race (a stage read before it lands) shows as a
+                # difference
+                bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+                repeat = bool(torch.equal(got.contiguous().view(bits),
+                                          again.contiguous().view(bits)))
+                err = float((got.float() - want.float()).abs().max())
+                row = row_rel_err(got, want)
+                ok_row = row < ATTN_ROW_TOL[name]
+                r = {"shape": shape, "dtype": name, "kernel": kname,
+                     "direct": direct, "abs": err, "row": row,
+                     "repeat": repeat}
+                if exact is not None:
+                    r["row"] = row_rel_err(got, exact)
+                    r["row_bf16_plain"] = row
+                    r["row_plain"] = row_rel_err(want, exact)
+                    ok_row = (r["row"] < ATTN_ROW_TOL[name]
+                              and r["row"] <= r["row_plain"])
+                r["ok"] = (launched and repeat
+                           and tuple(got.shape) == tuple(want.shape)
+                           and bool(torch.isfinite(got).all())
+                           and err < ATTN_TOL[name] and ok_row)
+                out.append(r)
+                del got, again
+            del q, k, v, want, exact
     return out
 
 
@@ -1658,41 +1695,69 @@ def d256_release_order() -> dict:
     return order
 
 
-def attention_phase(dev, seed: int) -> tuple[dict, dict, dict]:
+def d64_release_order() -> dict:
+    """K3 at head_dim 64's stage releases in its SASS (both
+    instantiations), as ``benchmarks_torch.k3_sass --kernel d64`` reads
+    them."""
+    from benchmarks_torch.k3_sass import KERNELS, disassemble, releases
+    kernel, library = KERNELS["d64"]
+    order = releases(disassemble(library), kernel)
+    print(f"[K3] head_dim 64 SASS: {order['products']} products, "
+          f"{order['arrivals']} mbarrier arrivals, {len(order['early'])} of "
+          "them after a product with no wait since", flush=True)
+    return order
+
+
+def attention_phase(dev, seed: int) -> tuple[dict, dict, dict, dict]:
     """Phase 11: K3 against its plain version at every shape of ATTN_SHAPES
     in bf16 and float32 (float32 at head_dim 256 must be refused), then
     both kernels and SDPA timed in turns at the model's layer shape and at
     T = 32768. Returns the Hopper kernel's entry of the kernels line,
     without its launches, the mma.sync kernel's readings at the model's
-    shape, and the head_dim 256 kernel's errors at D256_SHAPE."""
+    shape, the head_dim 256 kernel's errors at D256_SHAPE, and the head_dim
+    64 kernel's largest errors over its shapes."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention_mma, flash_attention_plain, flash_attention_sm90)
 
-    main_err, d256_err = {}, None
+    main_err, d256_err, d64_err = {}, None, {"abs": 0.0, "row": 0.0}
     for r in attention_readings(dev, seed):
-        print(f"[K3] {r['shape']} {r['dtype']} via {r['kernel']}: max abs err "
-              f"{r['abs']:.3g} (limit {ATTN_TOL[r['dtype']]}), per row "
-              f"{r['row']:.3g} (limit {ATTN_ROW_TOL[r['dtype']]}), the same "
-              f"bits on a repeat {r.get('repeat', '-')}", flush=True)
+        how = "called directly" if r.get("direct") else "via"
+        against = ("" if "row_plain" not in r else
+                   f" against the plain version on float64 inputs, no "
+                   f"further than the bf16 plain version's "
+                   f"{r['row_plain']:.3g} (against the bf16 plain version "
+                   f"{r['row_bf16_plain']:.3g})")
+        print(f"[K3] {r['shape']} {r['dtype']} {how} {r['kernel']}: max abs "
+              f"err {r['abs']:.3g} (limit {ATTN_TOL[r['dtype']]}), per row "
+              f"{r['row']:.3g} (limit {ATTN_ROW_TOL[r['dtype']]}){against}, "
+              f"the same bits on a repeat {r.get('repeat', '-')}", flush=True)
         check(r["ok"], f"K3 ({r['kernel']}) disagrees with its plain version "
               f"at {r['shape']} {r['dtype']}, or with itself on a repeat, or "
               "did not launch (or, at float32 and head_dim 256, was not "
               "refused)")
+        if r.get("direct"):
+            continue
         if r["shape"] == LM_ATTN_SHAPE:
             main_err[r["dtype"]] = (r["abs"], r["row"], r["kernel"])
         if r["shape"] == D256_SHAPE and r["dtype"] == "bfloat16":
             d256_err = {"max_abs_err": r["abs"], "row_rel_err": r["row"]}
-        check(r["shape"][5] != 256 or r["dtype"] != "bfloat16"
-              or r["kernel"] == "flash_attention_sm90_d256",
+        want = {256: "flash_attention_sm90_d256",
+                64: "flash_attention_sm90_d64"}.get(r["shape"][5])
+        check(want is None or r["dtype"] != "bfloat16" or r["kernel"] == want,
               f"{r['shape']} bf16 went to {r['kernel']}")
+        if r["kernel"] == "flash_attention_sm90_d64":
+            d64_err = {k: max(d64_err[k], r[k]) for k in d64_err}
     check(main_err["bfloat16"][2] == "flash_attention_sm90"
           and main_err["float32"][2] == "flash_attention_mma"
           and d256_err is not None,
           f"the model's layer shape went to {main_err}")
     order = d256_release_order()
     check(not order["early"], "K3 at head_dim 256 frees a stage right after "
+          f"a product, before waiting for it (SASS at {order['early']})")
+    order = d64_release_order()
+    check(not order["early"], "K3 at head_dim 64 frees a stage right after "
           f"a product, before waiting for it (SASS at {order['early']})")
 
     def timed(t, reps):
@@ -1755,7 +1820,7 @@ def attention_phase(dev, seed: int) -> tuple[dict, dict, dict]:
                  "model_shape": f"bf16 (1, 32/8, {LM_T}, 128) causal",
                  "max_abs_err_f32_model_shape": main_err["float32"][0],
                  "row_rel_err_f32_model_shape": main_err["float32"][1]}
-    return sm90, mma_model, d256_err
+    return sm90, mma_model, d256_err, d64_err
 
 
 def mma_path_phase(dev, seed: int) -> dict:
@@ -4268,79 +4333,189 @@ def plain_attention_read(layers: list):
 
 
 def whisper_k3_times(dev, seed: int, cfg) -> dict:
-    """K3 (the mma.sync kernel) at the encoder's (B, 12/12, 1500, 64) and
-    the cross-attention's (B, 12/12, 448 x 1500, 64), bf16 non-causal,
-    against the plain version, then timed in turns with SDPA (kernel, SDPA,
-    SDPA, kernel) beside the plain version and the bound."""
+    """K3 at whisper's three shapes, bf16 (B, 12/12, head_dim 64): the
+    encoder's 1500 x 1500 and the cross-attention's 448 x 1500,
+    non-causal, and the decoder's causal 448 x 448. The Hopper d = 64
+    kernel (the op's route) and the mma.sync kernel (called directly) are
+    each held to the plain version on float64 copies of the inputs, and
+    the d = 64 kernel gives the same bits twice; then both and SDPA are
+    timed in turns (d64, mma, SDPA, SDPA, mma, d64), on the device alone
+    (``queued_ms``, the host queueing every call while the device sleeps)
+    with the events' reading of back-to-back calls beside it, and against
+    the plain version and two bounds: the products at 989 TFLOP/s (or the
+    bytes; ``k3_bound_cross``) and the exponentials at the MUFU's 16 a
+    clock an SM at the card's top SM clock. Returns {"d64": readings,
+    "mma": readings}, each {shape: ...} with whether the kernel is held
+    (``ok``) and, for the d = 64 kernel, the kernel the op chose and
+    whether it beat the mma.sync one; ``whisper_k3_checks`` checks them."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa
-    out = {}
+    out = {"d64": {}, "mma": {}}
     h, d, te = cfg.n_heads, cfg.head_dim, cfg.encoder_len
-    for what, sq in (("encoder", te), ("cross", WHISPER_T)):
-        q, k, v = _qkv(dev, seed, WHISPER_B, h, h, sq, te, d, torch.bfloat16)
+    clock = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout.split()[0]) * 1e6
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for what, sq, sk, causal in (("encoder", te, te, False),
+                                 ("cross", WHISPER_T, te, False),
+                                 ("self", WHISPER_T, WHISPER_T, True)):
+        q, k, v = _qkv(dev, seed, WHISPER_B, h, h, sq, sk, d, torch.bfloat16)
         kernel = fa.choose_kernel(q, k, v)
-        got = fa.flash_attention_mma(q, k, v, causal=False)
-        want = fa.flash_attention_plain(q, k, v, causal=False)
-        err = float((got.float() - want.float()).abs().max())
-        row_bf16 = row_rel_err(got, want)
+        want = fa.flash_attention_plain(q, k, v, causal=causal)
         # the bf16 plain version rounds its scores to bf16, which moves a
-        # long row's small outputs by ~0.019 of their max: the kernel
-        # (float32 scores) is held to the plain version on float64 copies
+        # long row's small outputs by ~0.019 of their max: the kernels
+        # (float32 scores) are held to the plain version on float64 copies
         # of the inputs, and to be no further from it than that is
         exact = fa.flash_attention_plain(q.double(), k.double(), v.double(),
-                                         causal=False)
-        row = row_rel_err(got, exact)
+                                         causal=causal)
         row_plain = row_rel_err(want, exact)
+        runs = {"d64": lambda: fa.flash_attention(q, k, v, causal=causal),
+                "mma": lambda: fa.flash_attention_mma(q, k, v,
+                                                      causal=causal),
+                "sdpa": lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal)}
+        held = {}
+        for n in ("d64", "mma"):
+            poison_next_output(q)
+            got = runs[n]()
+            poison_next_output(q)
+            again = runs[n]()
+            torch.cuda.synchronize()
+            held[n] = {
+                "max_abs_err": float((got.float() - want.float()).abs().max()),
+                "row_rel_err_f64_inputs": row_rel_err(got, exact),
+                "row_rel_err_bf16_plain": row_rel_err(got, want),
+                "repeat": bool(torch.equal(got.view(torch.int16),
+                                           again.view(torch.int16)))}
+            del got, again
         del exact
-        runs = {"kernel": lambda: fa.flash_attention_mma(q, k, v,
-                                                         causal=False),
-                "sdpa": lambda: F.scaled_dot_product_attention(q, k, v)}
-        for fn in runs.values():
-            fn()                                           # warm-up
         ms = {n: [] for n in runs}
-        for n in ("kernel", "sdpa", "sdpa", "kernel"):
-            ms[n].append(cuda_ms(runs[n], 20))
-        plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v,
-                                                            causal=False), 3)
-        bound, by = k3_bound_cross(WHISPER_B, h, h, sq, te, d)
+        events = {n: [] for n in runs}
+        for n in ("d64", "mma", "sdpa", "sdpa", "mma", "d64"):
+            ms[n].append(queued_ms(runs[n], 20))
+            events[n].append(cuda_ms(runs[n], 20))
+        plain_ms = cuda_ms(lambda: fa.flash_attention_plain(
+            q, k, v, causal=causal), 3)
+        if causal:
+            bound, by = k3_bound(WHISPER_B, h, h, sq, d, causal=True)
+            pairs = WHISPER_B * h * sq * (sq + 1) / 2
+        else:
+            bound, by = k3_bound_cross(WHISPER_B, h, h, sq, sk, d)
+            pairs = WHISPER_B * h * sq * sk
+        bound_exp = 1e3 * pairs / (PIPE_RATE["mufu"] * sms * clock)
         mean = {n: sum(x) / len(x) for n, x in ms.items()}
-        shape = f"bf16 ({WHISPER_B}, {h}/{h}, {sq} x {te}, {d}) non-causal"
-        print(f"[whisper] K3 at the {what}'s {shape} via {kernel}: max abs "
-              f"err {err:.3g} (limit {ATTN_TOL['bfloat16']}), per row "
-              f"{row_bf16:.3g} against the bf16 plain version (read), "
-              f"{row:.3g} against it on float64 inputs (limit "
-              f"{ATTN_ROW_TOL['bfloat16']}; the bf16 plain version's own "
-              f"{row_plain:.3g}); in turns "
-              f"kernel {ms['kernel']} ms, SDPA {ms['sdpa']} ms "
-              f"({mean['kernel'] / mean['sdpa']:.3f}x SDPA's time); plain "
+        shape = (f"bf16 ({WHISPER_B}, {h}/{h}, {sq} x {sk}, {d}) "
+                 f"{'causal' if causal else 'non-causal'}")
+        for n in ("d64", "mma"):
+            r = held[n]
+            print(f"[whisper] K3 at the {what}'s {shape}, "
+                  f"{kernel if n == 'd64' else 'flash_attention_mma (direct)'}"
+                  f": max abs err {r['max_abs_err']:.3g} (limit "
+                  f"{ATTN_TOL['bfloat16']}), per row "
+                  f"{r['row_rel_err_f64_inputs']:.3g} against the plain "
+                  f"version on float64 inputs (limit "
+                  f"{ATTN_ROW_TOL['bfloat16']}; the bf16 plain version's own "
+                  f"{row_plain:.3g}), {r['row_rel_err_bf16_plain']:.3g} "
+                  f"against the bf16 plain version (read); the same bits on "
+                  f"a repeat {r['repeat']}", flush=True)
+            r["ok"] = (r["max_abs_err"] < ATTN_TOL["bfloat16"]
+                       and r["row_rel_err_f64_inputs"]
+                       < ATTN_ROW_TOL["bfloat16"]
+                       and r["row_rel_err_f64_inputs"] <= row_plain
+                       and r["repeat"])
+        print(f"[whisper] K3 at the {what}'s {shape}, in turns on the device "
+              f"alone: flash_attention_sm90_d64 {ms['d64']} ms, "
+              f"flash_attention_mma {ms['mma']} ms, SDPA {ms['sdpa']} ms "
+              f"(back to back, events: d64 {events['d64']}, mma "
+              f"{events['mma']}, SDPA {events['sdpa']}); d64 is "
+              f"{mean['mma'] / mean['d64']:.3f}x faster than mma and "
+              f"{mean['d64'] / mean['sdpa']:.3f}x SDPA's time; plain "
               f"{plain_ms:.3f} ms; bound {bound:.5f} ms ({by}), "
-              f"{bound / mean['kernel']:.1%} of it | {nvidia_smi_line()}",
-              flush=True)
-        check(kernel == "flash_attention_mma" and err < ATTN_TOL["bfloat16"]
-              and row < ATTN_ROW_TOL["bfloat16"] and row <= row_plain,
-              f"K3 at whisper's {what} shape went to {kernel} or disagrees "
-              "with its plain version")
-        out[what] = {"shape": shape, "max_abs_err": err,
-                     "row_rel_err_f64_inputs": row,
-                     "row_rel_err_bf16_plain": row_bf16,
-                     "ms": mean["kernel"], "turns": ms["kernel"],
-                     "library_ms": mean["sdpa"], "plain_ms": plain_ms,
-                     "bound_ms": bound, "bound_by": by}
-        del q, k, v, got, want, runs
+              f"{bound / mean['d64']:.1%} of it; the exponentials alone "
+              f"{bound_exp:.5f} ms ({sms} SMs at {clock / 1e9:.3f} GHz) | "
+              f"{nvidia_smi_line()}", flush=True)
+        held["d64"]["kernel"] = kernel
+        held["d64"]["faster_than_mma"] = mean["d64"] < mean["mma"]
+        for n in ("d64", "mma"):
+            out[n][what] = {"shape": shape, **held[n], "ms": mean[n],
+                            "turns": ms[n], "events_ms": events[n],
+                            "library_ms": mean["sdpa"], "plain_ms": plain_ms,
+                            "bound_ms": bound, "bound_by": by,
+                            "bound_exp_ms": bound_exp}
+        del q, k, v, want, runs
     torch.cuda.empty_cache()
     return out
 
 
-def whisper_phase(dev, seed: int) -> dict:
-    """Phase 21 (see WHISPER_ARCH). Returns the mma.sync kernel's whisper
-    readings for its entry of the kernels line, its launches those of the
-    prefill step."""
+def whisper_k3_checks(times: dict) -> list[str]:
+    """What ``whisper_k3_times``' readings fail: each kernel held at each
+    shape, the op's route the d = 64 kernel, and the d = 64 kernel faster
+    than the mma.sync one at the encoder and cross shapes."""
+    failed = []
+    for what, r in times["d64"].items():
+        if r["kernel"] != "flash_attention_sm90_d64":
+            failed.append(f"K3 at whisper's {what} shape went to "
+                          f"{r['kernel']}")
+        if what != "self" and not r["faster_than_mma"]:
+            failed.append(f"flash_attention_sm90_d64 ({r['ms']:.4f} ms) is "
+                          f"not faster than flash_attention_mma "
+                          f"({times['mma'][what]['ms']:.4f} ms) at whisper's "
+                          f"{what} shape")
+    for n, kinds in times.items():
+        failed += [f"K3 ({n}) at whisper's {what} shape disagrees with its "
+                   "plain version or with itself on a repeat"
+                   for what, r in kinds.items() if not r["ok"]]
+    return failed
+
+
+def whisper_agreement(model, tokens, frames) -> dict:
+    """K3 on every layer's own q, k, v and the logits at every position,
+    against the same forward with the plain attention: the readings and
+    whether each is within its limit (``ok_layers``, ``ok_logits``). The
+    forward's and the plain run's logits come back too (``full``,
+    ``ref``)."""
+    import torch
+    cfg = model.cfg
+    full, _ = model.forward(tokens, frames=frames)
+    layers: list = []
+    t0 = time.perf_counter()
+    with plain_attention_read(layers):
+        ref, _ = model.forward(tokens, frames=frames)
+    torch.cuda.synchronize()
+    kinds = {k: [(a, r) for kk, a, r in layers if kk == k]
+             for k in ("encoder", "self", "cross")}
+    pos_rel = ((full.float() - ref.float()).abs().amax(-1)
+               / ref.float().abs().amax(-1))                      # (b, t)
+    same_last = (full[:, -1].argmax(-1) == ref[:, -1].argmax(-1)).tolist()
+    abs_max = max(a for _, a, _ in layers)
+    row_max = max(r for _, _, r in layers)
+    return {
+        "full": full, "ref": ref, "kinds": kinds,
+        "plain_wall_s": time.perf_counter() - t0,
+        "layers_overall_max": abs_max, "layers_max": row_max,
+        "pos_rel": pos_rel, "pos_rel_max": float(pos_rel.max()),
+        "argmax_equal_share": float((full.argmax(-1) == ref.argmax(-1))
+                                    .double().mean()),
+        "argmax_last_equal": same_last,
+        "ok_layers": ([len(kinds[k]) for k in kinds]
+                      == [cfg.encoder_layers, cfg.n_layers, cfg.n_layers]
+                      and abs_max < ATTN_TOL["bfloat16"]
+                      and row_max < ATTN_ROW_TOL["bfloat16"]),
+        "ok_logits": (float(pos_rel.max()) <= LM_REL_TOL_PLAIN
+                      and same_last[0])}
+
+
+def whisper_phase(dev, seed: int) -> tuple[dict, dict]:
+    """Phase 21 (see WHISPER_ARCH). Returns the head_dim 64 kernel's
+    whisper readings for its entry of the kernels line, its launches those
+    of the prefill step, and the mma.sync kernel's (0 launches there)."""
     import torch
     from repro_torch.configs import ARCHS
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention, flash_attention_mma, flash_attention_sm90,
-        flash_attention_sm90_d256)
+        flash_attention_sm90_d64, flash_attention_sm90_d256)
     from repro_torch.models.model import Model
     from repro_torch.train.steps import make_prefill_step
 
@@ -4349,6 +4524,8 @@ def whisper_phase(dev, seed: int) -> dict:
     t_phase = time.perf_counter()
     cfg = ARCHS[WHISPER_ARCH]
     times = whisper_k3_times(dev, seed, cfg)
+    failed = whisper_k3_checks(times)
+    check(not failed, "; ".join(failed))
     t0 = time.perf_counter()
     model = Model(cfg, device=dev).init(seed)
     torch.cuda.synchronize()
@@ -4372,47 +4549,39 @@ def whisper_phase(dev, seed: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
     flash_attention.launches = flash_attention_mma.launches = 0
     flash_attention_sm90.launches = flash_attention_sm90_d256.launches = 0
+    flash_attention_sm90_d64.launches = 0
     t0 = time.perf_counter()
     last = step(batch)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = flash_attention_mma.launches
-    others = flash_attention_sm90.launches + flash_attention_sm90_d256.launches
+    launches = flash_attention_sm90_d64.launches
+    others = (flash_attention_sm90.launches + flash_attention_sm90_d256.launches
+              + flash_attention_mma.launches)
     peak = torch.cuda.max_memory_allocated()
     want_k3 = cfg.encoder_layers + 2 * cfg.n_layers
     print(f"[whisper] forward (the prefill step), {WHISPER_B} x {WHISPER_T} "
           f"tokens over {WHISPER_B} x {cfg.encoder_len} frames: wall "
           f"{wall:.4f} s, {WHISPER_B * WHISPER_T / wall:.1f} decoder tokens/s "
           f"({WHISPER_B * cfg.encoder_len / wall:.1f} frames/s); K3 launches: "
-          f"flash_attention_mma {launches} (want {want_k3}), the Hopper "
-          f"kernels {others}; peak device memory {peak} B = "
+          f"flash_attention_sm90_d64 {launches} (want {want_k3}), the other "
+          f"K3 kernels {others}; peak device memory {peak} B = "
           f"{peak / par_bytes:.4f} x the parameter bytes | {smi}", flush=True)
     check(launches == want_k3 and others == 0
           and flash_attention.launches == want_k3,
-          f"the whisper forward launched flash_attention_mma {launches} "
-          f"times and the Hopper kernels {others}, want {want_k3} and 0")
+          f"the whisper forward launched flash_attention_sm90_d64 {launches} "
+          f"times and the other K3 kernels {others}, want {want_k3} and 0")
     check(tuple(last.shape) == (WHISPER_B, cfg.vocab_size)
           and bool(torch.isfinite(last).all()),
           "whisper's logits are not finite or of the wrong shape")
 
     # K3 on every layer's own q, k, v, and the logits at every position,
     # against the same forward with the plain attention
-    full, _ = model.forward(tokens, frames=frames)
-    layers: list = []
-    t0 = time.perf_counter()
-    with plain_attention_read(layers):
-        ref, _ = model.forward(tokens, frames=frames)
-    torch.cuda.synchronize()
-    plain_wall = time.perf_counter() - t0
-    kinds = {k: [(a, r) for kk, a, r in layers if kk == k]
-             for k in ("encoder", "self", "cross")}
-    diff = (full.float() - ref.float()).abs().amax(-1)        # (b, t)
+    agree = whisper_agreement(model, tokens, frames)
+    full, ref, kinds = agree["full"], agree["ref"], agree["kinds"]
+    plain_wall, pos_rel = agree["plain_wall_s"], agree["pos_rel"]
     scale = ref.float().abs().amax(-1)
-    pos_rel = diff / scale
-    same_last = (full[:, -1].argmax(-1) == ref[:, -1].argmax(-1)).tolist()
-    same = float((full.argmax(-1) == ref.argmax(-1)).double().mean())
-    abs_max = max(a for _, a, _ in layers)
-    row_max = max(r for _, _, r in layers)
+    same_last, same = agree["argmax_last_equal"], agree["argmax_equal_share"]
+    abs_max, row_max = agree["layers_overall_max"], agree["layers_max"]
     for k, v in kinds.items():
         print(f"[whisper] K3 vs plain on each {k} layer's own q, k, v "
               f"({len(v)} layers): overall (max abs diff over max |plain|) "
@@ -4425,12 +4594,9 @@ def whisper_phase(dev, seed: int) -> dict:
           f"(limit {LM_REL_TOL_PLAIN}), last position per row "
           f"{[round(float(x), 5) for x in pos_rel[:, -1]]}; argmax equal at "
           f"{same:.4f} of positions, at the last {same_last}", flush=True)
-    check([len(kinds[k]) for k in kinds] == [cfg.encoder_layers,
-                                             cfg.n_layers, cfg.n_layers]
-          and abs_max < ATTN_TOL["bfloat16"]
-          and row_max < ATTN_ROW_TOL["bfloat16"],
+    check(agree["ok_layers"],
           "K3 disagrees with its plain version on whisper's own q, k, v")
-    check(float(pos_rel.max()) <= LM_REL_TOL_PLAIN and same_last[0],
+    check(agree["ok_logits"],
           "whisper's forward disagrees with its plain-attention run")
     err = float((last.float() - ref[:, -1].float()).abs().max())
     print(f"[whisper] prefill-step logits vs the plain forward's last "
@@ -4438,7 +4604,7 @@ def whisper_phase(dev, seed: int) -> dict:
           f"{err / float(scale[:, -1].max()):.4g}", flush=True)
     check(err <= LM_REL_TOL_PLAIN * float(scale[:, -1].max()),
           "whisper's prefill step disagrees with its plain-attention run")
-    del ref, last
+    del ref, last, agree
 
     # serving: fill_cross_cache, then decode against the forward
     torch.cuda.synchronize()
@@ -4475,12 +4641,14 @@ def whisper_phase(dev, seed: int) -> dict:
     print(f"[whisper] phase took {total:.1f} s (limit {WHISPER_PHASE_S} s) "
           f"| {smi}", flush=True)
     check(total <= WHISPER_PHASE_S, f"the whisper phase took {total:.1f} s")
-    return {"launches": {f"{WHISPER_ARCH} prefill step ({WHISPER_B} x "
-                         f"{WHISPER_T} tokens, {WHISPER_B} x "
-                         f"{cfg.encoder_len} frames)": launches},
-            "layers_overall_rel_err": abs_max, "layers_row_rel_err": row_max,
-            "logits_rel": float(pos_rel.max()), "decode_rel": dec_rel,
-            "forward_wall_s": wall, "decode_ms": dec_ms, **times}
+    path = (f"{WHISPER_ARCH} prefill step ({WHISPER_B} x {WHISPER_T} "
+            f"tokens, {WHISPER_B} x {cfg.encoder_len} frames)")
+    d64 = {"launches": {path: launches},
+           "layers_overall_rel_err": abs_max, "layers_row_rel_err": row_max,
+           "logits_rel": float(pos_rel.max()), "decode_rel": dec_rel,
+           "forward_wall_s": wall, "decode_ms": dec_ms, **times["d64"]}
+    mma = {"launches": {path: 0}, **times["mma"]}
+    return d64, mma
 
 
 def nvidia_smi_line() -> str:
@@ -4753,7 +4921,7 @@ def main() -> None:
     del uninterrupted
 
     # ---- 11-14. K3 and the LM serving path --------------------------------
-    k3, mma_model, d256_err = attention_phase(dev, args.seed)
+    k3, mma_model, d256_err, d64_err = attention_phase(dev, args.seed)
     k3["launches"] = lm_phase(dev, args.seed)
     k3_mma = mma_path_phase(dev, args.seed)
     k3_mma.update(mma_model)
@@ -4778,7 +4946,7 @@ def main() -> None:
     examples_phase()
 
     # ---- 21. whisper-small, the encoder-decoder -----------------------------
-    k3_mma["whisper"] = whisper_phase(dev, args.seed)
+    whisper, k3_mma["whisper"] = whisper_phase(dev, args.seed)
 
     foreign = sorted(m for m in sys.modules if m.split(".")[0]
                      in ("jax", "jaxlib", "repro", "benchmarks"))
@@ -4819,6 +4987,20 @@ def main() -> None:
         "bound_by": k2_by, "library_ms": None})
     kernels.append(k3)
     kernels.append(k3_d256)
+    enc = whisper["encoder"]
+    kernels.append({
+        "name": "flash_attention_sm90_d64", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_sm90_d64.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:82",
+        "launches": sum(whisper["launches"].values()),
+        "max_abs_err": max(d64_err["abs"], *(whisper[w]["max_abs_err"]
+                                             for w in ("encoder", "cross",
+                                                       "self"))),
+        "ms": enc["ms"], "plain_ms": enc["plain_ms"],
+        "bound_ms": enc["bound_ms"], "bound_by": enc["bound_by"],
+        "library_ms": enc["library_ms"],
+        "ms_of": enc["shape"], "attn_shapes_row_rel_err": d64_err["row"],
+        "whisper": whisper})
     kernels.append(k3_mma)
     kernels.extend(train_kernels)
     kernels.append(scan)

@@ -1,5 +1,5 @@
-"""Public attention op: the GQA/SWA-aware wrapper of K3, which has two
-CUDA kernels.
+"""Public attention op: the GQA/SWA-aware wrapper of K3, which has four
+CUDA forward kernels.
 
 Port of :mod:`repro.kernels.flash_attention.ops`. On a CPU tensor
 ``flash_attention`` runs the plain version (``flash_attention_plain``),
@@ -16,6 +16,13 @@ inputs' dtype, head_dim and alignment:
   two CTAs, a persistent grid that ``d256_plan`` sizes) for bf16 with
   head_dim 256 and the same alignment: recurrentgemma-2b's local
   attention;
+* ``flash_attention_sm90_d64`` (``csrc/flash_attention_sm90_d64.cu``: TMA,
+  wgmma, 128-key blocks, two or three consumer warpgroups issuing their
+  products in turns, a persistent grid, and for non-causal shapes with few
+  query tiles a split of the keys combined in a second pass; ``d64_plan``
+  picks the launch)
+  for bf16 with head_dim 64 and the same alignment: whisper-small's
+  encoder, decoder self- and cross-attention;
 * ``flash_attention_mma`` (``csrc/flash_attention.cu``: mma.sync in bf16,
   CUDA cores in float32) for everything else it takes (head_dim a
   multiple of 8 up to 128).
@@ -24,7 +31,8 @@ Nothing else has a kernel: float32 (or unaligned bf16) at head_dim above
 128 raises. There is no device probe, and no fallback from one kernel to
 another or to the plain version. Each kernel wrapper counts its own
 launches (``flash_attention_sm90.launches``,
-``flash_attention_sm90_d256.launches``, ``flash_attention_mma.launches``);
+``flash_attention_sm90_d256.launches``,
+``flash_attention_sm90_d64.launches``, ``flash_attention_mma.launches``);
 ``flash_attention.launches`` counts the op's launches of any.
 
 The gradient. Where grad mode is on and q, k or v requires grad, the op
@@ -68,6 +76,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 SM90_HEAD_DIMS = (120, 128)
 SM90_D256 = 256
+SM90_D64 = 64
 
 
 @functools.cache
@@ -162,6 +171,59 @@ def d256_plan(b, hq, hkv, sq, slots) -> tuple[int, int]:
 
 
 @functools.cache
+def _launcher_sm90_d64():
+    lib = _build.load("flash_attention_sm90_d64")
+    fn = lib.flash_attention_sm90_d64_launch
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                   + [ctypes.c_longlong] * 12
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+@functools.cache
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+D64_BLOCK_K = 128       # keys a kv block of the head_dim 64 kernel
+D64_MAX_SPLITS = 4
+D64_MIN_SPLIT_BLOCKS = 4
+
+
+def d64_plan(b, hq, sq, sk, causal, window, sms) -> tuple[int, int, int]:
+    """The launch of ``flash_attention_sm90_d64``: (consumer warpgroups a
+    CTA, key splits, CTAs in the grid). A pure function of the shape and
+    of ``sms``, the card's SMs.
+
+    A CTA is 64 query rows a consumer warpgroup: three (192 rows) unless
+    two (128 rows) pad sq to fewer rows. A unit of work is a query tile of
+    one (batch, head) and one run of its kv blocks. Where every tile sees
+    every key (non-causal, no window), the kv blocks may be split in s
+    equal runs, s in 1..4 and each run at least 4 blocks: the s that gives
+    the fewest rounds of ``sms`` units times blocks a run, the smallest on
+    a tie; else 1. A split adds a second pass that merges each row's runs.
+    A CTA holds an SM alone (its registers), and the grid is persistent:
+    the fewer of ``sms`` and the units, each CTA walking its units."""
+    rows = {c: -(-sq // (64 * c)) * 64 * c for c in (2, 3)}
+    consumers = 3 if rows[3] <= rows[2] else 2
+    tiles = rows[consumers] // (64 * consumers) * b * hq
+    splits = 1
+    if not causal and window is None:
+        n_kb = -(-sk // D64_BLOCK_K)
+        best = None
+        for s in range(1, D64_MAX_SPLITS + 1):
+            if s > 1 and n_kb < s * D64_MIN_SPLIT_BLOCKS:
+                break
+            cost = -(-tiles * s // sms) * -(-n_kb // s)
+            if best is None or cost < best:
+                best, splits = cost, s
+    return consumers, splits, min(sms, tiles * splits)
+
+
+@functools.cache
 def _launcher_bwd():
     lib = _build.load("flash_attention_bwd")
     fn = lib.flash_attention_bwd_launch
@@ -188,34 +250,39 @@ def _launcher_bwd_sm90():
 def _tma_strides(t):
     """The (batch, head, sequence) element strides of a (b, h, s, d) view,
     with any stride of an extent-1 dimension (which addresses nothing)
-    replaced by the packed one, so that the tensor map takes it."""
-    packed = (t.shape[1] * t.shape[2] * t.shape[3], t.shape[2] * t.shape[3],
-              t.shape[3])
-    return tuple(p if n == 1 else st
-                 for st, n, p in zip(t.stride()[:3], t.shape[:3], packed))
+    replaced by the packed one, so that the tensor map takes it. (Written
+    out: every Hopper launch reads it several times.)"""
+    b, h, s, d = t.shape
+    sb, sh, ss = t.stride()[:3]
+    return (h * s * d if b == 1 else sb, s * d if h == 1 else sh,
+            d if s == 1 else ss)
 
 
 def _tma_aligned(t) -> bool:
     """The base pointer 16-byte aligned and every stride a multiple of 8
     elements (16 bytes): the tensor map's rule."""
-    return t.data_ptr() % 16 == 0 and all(st % 8 == 0
-                                          for st in _tma_strides(t))
+    sb, sh, ss = _tma_strides(t)
+    return (t.data_ptr() % 16 == 0 and sb % 8 == 0 and sh % 8 == 0
+            and ss % 8 == 0)
 
 
 def choose_kernel(q, k, v) -> str:
     """Which CUDA kernel takes (q, k, v): for bf16 with non-empty
     sequences, every base pointer 16-byte aligned and every stride a
     multiple of 8 elements (16 bytes, the tensor map's rule),
-    ``"flash_attention_sm90"`` at head_dim 120 or 128 and
-    ``"flash_attention_sm90_d256"`` at 256; else ``"flash_attention_mma"``
+    ``"flash_attention_sm90"`` at head_dim 120 or 128,
+    ``"flash_attention_sm90_d256"`` at 256 and
+    ``"flash_attention_sm90_d64"`` at 64; else ``"flash_attention_mma"``
     (which refuses head_dim above 128). Reads only dtypes, shapes, strides
     and pointers: no device query."""
+    d = q.shape[-1]
     if (q.dtype == k.dtype == v.dtype == torch.bfloat16
-            and q.shape[-1] in SM90_HEAD_DIMS + (SM90_D256,)
+            and d in SM90_HEAD_DIMS + (SM90_D256, SM90_D64)
             and q.shape[2] > 0 and k.shape[2] > 0
             and all(_tma_aligned(t) for t in (q, k, v))):
-        return ("flash_attention_sm90_d256" if q.shape[-1] == SM90_D256
-                else "flash_attention_sm90")
+        return {SM90_D256: "flash_attention_sm90_d256",
+                SM90_D64: "flash_attention_sm90_d64"}.get(
+                    d, "flash_attention_sm90")
     return "flash_attention_mma"
 
 
@@ -344,8 +411,9 @@ def _check_sm90(q, k, v, window, name):
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("the kernel needs the last dimension contiguous")
     if choose_kernel(q, k, v) != name:
-        dims = SM90_HEAD_DIMS if name == "flash_attention_sm90" else (
-            SM90_D256,)
+        dims = {"flash_attention_sm90": SM90_HEAD_DIMS,
+                "flash_attention_sm90_d256": (SM90_D256,),
+                "flash_attention_sm90_d64": (SM90_D64,)}[name]
         raise ValueError(
             f"{name} takes bf16 with head_dim in {dims} and 16-byte-aligned "
             f"pointers and strides; got {q.dtype}, d = {d}, strides "
@@ -402,8 +470,53 @@ def flash_attention_sm90_d256(q, k, v, *, causal=True, window=None,
     return out
 
 
+def flash_attention_sm90_d64(q, k, v, *, causal=True, window=None,
+                             lse=None):
+    """The kernel of ``csrc/flash_attention_sm90_d64.cu`` (bf16, head_dim
+    64) on CUDA tensors that ``choose_kernel`` sends to it; raises on any
+    other. The launch is ``d64_plan``'s; with a key split the wrapper
+    allocates the partial rows' float32 scratch and the call is two CUDA
+    kernels (the split runs, then their merge), counted as one launch.
+    ``lse`` as in ``flash_attention_mma``."""
+    b, hq, _, sk, _ = _check_sm90(q, k, v, window,
+                                  "flash_attention_sm90_d64")
+    sq = q.shape[2]
+    if sq == 0 or b * hq == 0:
+        _lse_ptr(lse, q)
+        return _new_out(q)
+    lib, fn = _launcher_sm90_d64()
+    plan = d64_plan(b, hq, sq, sk, causal, window, _sm_count(q.device.index))
+    code, out = d64_call(fn, q, k, v, causal, window, lse, *plan)
+    _build.check(lib, code, "flash_attention_sm90_d64")
+    flash_attention_sm90_d64.launches += 1
+    return out
+
+
+def d64_call(fn, q, k, v, causal, window, lse, consumers, splits, ctas):
+    """One call of a head_dim 64 C entry ``fn`` (this module's, or a
+    measurement build's) on inputs the wrapper has checked, with the
+    launch (consumers, splits, CTAs): returns (its code, the output). With
+    a split, the partial rows' float32 scratch is allocated here."""
+    b, hq, sq, d = q.shape
+    out = _new_out(q)
+    part = None
+    if splits > 1:
+        part = torch.empty(splits * b * hq * sq * (d + 2),
+                           dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  b, hq, k.shape[1], sq, k.shape[2], *_tma_strides(q),
+                  *_tma_strides(k), *_tma_strides(v), *out.stride()[:3],
+                  int(bool(causal)), int(window or 0),
+                  d ** -0.5 * math.log2(math.e), _lse_ptr(lse, q),
+                  consumers, splits, ctas,
+                  None if part is None else part.data_ptr(), _stream(q))
+    return code, out
+
+
 _KERNELS = {"flash_attention_sm90": flash_attention_sm90,
             "flash_attention_sm90_d256": flash_attention_sm90_d256,
+            "flash_attention_sm90_d64": flash_attention_sm90_d64,
             "flash_attention_mma": flash_attention_mma}
 
 
@@ -581,7 +694,8 @@ def flash_attention(q, k, v, *, causal=True, window=None):
 
     On a CUDA tensor (float32 or bfloat16 with d a multiple of 8 up to 128
     and any strides with the last dimension contiguous, or bf16 with d =
-    256 and 16-byte-aligned pointers and strides) the kernel that
+    256 and 16-byte-aligned pointers and strides; bf16 at d = 64, 120 and
+    128 with that alignment goes to a Hopper kernel) the kernel that
     ``choose_kernel`` names runs and returns a (b, hq, sq, d) view of a
     (b, sq, hq, d) buffer, so the caller's merge of the heads is free. Rows
     with no valid key come out as zeros there. Where grad mode is on and an
@@ -607,6 +721,7 @@ flash_attention.launches = 0
 flash_attention_mma.launches = 0
 flash_attention_sm90.launches = 0
 flash_attention_sm90_d256.launches = 0
+flash_attention_sm90_d64.launches = 0
 flash_attention_bwd.launches = 0
 flash_attention_bwd_mma.launches = 0
 flash_attention_bwd_sm90.launches = 0

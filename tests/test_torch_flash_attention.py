@@ -116,24 +116,36 @@ def test_cpu_tensor_runs_plain_and_counts_no_launch():
     assert ops.flash_attention.launches == before
 
 
-@pytest.mark.parametrize("bad", ["heads", "dtype", "rank", "window", "device"])
+@pytest.mark.parametrize("bad", ["heads", "dtype", "rank", "window", "device",
+                                 "d64 heads", "d64 rank", "d64 window",
+                                 "d64 kv head_dim"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
-    q = torch.zeros(1, 4, 8, 16)
-    k = torch.zeros(1, 2, 8, 16)
-    v = torch.zeros(1, 2, 8, 16)
+    """The op, and the head_dim 64 kernel's wrapper called directly, raise
+    on shapes no kernel takes before any launch."""
+    d = 64 if bad.startswith("d64") else 16
+    dt = torch.bfloat16 if bad.startswith("d64") else torch.float32
+    q = torch.zeros(1, 4, 8, d, dtype=dt)
+    k = torch.zeros(1, 2, 8, d, dtype=dt)
+    v = torch.zeros(1, 2, 8, d, dtype=dt)
     kw = {}
-    if bad == "heads":
-        k = v = torch.zeros(1, 3, 8, 16)
+    if bad.endswith("heads"):
+        k = v = torch.zeros(1, 3, 8, d, dtype=dt)
     elif bad == "dtype":
         k = k.double()
-    elif bad == "rank":
+    elif bad.endswith("rank"):
         q = q[0]
-    elif bad == "window":
+    elif bad.endswith("window"):
         kw = dict(window=0)
     elif bad == "device":
         q, k, v = (t.to("meta") for t in (q, k, v))
+    elif bad == "d64 kv head_dim":
+        k = v = torch.zeros(1, 2, 8, 128, dtype=dt)
+    fn = (ops.flash_attention_sm90_d64 if bad.startswith("d64")
+          else ops.flash_attention)
+    before = ops.flash_attention_sm90_d64.launches
     with pytest.raises(ValueError):
-        ops.flash_attention(q, k, v, **kw)
+        fn(q, k, v, **kw)
+    assert ops.flash_attention_sm90_d64.launches == before
 
 
 def _bf16(*shape):
@@ -151,9 +163,27 @@ def _routing_cases():
         q = _bf16(2, 50, 4, d).transpose(1, 2)
         k = _bf16(2, 50, 2, d).transpose(1, 2)
         cases.append((f"bf16 d={d} transposed", q, k, k, sm90))
-    for d in (16, 64, 112):
+    for d in (16, 32, 112):
         cases.append((f"bf16 d={d}", _bf16(1, 4, 64, d), _bf16(1, 2, 64, d),
                       _bf16(1, 2, 64, d), mma))
+    # head_dim 64: the Hopper kernel of its own for aligned bf16 (whisper's
+    # encoder, self- and cross-attention), mma.sync for the rest
+    d64 = "flash_attention_sm90_d64"
+    cases.append(("bf16 d=64", _bf16(1, 4, 64, 64), _bf16(1, 2, 64, 64),
+                  _bf16(1, 2, 64, 64), d64))
+    # whisper's cross K/V: (b, Te, h·hd) projections split into (b, h, Te,
+    # hd) views, over (b, h, T, hd) queries of the same layout
+    q = _bf16(4, 448, 12 * 64).view(4, 448, 12, 64).transpose(1, 2)
+    kv = _bf16(4, 1500, 12 * 64).view(4, 1500, 12, 64).transpose(1, 2)
+    cases.append(("bf16 d=64 whisper cross views", q, kv, kv, d64))
+    f = torch.zeros(1, 4, 64, 64)
+    cases.append(("float32 d=64", f, f[:, :2], f[:, :2], mma))
+    off = _bf16(4 * 64 * 64 + 1)[1:].view(1, 4, 64, 64)
+    cases.append(("bf16 d=64 unaligned pointer", off, _bf16(1, 2, 64, 64),
+                  _bf16(1, 2, 64, 64), mma))
+    wide = _bf16(1, 2, 64, 68)[..., :64]       # row stride 68: 136 bytes
+    cases.append(("bf16 d=64 stride 68", _bf16(1, 4, 64, 64), wide, wide,
+                  mma))
     f = torch.zeros(1, 4, 64, 128)
     cases.append(("float32 d=128", f, f[:, :2], f[:, :2], mma))
     h = torch.zeros(1, 4, 64, 128, dtype=torch.float16)
@@ -199,6 +229,7 @@ def test_choose_kernel_routes_by_dtype_head_dim_and_alignment(case):
 def test_kernel_wrappers_refuse_cpu_tensors():
     for fn, d in ((ops.flash_attention_sm90, 128),
                   (ops.flash_attention_sm90_d256, 256),
+                  (ops.flash_attention_sm90_d64, 64),
                   (ops.flash_attention_mma, 128)):
         q = _bf16(1, 2, 8, d)
         before = fn.launches
@@ -271,6 +302,139 @@ def test_d256_tiles_count_every_head_once(args):
     assert clusters <= max(n_shared, -(-n_solo // cluster), 1)
 
 
+# d64_plan: (b, hq, sq, sk, causal, window, the card's SMs) -> (consumer
+# warpgroups a CTA, key splits, CTAs in the persistent grid)
+D64_PLANS = [
+    # whisper's encoder: 192-row tiles pad 1500 no more than 128-row ones;
+    # 8 x 48 = 384 units walked by 132 CTAs in three rounds, no split
+    ((4, 12, 1500, 1500, False, None, 132), (3, 1, 132)),
+    # its cross-attention: 4 x 48 = 192 units of 12 kv blocks take 2
+    # rounds of 12 blocks; split in two, 3 rounds of 6
+    ((4, 12, 448, 1500, False, None, 132), (2, 2, 132)),
+    # ... on a card of 114 SMs the split gains nothing (4 rounds of 6)
+    ((4, 12, 448, 1500, False, None, 114), (2, 1, 114)),
+    # the decoder's causal self-attention: never split
+    ((4, 12, 448, 448, True, None, 132), (2, 1, 132)),
+    # a window: never split; 128 units, a CTA each
+    ((2, 8, 1000, 1000, True, 300, 132), (2, 1, 128)),
+    # 32 tiles over 16 kv blocks: four runs of 4
+    ((2, 8, 300, 2000, False, None, 132), (3, 4, 128)),
+    # 8 kv blocks: two runs of 4 at most
+    ((3, 4, 5, 900, False, None, 132), (2, 2, 24)),
+    ((1, 2, 128, 8192, False, None, 132), (2, 4, 8)),
+    # too few kv blocks to split
+    ((2, 4, 100, 300, False, None, 132), (2, 1, 8)),
+]
+
+
+@pytest.mark.parametrize("args,want", D64_PLANS,
+                         ids=[str(a) for a, _ in D64_PLANS])
+def test_d64_plan(args, want):
+    assert ops.d64_plan(*args) == want
+
+
+def _d64_walk(b, hq, sq, sk, causal, window, consumers, splits, ctas):
+    """The units each CTA of ``flash_attention_sm90_d64``'s persistent grid
+    works, as its kernel's ``unit_at`` walks them: per CTA the list of
+    (first query row, batch·head, split, first and end kv block)."""
+    bm, bn = 64 * consumers, ops.D64_BLOCK_K
+    n_qb, n_kb = -(-sq // bm), -(-sk // bn)
+    per = -(-n_kb // splits)
+    units = n_qb * b * hq * splits
+    walks = []
+    for c in range(ctas):
+        mine = []
+        for w in range(units):
+            t = w * ctas + (ctas - 1 - c if w & 1 else c)
+            if t >= units:
+                break
+            q0 = (n_qb - 1 - t // (b * hq * splits)) * bm
+            bh, z = t % (b * hq * splits) // splits, t % splits
+            hi = min(sk, q0 + bm) if causal else sk
+            lo = max(0, q0 - window + 1) if window else 0
+            kb0 = lo // bn
+            kb1 = -(-hi // bn) if hi > lo else kb0
+            z0 = max(kb0, z * per)
+            mine.append((q0, bh, z, z0, max(z0, min(kb1, (z + 1) * per))))
+        walks.append(mine)
+    return walks
+
+
+@pytest.mark.parametrize("args", [a for a, _ in D64_PLANS]
+                         + [(2, 6, 700, 900, True, None, 5),
+                            (1, 3, 1000, 3000, False, None, 7)],
+                         ids=lambda a: str(a))
+def test_d64_walk_covers_every_row_and_key_once(args):
+    """Each (batch·head, query tile) is worked once a split, by one CTA;
+    no CTA of the grid is without a unit, and no two CTAs' unit counts
+    differ by more than one; the splits of a tile take disjoint runs of kv
+    blocks, in order, that together are the tile's kv range, none empty
+    where the plan split (each run at least D64_MIN_SPLIT_BLOCKS blocks)."""
+    b, hq, sq, sk, causal, window, _ = args
+    consumers, splits, ctas = ops.d64_plan(*args)
+    walks = _d64_walk(b, hq, sq, sk, causal, window, consumers, splits,
+                      ctas)
+    counts = [len(w) for w in walks]
+    assert min(counts) >= 1 and max(counts) - min(counts) <= 1
+    bm = 64 * consumers
+    tiles = {}
+    for q0, bh, z, kb0, kb1 in (u for w in walks for u in w):
+        tiles.setdefault((q0, bh), []).append((z, kb0, kb1))
+    assert sorted(tiles) == sorted((q0, bh) for q0 in range(0, sq, bm)
+                                   for bh in range(b * hq))
+    n_kb = -(-sk // ops.D64_BLOCK_K)
+    for runs in tiles.values():
+        runs.sort()
+        assert [z for z, _, _ in runs] == list(range(splits))
+        blocks = [k for _, kb0, kb1 in runs for k in range(kb0, kb1)]
+        assert blocks == sorted(set(blocks))
+        if splits > 1:
+            assert blocks == list(range(n_kb))
+            assert all(kb1 - kb0 >= ops.D64_MIN_SPLIT_BLOCKS
+                       for _, kb0, kb1 in runs)
+
+
+def _split_attention(q, k, v, splits):
+    """The key split's arithmetic in float64: each run of 128-key blocks
+    ``_d64_walk`` gives a split yields (m, l, unnormalized O) in base 2,
+    and the runs merge in the order 0, 1, ... as the kernel's second pass
+    merges them."""
+    n_kb = -(-k.shape[2] // ops.D64_BLOCK_K)
+    per = -(-n_kb // splits) * ops.D64_BLOCK_K
+    s = (q @ k.transpose(-1, -2)) * q.shape[-1] ** -0.5 * np.log2(np.e)
+    parts = []
+    for z in range(splits):
+        sz = s[..., z * per:(z + 1) * per]
+        m = sz.amax(-1, keepdim=True)
+        p = torch.exp2(sz - m)
+        parts.append((m, p.sum(-1, keepdim=True),
+                      p @ v[:, :, z * per:(z + 1) * per]))
+    mx = torch.stack([m for m, _, _ in parts]).amax(0)
+    l = o = 0
+    for m, lz, oz in parts:
+        w = torch.exp2(m - mx)
+        l = l + lz * w
+        o = o + oz * w
+    return o / l
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 4, 100, 900, 64),
+                                   (1, 2, 2, 64, 2000, 64)])
+def test_d64_key_split_merge_matches_jax(shape):
+    """The split and its fixed-order merge, modelled in float64 on the
+    plan's runs, against the JAX package's attention on the same numpy
+    inputs (float32, non-causal)."""
+    b, hq, hkv, sq, sk, d = shape
+    _, splits, _ = ops.d64_plan(b, hq, sq, sk, False, None, 132)
+    assert splits > 1
+    arrs = _qkv(3, b, hq, hkv, sq, sk, d)
+    q, k, v = (torch.from_numpy(a).double() for a in arrs)
+    got = _split_attention(q, k, v, splits).numpy()
+    want = np.asarray(jax_flash(*(jnp.asarray(a) for a in arrs),
+                                causal=False, impl="ref"))
+    np.testing.assert_allclose(got, want, atol=1e-5)
+
+
 # a consumer step of the head_dim 256 kernel as cuobjdump prints it: S and
 # P·V issued, the wait for S, K's release, the wait for P·V, V's release
 _D256_STEP = [
@@ -311,6 +475,29 @@ def test_d256_release_order_reads_the_sass(body, other, early):
                   "_ZN4anon20flash_attn_sm90E4Geom": other})
     got = releases(sass)
     assert got == {"arrivals": 2, "products": 2, "early": early}
+
+
+@pytest.mark.parametrize("first,second,early", [
+    (_D256_STEP, _D256_STEP, []),
+    # the first instantiation ends on an unwaited product: the second's
+    # first arrival is not read after it
+    (_D256_STEP[:3], _D256_STEP[4:] + _D256_STEP[:3] + _D256_STEP[3:], []),
+    # K released before the wait for S in the second
+    (_D256_STEP, _D256_STEP[:3] + [_D256_STEP[4], _D256_STEP[3]]
+     + _D256_STEP[5:], ["0x30"]),
+], ids=["shipped", "each_on_its_own", "release_before_wait"])
+def test_d64_release_order_reads_each_instantiation(first, second, early):
+    """The head_dim 64 kernel is two template instantiations (two and
+    three consumer warpgroups): ``releases`` reads each function on its
+    own and sums them."""
+    from benchmarks_torch.k3_sass import KERNELS, releases
+    kernel = KERNELS["d64"][0]
+    sass = _sass({f"_ZN4anon{kernel}ILi2EEEv4Geom": first,
+                  f"_ZN4anon{kernel}ILi3EEEv4Geom": second,
+                  "_ZN4anon22flash_attn_d64_combineEPKf": _D256_STEP[4:5]})
+    got = releases(sass, kernel)
+    n = [op for op in first + second if "SYNCS.ARRIVE" in op]
+    assert got["arrivals"] == len(n) and got["early"] == early
 
 
 def _bwd_routing_cases():

@@ -52,12 +52,16 @@ shortcuts exact on every input they can see, and raising on what it does
 not take (float32 included: channels in groups of 4, 16-byte aligned);
 the reduced model on the card against the CPU.
 
-whisper-small's K3 shapes (mma.sync, head_dim 64; ``WHISPER_SHAPES``):
-the encoder's non-causal 1500 keys (a ragged last block), cross-attention
-with sq != sk, and the decoder's causal self-attention, the bf16 kernel
-held to the plain version on float64 copies of its inputs (the bf16
-plain version rounds its scores, and is the less exact of the two there); the reduced
-encoder-decoder on the card against the CPU. Nelder-Mead on the card: a
+whisper-small's K3 shapes (``WHISPER_SHAPES``): the encoder's
+non-causal 1500 keys (a ragged last block), cross-attention with sq != sk,
+and the decoder's causal self-attention, in bf16 through the Hopper kernel
+at head_dim 64 (``flash_attention_sm90_d64``) and in float32 through the
+mma.sync one, the bf16 kernel held to the plain version on float64 copies
+of its inputs (the bf16 plain version rounds its scores, and is the less
+exact of the two there); the Hopper d = 64 kernel at ``D64_SHAPES`` with
+the same bits on a repeat, its log-sum-exp, the mma.sync backward on its
+lse, its refusals, and the mma.sync kernel still held at those shapes; the
+reduced encoder-decoder on the card against the CPU. Nelder-Mead on the card: a
 chunk replayed as a CUDA graph gives the eager chunks' bits.
 
 rwkv6-3b's kernel: W (``rwkv6_wkv``, port only: RWKV6's WKV recurrence)
@@ -90,6 +94,7 @@ from repro_torch.kernels.flash_attention.ops import (choose_kernel,
                                                      flash_attention_mma,
                                                      flash_attention_plain,
                                                      flash_attention_sm90,
+                                                     flash_attention_sm90_d64,
                                                      flash_attention_sm90_d256)
 from repro_torch.kernels.perturb.ops import (abo_zo_perturb,
                                              abo_zo_perturb_plain)
@@ -122,14 +127,25 @@ ATTN_SHAPES = [
     (1, 16, 16, 1024, 1024, 128, True, None),    # MHA: the MoE models'
     (1, 16, 16, 8192, 8192, 128, True, None),    # their layer shape
 ]
-# whisper-small's (mma.sync at head_dim 64): the encoder's 1500 keys (23
-# blocks of 64 and a ragged 28), cross-attention (sq != sk, the same
-# ragged keys), the decoder's causal self-attention
+# whisper-small's (the Hopper kernel at head_dim 64 in bf16, mma.sync in
+# float32): the encoder's 1500 keys (11 blocks of 128 and a ragged 92; 7
+# tiles of 192 query rows and a ragged 156), cross-attention (sq != sk, the
+# same ragged keys, a key split), the decoder's causal self-attention
 WHISPER_SHAPES = [
     (4, 12, 12, 1500, 1500, 64, False, None),
     (4, 12, 12, 448, 1500, 64, False, None),
     (4, 12, 12, 448, 448, 64, True, None),
 ]
+# bf16 at head_dim 64 (the Hopper kernel's route): the d = 64 rows of
+# ATTN_SHAPES, whisper's, and the kernel's own edges: MQA with a window;
+# GQA with a 4-way key split, ragged sq and sk; a single tile; 5 query
+# rows over 900 keys (two splits, 123 empty rows of the tile)
+D64_SHAPES = ([s for s in ATTN_SHAPES if s[5] == 64] + WHISPER_SHAPES + [
+    (2, 8, 1, 1000, 1000, 64, True, 300),
+    (2, 8, 2, 300, 2000, 64, False, None),
+    (1, 2, 2, 77, 77, 64, False, None),
+    (3, 4, 4, 5, 900, 64, False, None),
+])
 # the shapes the Hopper kernel serves: bf16 with head_dim 120 or 128
 SM90_SHAPES = [s for s in ATTN_SHAPES if s[5] in (120, 128)]
 # those the mma.sync kernel is also held at (not the model's T = 8192)
@@ -389,10 +405,12 @@ def test_flash_attention_kernel_at_whisper_shapes(cuda, shape, dtype):
     ATTN_SHAPES are."""
     causal = shape[6]
     q, k, v = _qkv(shape, dtype, cuda)
-    before = flash_attention_mma.launches
+    kernel = (flash_attention_sm90_d64 if dtype == torch.bfloat16
+              else flash_attention_mma)
+    before = kernel.launches
     got = flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert flash_attention_mma.launches == before + 1
+    assert kernel.launches == before + 1
     want = flash_attention_plain(q, k, v, causal=causal)
     assert got.shape == want.shape and got.dtype == dtype
     err = float((got.float() - want.float()).abs().max())
@@ -1056,6 +1074,138 @@ def test_reduced_bf16_model_takes_an_adamw_step_through_the_hopper_bwd(cuda):
     for n, p in model.named_parameters():
         if n.split(".")[-1] in ("wq", "wk", "wv"):
             assert not torch.equal(p.detach(), start[n]), n
+
+
+# ---------------------------------------------------------------------------
+# whisper-small: K3 at head_dim 64
+# ---------------------------------------------------------------------------
+def _d64_held(got, q, k, v, causal, window):
+    """got against the plain version: max abs within ATTN_TOL; per row
+    within ATTN_ROW_TOL of the bf16 plain version, or, where every row sees
+    more than 1024 keys (non-causal, sk > 1024: the bf16 plain version's
+    rounded scores move such rows by ~0.02 of their max), of the plain
+    version on float64 copies of the inputs and no further from it than
+    the bf16 plain version is."""
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert bool(torch.isfinite(got).all())
+    assert float((got.float() - want.float()).abs().max()) < \
+        ATTN_TOL[torch.bfloat16]
+    if causal or k.shape[2] <= 1024:
+        assert _row_rel_err(got, want) < ATTN_ROW_TOL[torch.bfloat16]
+        return
+    exact = flash_attention_plain(q.double(), k.double(), v.double(),
+                                  causal=causal, window=window)
+    row = _row_rel_err(got, exact)
+    assert row < ATTN_ROW_TOL[torch.bfloat16], row
+    assert row <= _row_rel_err(want, exact)
+
+
+@pytest.mark.parametrize("shape", D64_SHAPES)
+def test_flash_attention_sm90_d64_matches_plain(cuda, shape):
+    """The Hopper kernel at head_dim 64 through the op's routing; only its
+    own launch count moves; two calls give the same bits (the key split's
+    merge has a fixed order). The output's memory is left NaN beforehand,
+    so a row never written shows."""
+    causal, window = shape[6], shape[7]
+    q, k, v = _qkv(shape, torch.bfloat16, cuda)
+    assert choose_kernel(q, k, v) == "flash_attention_sm90_d64"
+    wrappers = (flash_attention_sm90_d64, flash_attention_sm90,
+                flash_attention_sm90_d256, flash_attention_mma)
+    counts = [w.launches for w in wrappers]
+    torch.cuda.empty_cache()
+    torch.full_like(q, float("nan"))     # freed at once, its block cached
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert [w.launches for w in wrappers] == [counts[0] + 1] + counts[1:]
+    _d64_held(got, q, k, v, causal, window)
+    again = flash_attention(q, k, v, causal=causal, window=window)
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+
+
+@pytest.mark.parametrize("shape", D64_SHAPES)
+def test_flash_attention_mma_still_matches_plain_at_d64_shapes(cuda, shape):
+    """The mma.sync kernel, called directly, still agrees at the bf16
+    head_dim 64 shapes the op now sends to the Hopper kernel."""
+    causal, window = shape[6], shape[7]
+    q, k, v = _qkv(shape, torch.bfloat16, cuda)
+    before = flash_attention_mma.launches
+    got = flash_attention_mma(q, k, v, causal=causal, window=window)
+    assert flash_attention_mma.launches == before + 1
+    _d64_held(got, q, k, v, causal, window)
+
+
+@pytest.mark.parametrize("sq,sk,window", [(300, 300, 100), (300, 2000, None),
+                                          (448, 1500, None)])
+def test_flash_attention_sm90_d64_strided_view_and_lse(cuda, sq, sk, window):
+    """(b, t, h, d) projections read through their (b, h, t, d) transposes,
+    as the model passes them (causal with a window, and non-causal with a
+    key split); the log-sum-exp moves no output bit and is the plain
+    logsumexp of the masked, scaled scores."""
+    b, hq, hkv, d = 2, 4, 2, 64
+    causal = window is not None
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn(b, sq, hq, d, generator=g, device=cuda)
+    k, v = [torch.randn(b, sk, hkv, d, generator=g, device=cuda)
+            for _ in range(2)]
+    q, k, v = [t.to(torch.bfloat16).transpose(1, 2) for t in (q, k, v)]
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=cuda)
+    got = flash_attention_sm90_d64(q, k, v, causal=causal, window=window)
+    with_lse = flash_attention_sm90_d64(q, k, v, causal=causal,
+                                        window=window, lse=lse)
+    assert torch.equal(got, with_lse)
+    _d64_held(got, q, k, v, causal, window)
+    s = (q.float() @ k.float().repeat_interleave(hq // hkv, 1)
+         .transpose(-1, -2) * d ** -0.5)
+    qp = torch.arange(sq, device=cuda)[:, None]
+    kp = torch.arange(sk, device=cuda)[None]
+    keep = torch.ones_like(s, dtype=torch.bool)
+    if causal:
+        keep &= (qp >= kp) & ((qp - kp) < window)
+    want_lse = torch.logsumexp(torch.where(keep, s, -torch.inf), -1)
+    assert float((lse - want_lse).abs().max()) < 1e-5
+
+
+@pytest.mark.parametrize("shape", [s for s in BWD_SHAPES
+                                   if s[5] == 64 and s[8] == torch.bfloat16])
+def test_flash_attention_d64_forward_feeds_the_mma_backward(cuda, shape):
+    """A gradient through K3 in bf16 at head_dim 64: the forward is the
+    Hopper d = 64 kernel, whose lse the mma.sync backward reads; dQ, dK and
+    dV within BWD_TOL and BWD_ROW_TOL of autograd through the plain
+    attention."""
+    q, k, v, dout, causal, window, _ = _bwd_case(shape, cuda)
+    assert choose_kernel(q, k, v) == "flash_attention_sm90_d64"
+    counted = (flash_attention_sm90_d64, flash_attention_mma,
+               flash_attention_bwd_mma, flash_attention_bwd_sm90)
+    before = [w.launches for w in counted]
+    got = torch.autograd.grad(
+        flash_attention(q, k, v, causal=causal, window=window), (q, k, v),
+        dout)
+    torch.cuda.synchronize()
+    assert [w.launches - n for w, n in zip(counted, before)] == [1, 0, 1, 0]
+    want = flash_attention_bwd_plain(q, k, v, dout, causal=causal,
+                                     window=window)
+    for name, a, w in zip("qkv", got, want):
+        assert bool(torch.isfinite(a).all())
+        err = float((a.float() - w.float()).abs().max()
+                    / w.float().abs().max())
+        assert err < BWD_TOL[torch.bfloat16], (name, err)
+        assert _grad_row_err(a, w) < BWD_ROW_TOL[torch.bfloat16], name
+
+
+def test_flash_attention_sm90_d64_refuses_what_it_does_not_serve(cuda):
+    """float32 and unaligned bf16 at head_dim 64 go to the mma.sync kernel;
+    the Hopper d = 64 wrapper raises on them and on other head dims."""
+    f = torch.zeros(1, 2, 8, 64, device=cuda)
+    off = torch.zeros(2 * 8 * 64 + 1, dtype=torch.bfloat16,
+                      device=cuda)[1:].view(1, 2, 8, 64)
+    wide = torch.zeros(1, 2, 8, 128, dtype=torch.bfloat16, device=cuda)
+    for q in (f, off):
+        assert choose_kernel(q, q, q) == "flash_attention_mma"
+    for q in (f, off, wide):
+        with pytest.raises(ValueError,
+                           match="flash_attention_sm90_d64 takes"):
+            flash_attention_sm90_d64(q, q, q)
 
 
 # ---------------------------------------------------------------------------

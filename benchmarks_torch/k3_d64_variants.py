@@ -1,9 +1,9 @@
 """K3 at head_dim 64 (``csrc/flash_attention_sm90_d64.cu``): its launch
-choices and measurement builds against each other, the mma.sync kernel and
-SDPA, timed in turns at whisper-small's shapes.
+choices against each other, the mma.sync kernel and SDPA, timed in turns at
+whisper-small's shapes.
 
     PYTHONPATH=src python -m benchmarks_torch.k3_d64_variants   # on the H100
-    PYTHONPATH=src python -m benchmarks_torch.k3_d64_variants --only plan,nopp
+    PYTHONPATH=src python -m benchmarks_torch.k3_d64_variants --only plan,mma
 
 At whisper-small's three K3 shapes (bf16, batch 4, 12/12 heads, head_dim
 64: the encoder's 1500 x 1500 and the cross-attention's 448 x 1500,
@@ -15,34 +15,27 @@ non-causal; the decoder's causal 448 x 448), on the smoke's inputs (seed
   (1 only, where the shape is causal) on the persistent grid of the fewer
   of the SMs and the units; ``ops.d64_plan``'s launch is marked ``plan``,
   and ``unitgrid`` is that launch with one CTA a unit (no walk);
-* builds of the source with a measurement knob changed (``-D``, the
-  kernels' own nvcc flags, under ``build/k3_d64_variants/``), at the
-  plan's launch: ``nopp`` (no ping-pong: each consumer issues its products
-  when its data is ready, ``REPRO_D64_PINGPONG=0``), ``poly8`` and
-  ``poly4`` (every 8th or 4th exponential of an unmasked block on the FMA
-  pipe, ``REPRO_D64_POLY_EVERY``);
 * ``mma`` (``flash_attention_mma``) and ``sdpa``
   (``scaled_dot_product_attention``, the yardstick).
 
 Each kernel run is held per row to the plain version on float64 copies of
 the inputs (``chip_smoke.row_rel_err``): within the smoke's ATTN_ROW_TOL
 and no further than the bf16 plain version is (``held``); runs of the same
-arithmetic as the plan's (every consumer count at the plan's split,
-``unitgrid`` and ``nopp``) must give its bits (``same_bits``). Then all run in alternating
+arithmetic as the plan's (every consumer count at the plan's split, and
+``unitgrid``) must give its bits (``same_bits``). Then all run in alternating
 rounds (four; each 20 launches after one, timed on the device alone by
 ``chip_smoke.queued_ms``: the host queues them while the device sleeps,
-so a short kernel's host overhead does not count). Prints each build's
+so a short kernel's host overhead does not count). Prints the build's
 registers and spills, then one JSON line per shape: per run its times,
 mean, the held readings, and the bound (products at 989 TFLOP/s, and the
-exponentials at the MUFU's 16 a clock an SM at the SM clock nvidia-smi
-read), beside the nvidia-smi line. Exits 1 if a run is not held.
+exponentials at the MUFU's rate, ``chip_smoke.PIPE_RATE``, at the SM clock
+nvidia-smi reads), beside the nvidia-smi line. Exits 1 if a run is not
+held.
 """
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
-import subprocess
 import sys
 from pathlib import Path
 
@@ -57,42 +50,6 @@ import chip_smoke  # noqa: E402
 SHAPES = {"encoder": (4, 12, 12, 1500, 1500, 64, False),
           "cross": (4, 12, 12, 448, 1500, 64, False),
           "self": (4, 12, 12, 448, 448, 64, True)}
-BUILDS = {"nopp": ["-DREPRO_D64_PINGPONG=0"],
-          "poly8": ["-DREPRO_D64_POLY_EVERY=8"],
-          "poly4": ["-DREPRO_D64_POLY_EVERY=4"]}
-MUFU_PER_CLOCK_SM = 16
-
-
-def build_variants(names) -> dict:
-    """{name: C entry} of each measurement build, compiled in parallel."""
-    from repro_torch.kernels import _build
-    out = ROOT / "build" / "k3_d64_variants"
-    out.mkdir(parents=True, exist_ok=True)
-    src = _build.CSRC / "flash_attention_sm90_d64.cu"
-    procs = {}
-    for name in names:
-        lib = out / f"{name}.so"
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *BUILDS[name], "-I",
-               str(_build.CSRC), "-o", str(lib), str(src)]
-        procs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                             stderr=subprocess.STDOUT,
-                                             text=True))
-    fns = {}
-    for name, (lib, proc) in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        report(name, log)
-        fns[name] = bind(ctypes.CDLL(str(lib)))
-    return fns
-
-
-def bind(lib):
-    fn = lib.flash_attention_sm90_d64_launch
-    from repro_torch.kernels.flash_attention import ops
-    fn.argtypes = ops._launcher_sm90_d64()[1].argtypes
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def report(name: str, log: str) -> None:
@@ -102,18 +59,11 @@ def report(name: str, log: str) -> None:
             print(f"[{name}] {line.strip()}", flush=True)
 
 
-def sm_clock_hz() -> float:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
-                          "--format=csv,noheader,nounits"],
-                         capture_output=True, text=True, timeout=60)
-    return 1e6 * float(out.stdout.strip().splitlines()[0])
-
-
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", default=None,
-                    help="comma list of run names (plan, c2s1, nopp, mma, "
+                    help="comma list of run names (plan, c2s1, unitgrid, mma, "
                          "...); default all")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -127,12 +77,10 @@ def main() -> None:
     smi = chip_smoke.nvidia_smi_line()
     info = _build.build_all()
     log = (_build.build_dir() / "flash_attention_sm90_d64.log")
-    report("base", log.read_text() if log.exists() else "")
-    print(f"[base] {len(info['built'])} kernels built in "
+    report("build", log.read_text() if log.exists() else "")
+    print(f"[build] {len(info['built'])} kernels built in "
           f"{info['seconds']:.1f} s", flush=True)
-    _, base_fn = ops._launcher_sm90_d64()
-    variants = build_variants([n for n in BUILDS if not only or n in only])
-    clock = sm_clock_hz()
+    clock = chip_smoke.sm_clock_max_hz()
     sms = ops._sm_count(dev.index or 0)
     bad = []
     for what, (b, hq, hkv, sq, sk, d, causal) in SHAPES.items():
@@ -141,27 +89,19 @@ def main() -> None:
         plan = ops.d64_plan(b, hq, sq, sk, causal, None, sms)
         runs = {}
         for c in (2, 3):
-            units = -(-sq // (64 * c)) * b * hq
             for s in ((1,) if causal else (1, 2, 3, 4)):
-                runs[f"c{c}s{s}"] = (base_fn, (c, s, min(sms, units * s)))
-        runs["plan"] = (base_fn, plan)
-        runs["unitgrid"] = (base_fn, plan[:2] + (
-            -(-sq // (64 * plan[0])) * b * hq * plan[1],))
-        for name, fn in variants.items():
-            runs[name] = (fn, plan)
+                tiles, _ = ops.d64_units(b, hq, sq, sk, c, s)
+                runs[f"c{c}s{s}"] = (c, s, min(sms, tiles * s))
+        runs["plan"] = plan
+        tiles, _ = ops.d64_units(b, hq, sq, sk, *plan[:2])
+        runs["unitgrid"] = plan[:2] + (tiles * plan[1],)
         runs = {n: r for n, r in runs.items() if not only or n in only
                 or n == "plan"}
 
-        def kernel_run(fn, launch):
-            def go():
-                code, out = ops.d64_call(fn, q, k, v, causal, None, None,
-                                         *launch)
-                if code:
-                    raise RuntimeError(f"launch {launch}: CUDA error {code}")
-                return out
-            return go
+        def kernel_run(launch):
+            return lambda: ops.d64_call(q, k, v, causal, None, None, *launch)
 
-        calls = {n: kernel_run(*r) for n, r in runs.items()}
+        calls = {n: kernel_run(r) for n, r in runs.items()}
         if not only or "mma" in only:
             calls["mma"] = lambda: ops.flash_attention_mma(q, k, v,
                                                            causal=causal)
@@ -179,8 +119,7 @@ def main() -> None:
             torch.cuda.synchronize()
             row = chip_smoke.row_rel_err(got, exact)
             same = None
-            if n in runs and runs[n][1][1] == plan[1] and (
-                    runs[n][0] is base_fn or n == "nopp"):
+            if n in runs and runs[n][1] == plan[1]:
                 same = bool(torch.equal(got.contiguous().view(torch.int16),
                                         ref.contiguous().view(torch.int16)))
             held = (n == "sdpa" or (bool(torch.isfinite(got).all())
@@ -201,7 +140,8 @@ def main() -> None:
         pairs = b * hq * (sq * (sq + 1) / 2 if causal else sq * sk)
         bound_ops, _ = chip_smoke.bound_ms(0, 4 * d * pairs,
                                            chip_smoke.PEAK_BF16_OPS_S)
-        bound_exp = 1e3 * pairs / (MUFU_PER_CLOCK_SM * sms * clock)
+        bound_exp = 1e3 * pairs / (chip_smoke.PIPE_RATE["mufu"] * sms
+                                   * clock)
         for n in calls:
             rows[n].update(ms=ms[n], mean=sum(ms[n]) / len(ms[n]))
         print(json.dumps({

@@ -3323,10 +3323,11 @@ def s_build_issue(n: int) -> dict:
             "mufu_ms": 1e3 * n_lanes * per.get("mufu", 0) / PIPE_RATE["mufu"]}
 
 
-def queued_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn()`` back to back: the device sleeps while
-    the host queues every call, so a call whose host side outlasts its
-    kernel (S's wrapper) is timed on the device alone."""
+def queued(fn, reps: int):
+    """``fn()`` back to back, queued by the host while the device sleeps:
+    (the mean device time a call, the mean host time a call to queue it),
+    in ms. The first is the device's alone while the host's whole queueing
+    stays within the sleep."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -3334,11 +3335,20 @@ def queued_ms(fn, reps: int) -> float:
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda._sleep(100_000_000)
     start.record()
+    t0 = time.perf_counter()
     for _ in range(reps):
         fn()
+    host = time.perf_counter() - t0
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / reps, 1e3 * host / reps
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn()`` back to back: the device sleeps while
+    the host queues every call, so a call whose host side outlasts its
+    kernel (S's wrapper) is timed on the device alone."""
+    return queued(fn, reps)[0]
 
 
 def lru_inputs(dev, g, shape):
@@ -4332,6 +4342,70 @@ def plain_attention_read(layers: list):
         attention.flash_attention = saved
 
 
+@contextlib.contextmanager
+def mma_attention():
+    """The model's attention op on ``flash_attention_mma``, the kernel that
+    took whisper's bf16 head_dim 64 calls before the Hopper d = 64 one."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_mma
+    from repro_torch.models import attention
+
+    def mma(q, k, v, *, causal=True, window=None):
+        return flash_attention_mma(q, k, v, causal=causal, window=window)
+
+    saved = attention.flash_attention
+    attention.flash_attention = mma
+    try:
+        yield
+    finally:
+        attention.flash_attention = saved
+
+
+def busy_ms(fn) -> tuple[float, float]:
+    """One call of ``fn`` under ``torch.profiler``: (its wall to a
+    synchronize, the summed device time of the kernels it ran), in ms. Its
+    kernels run on one stream and do not overlap, so the sum is the time
+    the device was busy."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+    return 1e3 * wall, busy / 1e3
+
+
+def whisper_forward_turns(step, batch, rounds: int = 4) -> dict:
+    """The prefill step in turns on the op's route (the d = 64 kernel) and
+    on the mma.sync kernel (``mma_attention``), d64 first in even rounds
+    and mma first in odd ones: per route the wall of each step to its
+    synchronize, and the first round's step once more under the profiler
+    (``busy_ms``): its kernels' device time and its wall there."""
+    import torch
+    out = {n: {"wall_s": []} for n in ("d64", "mma")}
+    for rnd in range(rounds):
+        for n in (("d64", "mma") if rnd % 2 == 0 else ("mma", "d64")):
+            with (mma_attention() if n == "mma"
+                  else contextlib.nullcontext()):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(batch)
+                torch.cuda.synchronize()
+                out[n]["wall_s"].append(time.perf_counter() - t0)
+                if rnd == 0:
+                    wall, busy = busy_ms(lambda: step(batch))
+                    out[n].update(traced_wall_ms=wall, busy_ms=busy)
+    for r in out.values():
+        r["wall_s_mean"] = sum(r["wall_s"]) / len(r["wall_s"])
+    return out
+
+
 def whisper_k3_times(dev, seed: int, cfg) -> dict:
     """K3 at whisper's three shapes, bf16 (B, 12/12, head_dim 64): the
     encoder's 1500 x 1500 and the cross-attention's 448 x 1500,
@@ -4340,9 +4414,10 @@ def whisper_k3_times(dev, seed: int, cfg) -> dict:
     each held to the plain version on float64 copies of the inputs, and
     the d = 64 kernel gives the same bits twice; then both and SDPA are
     timed in turns (d64, mma, SDPA, SDPA, mma, d64), on the device alone
-    (``queued_ms``, the host queueing every call while the device sleeps)
-    with the events' reading of back-to-back calls beside it, and against
-    the plain version and two bounds: the products at 989 TFLOP/s (or the
+    (``queued``, the host queueing every call while the device sleeps)
+    with the host's time to queue a call and the events' reading of
+    back-to-back calls beside it, and against the plain version and two
+    bounds: the products at 989 TFLOP/s (or the
     bytes; ``k3_bound_cross``) and the exponentials at the MUFU's 16 a
     clock an SM at the card's top SM clock. Returns {"d64": readings,
     "mma": readings}, each {shape: ...} with whether the kernel is held
@@ -4353,10 +4428,7 @@ def whisper_k3_times(dev, seed: int, cfg) -> dict:
     from repro_torch.kernels.flash_attention import ops as fa
     out = {"d64": {}, "mma": {}}
     h, d, te = cfg.n_heads, cfg.head_dim, cfg.encoder_len
-    clock = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        timeout=60).stdout.split()[0]) * 1e6
+    clock = sm_clock_max_hz()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for what, sq, sk, causal in (("encoder", te, te, False),
                                  ("cross", WHISPER_T, te, False),
@@ -4392,9 +4464,12 @@ def whisper_k3_times(dev, seed: int, cfg) -> dict:
             del got, again
         del exact
         ms = {n: [] for n in runs}
+        host = {n: [] for n in runs}
         events = {n: [] for n in runs}
         for n in ("d64", "mma", "sdpa", "sdpa", "mma", "d64"):
-            ms[n].append(queued_ms(runs[n], 20))
+            dev_ms, host_ms = queued(runs[n], 20)
+            ms[n].append(dev_ms)
+            host[n].append(host_ms)
             events[n].append(cuda_ms(runs[n], 20))
         plain_ms = cuda_ms(lambda: fa.flash_attention_plain(
             q, k, v, causal=causal), 3)
@@ -4429,7 +4504,9 @@ def whisper_k3_times(dev, seed: int, cfg) -> dict:
               f"alone: flash_attention_sm90_d64 {ms['d64']} ms, "
               f"flash_attention_mma {ms['mma']} ms, SDPA {ms['sdpa']} ms "
               f"(back to back, events: d64 {events['d64']}, mma "
-              f"{events['mma']}, SDPA {events['sdpa']}); d64 is "
+              f"{events['mma']}, SDPA {events['sdpa']}; the host's time "
+              f"to queue a call: d64 {host['d64']}, mma {host['mma']}, "
+              f"SDPA {host['sdpa']} ms); d64 is "
               f"{mean['mma'] / mean['d64']:.3f}x faster than mma and "
               f"{mean['d64'] / mean['sdpa']:.3f}x SDPA's time; plain "
               f"{plain_ms:.3f} ms; bound {bound:.5f} ms ({by}), "
@@ -4441,6 +4518,7 @@ def whisper_k3_times(dev, seed: int, cfg) -> dict:
         for n in ("d64", "mma"):
             out[n][what] = {"shape": shape, **held[n], "ms": mean[n],
                             "turns": ms[n], "events_ms": events[n],
+                            "host_ms": host[n],
                             "library_ms": mean["sdpa"], "plain_ms": plain_ms,
                             "bound_ms": bound, "bound_by": by,
                             "bound_exp_ms": bound_exp}
@@ -4573,6 +4651,21 @@ def whisper_phase(dev, seed: int) -> tuple[dict, dict]:
     check(tuple(last.shape) == (WHISPER_B, cfg.vocab_size)
           and bool(torch.isfinite(last).all()),
           "whisper's logits are not finite or of the wrong shape")
+    turns = whisper_forward_turns(step, batch)
+    label = {"d64": "flash_attention_sm90_d64 (the op's route)",
+             "mma": "flash_attention_mma (through the op)"}
+    for n, r in turns.items():
+        print(f"[whisper] forward in turns on {label[n]}: wall "
+              f"{[round(x, 5) for x in r['wall_s']]} s (mean "
+              f"{r['wall_s_mean']:.5f}); traced once: kernels "
+              f"{r['busy_ms']:.3f} ms of {r['traced_wall_ms']:.3f} ms "
+              f"(busy {r['busy_ms'] / r['traced_wall_ms']:.1%}) | {smi}",
+              flush=True)
+    ratio = {key: turns["d64"][key] / turns["mma"][key]
+             for key in ("wall_s_mean", "busy_ms")}
+    print(f"[whisper] forward, d64's time over mma's: wall "
+          f"{ratio['wall_s_mean']:.4f}, kernels {ratio['busy_ms']:.4f}",
+          flush=True)
 
     # K3 on every layer's own q, k, v, and the logits at every position,
     # against the same forward with the plain attention
@@ -4646,9 +4739,20 @@ def whisper_phase(dev, seed: int) -> tuple[dict, dict]:
     d64 = {"launches": {path: launches},
            "layers_overall_rel_err": abs_max, "layers_row_rel_err": row_max,
            "logits_rel": float(pos_rel.max()), "decode_rel": dec_rel,
-           "forward_wall_s": wall, "decode_ms": dec_ms, **times["d64"]}
+           "forward_wall_s": wall, "decode_ms": dec_ms,
+           "forward_turns": turns, **times["d64"]}
     mma = {"launches": {path: 0}, **times["mma"]}
     return d64, mma
+
+
+def sm_clock_max_hz() -> float:
+    """The card's top SM clock, as nvidia-smi reads it, in Hz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
+    return 1e6 * float(out.stdout.split()[0])
 
 
 def nvidia_smi_line() -> str:

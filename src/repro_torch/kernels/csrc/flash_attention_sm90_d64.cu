@@ -73,13 +73,6 @@
 // in under a third of the products' time. PERF.md has the measured times.
 #include "sm90.cuh"
 
-#ifndef REPRO_D64_PINGPONG
-#define REPRO_D64_PINGPONG 1      // 0: the consumers issue when ready
-#endif
-#ifndef REPRO_D64_POLY_EVERY
-#define REPRO_D64_POLY_EVERY 0    // n > 0: every n-th exponential on the FMA pipe
-#endif
-
 namespace {
 
 constexpr float kNegInf = -1e30f;
@@ -162,26 +155,6 @@ __device__ __forceinline__ float ex2(float x) {
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
 }
-
-#if REPRO_D64_POLY_EVERY > 0
-// 2^x for x <= 0 on the FMA and integer pipes: x = j + f with j an integer
-// (round to nearest by the 1.5·2^23 shift) and |f| <= 1/2, 2^f by its
-// degree-5 Taylor polynomial (relative error under 2.4e-6), then j added to
-// the exponent. Below 2^-126 it gives ~2^-126, not 0: only unmasked keys
-// take it.
-__device__ __forceinline__ float ex2_fma(float x) {
-  x = fmaxf(x, -126.0f);
-  const float shifted = x + 12582912.0f;
-  const int j = __float_as_int(shifted) - 0x4B400000;
-  const float f = x - (shifted - 12582912.0f);
-  float p = fmaf(1.3333558e-3f, f, 9.6181291e-3f);
-  p = fmaf(p, f, 5.5504109e-2f);
-  p = fmaf(p, f, 2.4022651e-1f);
-  p = fmaf(p, f, 6.9314718e-1f);
-  p = fmaf(p, f, 1.0f);
-  return __int_as_float(__float_as_int(p) + (j << 23));
-}
-#endif
 
 // d (64 x 64, float32) += A (64 x 16, bf16 fragments in registers) · B
 // (16 x 64), B MN-major in shared memory (the descriptor's transpose).
@@ -286,12 +259,8 @@ flash_attn_sm90_d64(const __grid_constant__ CUtensorMap tq,
     const unsigned char* q_base = smem + cw * 64 * 128;
 
     // This consumer's turn to issue products, and passing it on.
-    auto turn_wait = [&]() {
-      if (REPRO_D64_PINGPONG) named_sync(1 + cw);
-    };
-    auto turn_pass = [&]() {
-      if (REPRO_D64_PINGPONG) named_arrive(1 + (cw + 1) % kWG);
-    };
+    auto turn_wait = [&]() { named_sync(1 + cw); };
+    auto turn_pass = [&]() { named_arrive(1 + (cw + 1) % kWG); };
     auto release = [&](uint32_t bar) {
       if (lane == 0) mbar_arrive(bar);
     };
@@ -306,7 +275,7 @@ flash_attn_sm90_d64(const __grid_constant__ CUtensorMap tq,
       wgmma_commit();
     };
 
-    if (REPRO_D64_PINGPONG && cw == 0) named_arrive(1);   // the first turn
+    if (cw == 0) named_arrive(1);   // the first turn
     int kit = 0;                // kv blocks consumed before this unit
     Unit u;
     for (int w = 0; unit_at<C::kBM>(g, w, &u); ++w) {
@@ -377,14 +346,8 @@ flash_attn_sm90_d64(const __grid_constant__ CUtensorMap tq,
             sc[j] = kept(j) ? ex2(sc[j] - ((j & 2) ? mx1 : mx0)) : 0.0f;
         } else {
 #pragma unroll
-          for (int j = 0; j < 64; ++j) {
-            const float x = sc[j] - ((j & 2) ? mx1 : mx0);
-#if REPRO_D64_POLY_EVERY > 0
-            sc[j] = j % REPRO_D64_POLY_EVERY == 0 ? ex2_fma(x) : ex2(x);
-#else
-            sc[j] = ex2(x);
-#endif
-          }
+          for (int j = 0; j < 64; ++j)
+            sc[j] = ex2(sc[j] - ((j & 2) ? mx1 : mx0));
         }
 #pragma unroll
         for (int nt = 0; nt < 16; ++nt) {

@@ -193,33 +193,48 @@ D64_MAX_SPLITS = 4
 D64_MIN_SPLIT_BLOCKS = 4
 
 
+def d64_units(b, hq, sq, sk, consumers, splits) -> tuple[int, list]:
+    """The work of ``flash_attention_sm90_d64`` with ``consumers`` warpgroups
+    a CTA and ``splits`` key splits: (the query tiles of 64 · consumers
+    rows over the b·hq heads, the [start, end) kv block runs of the
+    splits). A unit is a tile and one run, ``units = tiles · splits``; the
+    kernel's launch cuts the runs as here (``per_split`` blocks each, the
+    last one shorter), and its walk clips a run to a tile's causal or
+    window range."""
+    tiles = -(-sq // (64 * consumers)) * b * hq
+    n_kb = -(-sk // D64_BLOCK_K)
+    per = -(-n_kb // splits)
+    return tiles, [(z * per, min(n_kb, (z + 1) * per)) for z in range(splits)]
+
+
+@functools.cache
 def d64_plan(b, hq, sq, sk, causal, window, sms) -> tuple[int, int, int]:
     """The launch of ``flash_attention_sm90_d64``: (consumer warpgroups a
     CTA, key splits, CTAs in the grid). A pure function of the shape and
-    of ``sms``, the card's SMs.
+    of ``sms``, the card's SMs (cached: the op asks it at every call).
 
     A CTA is 64 query rows a consumer warpgroup: three (192 rows) unless
     two (128 rows) pad sq to fewer rows. A unit of work is a query tile of
-    one (batch, head) and one run of its kv blocks. Where every tile sees
-    every key (non-causal, no window), the kv blocks may be split in s
-    equal runs, s in 1..4 and each run at least 4 blocks: the s that gives
-    the fewest rounds of ``sms`` units times blocks a run, the smallest on
-    a tie; else 1. A split adds a second pass that merges each row's runs.
-    A CTA holds an SM alone (its registers), and the grid is persistent:
-    the fewer of ``sms`` and the units, each CTA walking its units."""
+    one (batch, head) and one run of its kv blocks (``d64_units``). Where
+    every tile sees every key (non-causal, no window), the kv blocks may be
+    split in s runs, s in 1..4 and each run at least 4 blocks: the s that
+    gives the fewest rounds of ``sms`` units times blocks a run, the
+    smallest on a tie; else 1. A split adds a second pass that merges each
+    row's runs. A CTA holds an SM alone (its registers), and the grid is
+    persistent: the fewer of ``sms`` and the units, each CTA walking its
+    units."""
     rows = {c: -(-sq // (64 * c)) * 64 * c for c in (2, 3)}
     consumers = 3 if rows[3] <= rows[2] else 2
-    tiles = rows[consumers] // (64 * consumers) * b * hq
-    splits = 1
-    if not causal and window is None:
-        n_kb = -(-sk // D64_BLOCK_K)
-        best = None
-        for s in range(1, D64_MAX_SPLITS + 1):
-            if s > 1 and n_kb < s * D64_MIN_SPLIT_BLOCKS:
-                break
-            cost = -(-tiles * s // sms) * -(-n_kb // s)
-            if best is None or cost < best:
-                best, splits = cost, s
+    top = 1 if causal or window is not None else D64_MAX_SPLITS
+    splits, best = 1, None
+    for s in range(1, top + 1):
+        tiles, runs = d64_units(b, hq, sq, sk, consumers, s)
+        if s > 1 and runs[-1][1] - runs[-1][0] < D64_MIN_SPLIT_BLOCKS:
+            continue
+        cost = -(-tiles * s // sms) * (runs[0][1] - runs[0][0])
+        if best is None or cost < best:
+            best, splits = cost, s
+    tiles, _ = d64_units(b, hq, sq, sk, consumers, splits)
     return consumers, splits, min(sms, tiles * splits)
 
 
@@ -259,17 +274,19 @@ def _tma_strides(t):
 
 
 def _tma_aligned(t) -> bool:
-    """The base pointer 16-byte aligned and every stride a multiple of 8
-    elements (16 bytes): the tensor map's rule."""
+    """The last dimension contiguous, the base pointer 16-byte aligned and
+    every other stride a multiple of 8 elements (16 bytes): the tensor
+    map's rule."""
     sb, sh, ss = _tma_strides(t)
-    return (t.data_ptr() % 16 == 0 and sb % 8 == 0 and sh % 8 == 0
-            and ss % 8 == 0)
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and sb % 8 == 0
+            and sh % 8 == 0 and ss % 8 == 0)
 
 
 def choose_kernel(q, k, v) -> str:
     """Which CUDA kernel takes (q, k, v): for bf16 with non-empty
-    sequences, every base pointer 16-byte aligned and every stride a
-    multiple of 8 elements (16 bytes, the tensor map's rule),
+    sequences, the last dimension contiguous, every base pointer 16-byte
+    aligned and every other stride a multiple of 8 elements (16 bytes, the
+    tensor map's rule),
     ``"flash_attention_sm90"`` at head_dim 120 or 128,
     ``"flash_attention_sm90_d256"`` at 256 and
     ``"flash_attention_sm90_d64"`` at 64; else ``"flash_attention_mma"``
@@ -478,31 +495,37 @@ def flash_attention_sm90_d64(q, k, v, *, causal=True, window=None,
     allocates the partial rows' float32 scratch and the call is two CUDA
     kernels (the split runs, then their merge), counted as one launch.
     ``lse`` as in ``flash_attention_mma``."""
-    b, hq, _, sk, _ = _check_sm90(q, k, v, window,
-                                  "flash_attention_sm90_d64")
-    sq = q.shape[2]
+    _check_sm90(q, k, v, window, "flash_attention_sm90_d64")
+    return _routed_sm90_d64(q, k, v, causal=causal, window=window, lse=lse)
+
+
+def _routed_sm90_d64(q, k, v, *, causal=True, window=None, lse=None):
+    """``flash_attention_sm90_d64`` on the op's route, where ``_check`` has
+    passed and ``choose_kernel`` has named it: the wrapper's checks would
+    only repeat them, at each of whisper's 36 calls a forward."""
+    b, hq, sq, _ = q.shape
+    sk = k.shape[2]
     if sq == 0 or b * hq == 0:
         _lse_ptr(lse, q)
         return _new_out(q)
-    lib, fn = _launcher_sm90_d64()
     plan = d64_plan(b, hq, sq, sk, causal, window, _sm_count(q.device.index))
-    code, out = d64_call(fn, q, k, v, causal, window, lse, *plan)
-    _build.check(lib, code, "flash_attention_sm90_d64")
+    out = d64_call(q, k, v, causal, window, lse, *plan)
     flash_attention_sm90_d64.launches += 1
     return out
 
 
-def d64_call(fn, q, k, v, causal, window, lse, consumers, splits, ctas):
-    """One call of a head_dim 64 C entry ``fn`` (this module's, or a
-    measurement build's) on inputs the wrapper has checked, with the
-    launch (consumers, splits, CTAs): returns (its code, the output). With
-    a split, the partial rows' float32 scratch is allocated here."""
+def d64_call(q, k, v, causal, window, lse, consumers, splits, ctas):
+    """One call of the head_dim 64 kernel on inputs the wrapper has
+    checked, with the launch (consumers, splits, CTAs), ``d64_plan``'s or
+    another: returns the output. With a split, the partial rows' float32
+    scratch is allocated here."""
     b, hq, sq, d = q.shape
     out = _new_out(q)
     part = None
     if splits > 1:
         part = torch.empty(splits * b * hq * sq * (d + 2),
                            dtype=torch.float32, device=q.device)
+    lib, fn = _launcher_sm90_d64()
     with torch.cuda.device(q.device):
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   b, hq, k.shape[1], sq, k.shape[2], *_tma_strides(q),
@@ -511,12 +534,13 @@ def d64_call(fn, q, k, v, causal, window, lse, consumers, splits, ctas):
                   d ** -0.5 * math.log2(math.e), _lse_ptr(lse, q),
                   consumers, splits, ctas,
                   None if part is None else part.data_ptr(), _stream(q))
-    return code, out
+    _build.check(lib, code, "flash_attention_sm90_d64")
+    return out
 
 
 _KERNELS = {"flash_attention_sm90": flash_attention_sm90,
             "flash_attention_sm90_d256": flash_attention_sm90_d256,
-            "flash_attention_sm90_d64": flash_attention_sm90_d64,
+            "flash_attention_sm90_d64": _routed_sm90_d64,
             "flash_attention_mma": flash_attention_mma}
 
 

@@ -184,6 +184,11 @@ def _routing_cases():
     wide = _bf16(1, 2, 64, 68)[..., :64]       # row stride 68: 136 bytes
     cases.append(("bf16 d=64 stride 68", _bf16(1, 4, 64, 64), wide, wide,
                   mma))
+    # a last dimension that is not contiguous: no tensor map takes it
+    for d in (64, 128, 256):
+        every_other = _bf16(1, 2, 64, 2 * d)[..., ::2]
+        cases.append((f"bf16 d={d} last dim strided", _bf16(1, 2, 64, d),
+                      every_other, _bf16(1, 2, 64, d), mma))
     f = torch.zeros(1, 4, 64, 128)
     cases.append(("float32 d=128", f, f[:, :2], f[:, :2], mma))
     h = torch.zeros(1, 4, 64, 128, dtype=torch.float16)
@@ -333,106 +338,32 @@ def test_d64_plan(args, want):
     assert ops.d64_plan(*args) == want
 
 
-def _d64_walk(b, hq, sq, sk, causal, window, consumers, splits, ctas):
-    """The units each CTA of ``flash_attention_sm90_d64``'s persistent grid
-    works, as its kernel's ``unit_at`` walks them: per CTA the list of
-    (first query row, batch·head, split, first and end kv block)."""
-    bm, bn = 64 * consumers, ops.D64_BLOCK_K
-    n_qb, n_kb = -(-sq // bm), -(-sk // bn)
-    per = -(-n_kb // splits)
-    units = n_qb * b * hq * splits
-    walks = []
-    for c in range(ctas):
-        mine = []
-        for w in range(units):
-            t = w * ctas + (ctas - 1 - c if w & 1 else c)
-            if t >= units:
-                break
-            q0 = (n_qb - 1 - t // (b * hq * splits)) * bm
-            bh, z = t % (b * hq * splits) // splits, t % splits
-            hi = min(sk, q0 + bm) if causal else sk
-            lo = max(0, q0 - window + 1) if window else 0
-            kb0 = lo // bn
-            kb1 = -(-hi // bn) if hi > lo else kb0
-            z0 = max(kb0, z * per)
-            mine.append((q0, bh, z, z0, max(z0, min(kb1, (z + 1) * per))))
-        walks.append(mine)
-    return walks
-
-
 @pytest.mark.parametrize("args", [a for a, _ in D64_PLANS]
                          + [(2, 6, 700, 900, True, None, 5),
                             (1, 3, 1000, 3000, False, None, 7)],
                          ids=lambda a: str(a))
 def test_d64_walk_covers_every_row_and_key_once(args):
-    """Each (batch·head, query tile) is worked once a split, by one CTA;
-    no CTA of the grid is without a unit, and no two CTAs' unit counts
-    differ by more than one; the splits of a tile take disjoint runs of kv
-    blocks, in order, that together are the tile's kv range, none empty
-    where the plan split (each run at least D64_MIN_SPLIT_BLOCKS blocks)."""
-    b, hq, sq, sk, causal, window, _ = args
+    """The units of the plan's launch (``d64_units``, which the plan itself
+    reads): every query row of every batch·head in one tile and no tile
+    empty; the splits' kv block runs disjoint, in order, none empty, and
+    together every kv block; each run at least D64_MIN_SPLIT_BLOCKS blocks
+    where the plan split; the grid no larger than the units or the SMs."""
+    b, hq, sq, sk, causal, window, sms = args
     consumers, splits, ctas = ops.d64_plan(*args)
-    walks = _d64_walk(b, hq, sq, sk, causal, window, consumers, splits,
-                      ctas)
-    counts = [len(w) for w in walks]
-    assert min(counts) >= 1 and max(counts) - min(counts) <= 1
+    tiles, runs = ops.d64_units(b, hq, sq, sk, consumers, splits)
     bm = 64 * consumers
-    tiles = {}
-    for q0, bh, z, kb0, kb1 in (u for w in walks for u in w):
-        tiles.setdefault((q0, bh), []).append((z, kb0, kb1))
-    assert sorted(tiles) == sorted((q0, bh) for q0 in range(0, sq, bm)
-                                   for bh in range(b * hq))
-    n_kb = -(-sk // ops.D64_BLOCK_K)
-    for runs in tiles.values():
-        runs.sort()
-        assert [z for z, _, _ in runs] == list(range(splits))
-        blocks = [k for _, kb0, kb1 in runs for k in range(kb0, kb1)]
-        assert blocks == sorted(set(blocks))
-        if splits > 1:
-            assert blocks == list(range(n_kb))
-            assert all(kb1 - kb0 >= ops.D64_MIN_SPLIT_BLOCKS
-                       for _, kb0, kb1 in runs)
-
-
-def _split_attention(q, k, v, splits):
-    """The key split's arithmetic in float64: each run of 128-key blocks
-    ``_d64_walk`` gives a split yields (m, l, unnormalized O) in base 2,
-    and the runs merge in the order 0, 1, ... as the kernel's second pass
-    merges them."""
-    n_kb = -(-k.shape[2] // ops.D64_BLOCK_K)
-    per = -(-n_kb // splits) * ops.D64_BLOCK_K
-    s = (q @ k.transpose(-1, -2)) * q.shape[-1] ** -0.5 * np.log2(np.e)
-    parts = []
-    for z in range(splits):
-        sz = s[..., z * per:(z + 1) * per]
-        m = sz.amax(-1, keepdim=True)
-        p = torch.exp2(sz - m)
-        parts.append((m, p.sum(-1, keepdim=True),
-                      p @ v[:, :, z * per:(z + 1) * per]))
-    mx = torch.stack([m for m, _, _ in parts]).amax(0)
-    l = o = 0
-    for m, lz, oz in parts:
-        w = torch.exp2(m - mx)
-        l = l + lz * w
-        o = o + oz * w
-    return o / l
-
-
-@pytest.mark.parametrize("shape", [(2, 4, 4, 100, 900, 64),
-                                   (1, 2, 2, 64, 2000, 64)])
-def test_d64_key_split_merge_matches_jax(shape):
-    """The split and its fixed-order merge, modelled in float64 on the
-    plan's runs, against the JAX package's attention on the same numpy
-    inputs (float32, non-causal)."""
-    b, hq, hkv, sq, sk, d = shape
-    _, splits, _ = ops.d64_plan(b, hq, sq, sk, False, None, 132)
-    assert splits > 1
-    arrs = _qkv(3, b, hq, hkv, sq, sk, d)
-    q, k, v = (torch.from_numpy(a).double() for a in arrs)
-    got = _split_attention(q, k, v, splits).numpy()
-    want = np.asarray(jax_flash(*(jnp.asarray(a) for a in arrs),
-                                causal=False, impl="ref"))
-    np.testing.assert_allclose(got, want, atol=1e-5)
+    assert tiles % (b * hq) == 0
+    n_qb = tiles // (b * hq)
+    assert n_qb * bm >= sq > (n_qb - 1) * bm
+    assert len(runs) == splits
+    blocks = [kb for kb0, kb1 in runs for kb in range(kb0, kb1)]
+    assert blocks == list(range(-(-sk // ops.D64_BLOCK_K)))
+    assert all(kb1 > kb0 for kb0, kb1 in runs)
+    if splits > 1:
+        assert not causal and window is None
+        assert all(kb1 - kb0 >= ops.D64_MIN_SPLIT_BLOCKS
+                   for kb0, kb1 in runs)
+    assert ctas == min(sms, tiles * splits)
 
 
 # a consumer step of the head_dim 256 kernel as cuobjdump prints it: S and

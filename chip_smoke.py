@@ -141,8 +141,19 @@ Phases, in order; any failure exits non-zero before the result line:
      forward against its plain-attention run (K3 on every
      encoder, self and cross layer's own q, k, v; the logits at every
      position); fill_cross_cache and 8 decode steps against the forward;
- 22. one JSON line with every kernel's launches, error and times;
- 23. the last line, ``{"ok": true, "device": {...}}``.
+ 22. qwen2-vl-7b at full width (``[vlm]``, VLM_ARCH), M-RoPE over a
+     stubbed image's (t, h, w) position ids: the prefill step (28
+     launches, all of ``flash_attention_sm90`` at a GQA group of 7; wall,
+     tokens/s, peak memory); the forward with the stubbed patch
+     embeddings against its plain-attention run (K3 on every layer's own
+     q, k, v; the logits at every position); M-RoPE on the card against
+     float64, and the image's ids moving the logits; prefill + 8 decode
+     steps against the forward; the int8 KV cache (its bytes, 128 tokens
+     decoded against the forward beside the bf16 cache's decode, ms a step
+     against 8200-slot caches); the serve launcher (8 requests); K3 at the
+     layer shape timed in turns with SDPA;
+ 23. one JSON line with every kernel's launches, error and times;
+ 24. the last line, ``{"ok": true, "device": {...}}``.
 
 Imports torch and the port only. Exits non-zero, printing no result, when
 no CUDA device is present or the port's sources are not beside this file.
@@ -245,8 +256,13 @@ ATTN_SHAPES = [
     (4, 12, 12, 1500, 1500, 64, False, None),
     (2, 8, 1, 1000, 1000, 64, True, 300),
     (2, 8, 2, 300, 2000, 64, False, None),
+    # qwen2-vl-7b's GQA group of 7 (28 query heads over 4 kv heads): its
+    # layer shape, and a ragged one at batch 2
+    (1, 28, 4, 8192, 8192, 128, True, None),
+    (2, 28, 4, 333, 333, 128, True, None),
 ]
 LM_ATTN_SHAPE = (1, 32, 8, 8192, 8192, 128, True, None)
+VLM_ATTN_SHAPE = (1, 28, 4, 8192, 8192, 128, True, None)
 D256_SHAPE = (1, 10, 1, 8192, 8192, 256, True, 2048)
 ATTN_TOL = {"bfloat16": 2e-2, "float32": 2e-3}
 ATTN_ROW_TOL = {"bfloat16": 2e-2, "float32": 1e-3}
@@ -572,6 +588,29 @@ WHISPER_DECODE = 8
 # 0.01207 (PERF.md, whisper-small), at about twice it
 WHISPER_DECODE_TOL = 0.025
 WHISPER_PHASE_S = 60
+
+# Phase 22 ([vlm]): qwen2-vl-7b at full width (arXiv:2409.12191; 28 layers,
+# d 3584, 28/4 heads of 128, d_ff 18,944, vocab 152,064, M-RoPE sections
+# (16, 24, 24), theta 1e6), bf16, random weights from the seed, nothing
+# cut. The vision front end is a stub in both packages, and so is the
+# position layout, which this phase builds: one request of LM_T positions
+# with a VLM_GRID x VLM_GRID "image" from VLM_IMAGE_AT, each patch's ids
+# (start, start + row, start + col), and every other position i text with
+# ids (i, i, i). For the forward with ``embeds`` the image's span carries
+# N(0, 1) patch embeddings scaled to the embedding table's std. K3 runs at
+# VLM_ATTN_SHAPE, a GQA group of 7.
+VLM_ARCH = "qwen2-vl-7b"
+VLM_IMAGE_AT, VLM_GRID = 1024, 32
+# M-RoPE on the card against a float64 run of it on the CPU (mrope_f64),
+# as max abs diff over max |want|: bf16's own rounding is 2^-8
+VLM_ROPE_TOL = 1e-2
+# the int8 KV cache: VLM_INT8_T tokens decoded from an empty cache against
+# the forward over them, held to tests/test_prefill.py's claims
+VLM_INT8_T = 128
+VLM_INT8_REL = 0.15
+VLM_INT8_AGREE = 0.9
+VLM_STEPS_8200 = 4           # decode steps timed against 8200-slot caches
+VLM_PHASE_S = 90
 
 
 def fail(msg: str) -> None:
@@ -1722,6 +1761,7 @@ def attention_phase(dev, seed: int) -> tuple[dict, dict, dict, dict]:
         flash_attention_mma, flash_attention_plain, flash_attention_sm90)
 
     main_err, d256_err, d64_err = {}, None, {"abs": 0.0, "row": 0.0}
+    vlm_err = None
     for r in attention_readings(dev, seed):
         how = "called directly" if r.get("direct") else "via"
         against = ("" if "row_plain" not in r else
@@ -1741,6 +1781,9 @@ def attention_phase(dev, seed: int) -> tuple[dict, dict, dict, dict]:
             continue
         if r["shape"] == LM_ATTN_SHAPE:
             main_err[r["dtype"]] = (r["abs"], r["row"], r["kernel"])
+        if r["shape"] == VLM_ATTN_SHAPE and r["dtype"] == "bfloat16":
+            vlm_err = {"max_abs_err": r["abs"], "row_rel_err": r["row"],
+                       "kernel": r["kernel"]}
         if r["shape"] == D256_SHAPE and r["dtype"] == "bfloat16":
             d256_err = {"max_abs_err": r["abs"], "row_rel_err": r["row"]}
         want = {256: "flash_attention_sm90_d256",
@@ -1751,8 +1794,9 @@ def attention_phase(dev, seed: int) -> tuple[dict, dict, dict, dict]:
             d64_err = {k: max(d64_err[k], r[k]) for k in d64_err}
     check(main_err["bfloat16"][2] == "flash_attention_sm90"
           and main_err["float32"][2] == "flash_attention_mma"
-          and d256_err is not None,
-          f"the model's layer shape went to {main_err}")
+          and d256_err is not None and vlm_err is not None
+          and vlm_err["kernel"] == "flash_attention_sm90",
+          f"the models' layer shapes went to {main_err}, {vlm_err}")
     order = d256_release_order()
     check(not order["early"], "K3 at head_dim 256 frees a stage right after "
           f"a product, before waiting for it (SASS at {order['early']})")
@@ -1814,7 +1858,9 @@ def attention_phase(dev, seed: int) -> tuple[dict, dict, dict, dict]:
             "max_abs_err_of": f"bf16 at (1, 32/8, {LM_T}, 128), causal",
             "row_rel_err": main_err["bfloat16"][1],
             "ms_32768": mean32["sm90"], "library_ms_32768": mean32["sdpa"],
-            "bound_ms_32768": bound32}
+            "bound_ms_32768": bound32,
+            "qwen2_vl": {"max_abs_err": vlm_err["max_abs_err"],
+                         "row_rel_err": vlm_err["row_rel_err"]}}
     mma_model = {"ms_model_shape": mean["mma"],
                  "ms_model_shape_32768": mean32["mma"],
                  "model_shape": f"bf16 (1, 32/8, {LM_T}, 128) causal",
@@ -1940,21 +1986,22 @@ def library_attention():
         attention.flash_attention = saved
 
 
-def lm_agreement(model, tokens, plain=plain_attention
+def lm_agreement(model, tokens, plain=plain_attention, **fwd
                  ) -> tuple[dict, "torch.Tensor"]:
-    """The full forward over ``tokens`` with K3 against the same forward
-    with the plain attention (``plain(layer_err)``, a context in which the
-    model's kernels give way to their plain versions): K3's per-row error
-    at each attention layer on that layer's own q, k, v, and the logits'
-    max abs difference over the reference's max |logit| at each position.
-    Returns the readings, the reference's logits at the last position, and
-    whether each is within its limit."""
+    """The full forward over ``tokens`` (``fwd``: its other arguments)
+    with K3 against the same forward with the plain attention
+    (``plain(layer_err)``, a context in which the model's kernels give way
+    to their plain versions): K3's per-row error at each attention layer on
+    that layer's own q, k, v, and the logits' max abs difference over the
+    reference's max |logit| at each position. Returns the readings, the
+    reference's logits at the last position, and whether each is within its
+    limit."""
     import torch
-    full, _ = model.forward(tokens)
+    full, _ = model.forward(tokens, **fwd)
     layer_err = []
     t0 = time.perf_counter()
     with plain(layer_err):
-        ref, _ = model.forward(tokens)
+        ref, _ = model.forward(tokens, **fwd)
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
     diff = (full[0].float() - ref[0].float()).abs().amax(-1)
@@ -4745,6 +4792,398 @@ def whisper_phase(dev, seed: int) -> tuple[dict, dict]:
     return d64, mma
 
 
+# ---------------------------------------------------------------------------
+# phase 22: qwen2-vl-7b (M-RoPE, the stubbed vision embeddings, int8 KV)
+# ---------------------------------------------------------------------------
+def vlm_positions(dev, t: int):
+    """(1, 3, t) M-RoPE ids: the stubbed image's patches (see VLM_ARCH) and
+    text ids (i, i, i) everywhere else."""
+    import torch
+    pos = torch.arange(t, device=dev)[None, None].repeat(1, 3, 1)
+    n = VLM_GRID * VLM_GRID
+    patch = torch.arange(n, device=dev)
+    span = slice(VLM_IMAGE_AT, VLM_IMAGE_AT + n)
+    pos[0, 0, span] = VLM_IMAGE_AT
+    pos[0, 1, span] = VLM_IMAGE_AT + patch // VLM_GRID
+    pos[0, 2, span] = VLM_IMAGE_AT + patch % VLM_GRID
+    return pos
+
+
+def vlm_embeds(model, tokens, gen):
+    """The token embeddings with the image's span replaced by N(0, 1)
+    patch embeddings scaled to the embedding table's std (the stubbed
+    front end's output)."""
+    import torch
+    x = model.embed[tokens]
+    n = VLM_GRID * VLM_GRID
+    std = float(model.embed.float().std())
+    patches = torch.randn((tokens.shape[0], n, x.shape[-1]), generator=gen,
+                          device=x.device) * std
+    x[:, VLM_IMAGE_AT:VLM_IMAGE_AT + n] = patches.to(x.dtype)
+    return x
+
+
+def mrope_f64(x, positions, theta: float, sections):
+    """``apply_mrope`` in float64 throughout on the CPU: the frequencies,
+    each section's angles, their cos and sin and the rotation."""
+    import torch
+    x = x.double().cpu()
+    half = x.shape[-1] // 2
+    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float64) / half))
+    parts, start = [], 0
+    for s_i, sec in enumerate(sections):
+        pos = positions[:, s_i].cpu().double()
+        parts.append(pos[:, None, :, None] * freqs[start:start + sec])
+        start += sec
+    ang = torch.cat(parts, dim=-1)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def vlm_rope_reading(model, tokens, embeds, pos) -> dict:
+    """Layer 0's own q and k (the forward with ``embeds``) through
+    ``apply_mrope`` on the card against :func:`mrope_f64` on the same
+    inputs: max abs diff over max |want| for each."""
+    import torch
+    from repro_torch.models.attention import _split_heads
+    from repro_torch.models.layers import apply_mrope, make_norm
+    cfg = model.cfg
+    lp = model.decoder[0]
+    _, norm = make_norm(cfg.norm)
+    out = {}
+    with torch.no_grad():
+        h = norm(lp["norm_mixer"], model._embed(tokens, embeds))
+        for name, heads in (("q", cfg.n_heads), ("k", cfg.n_kv_heads)):
+            x = _split_heads(h @ lp["attn"][f"w{name}"], heads, cfg.head_dim)
+            got = apply_mrope(x, pos, cfg.rope_theta, cfg.mrope_sections)
+            want = mrope_f64(x, pos, cfg.rope_theta, cfg.mrope_sections)
+            out[name] = float((got.cpu().double() - want).abs().max()
+                              / want.abs().max())
+            del x, got, want
+    return out
+
+
+def vlm_int8(model, tokens, smi: str) -> None:
+    """(f) of phase 22: the int8 KV cache, made as ``Model.init_cache``
+    makes it for the config with ``kv_quant="int8"``
+    (``transformer.stack_cache_init``) and decoded through this model (the
+    decode branches on the cache's scales, as the reference's does)."""
+    import dataclasses
+    import torch
+    from repro_torch.models import transformer as tfm
+    cfg = model.cfg
+    qcfg = dataclasses.replace(cfg, kv_quant="int8")
+    dev = tokens.device
+    t8 = VLM_INT8_T
+    toks = tokens[:, :t8]
+    full, _ = model.forward(toks)
+    want = full[0].float()
+    del full
+
+    def decode_all(cache):
+        outs = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(t8):
+            lg, cache = model.decode_step(toks[:, i:i + 1], cache, i)
+            outs.append(lg[0, 0].float())
+        torch.cuda.synchronize()
+        return torch.stack(outs), 1e3 * (time.perf_counter() - t0) / t8, cache
+
+    cache8 = tfm.stack_cache_init(qcfg, 1, t8, cfg.param_dtype, device=dev)
+    check(all(lc["kv"]["k"].dtype == torch.int8
+              and lc["kv"]["k_scale"].dtype == torch.float32
+              and tuple(lc["kv"]["k_scale"].shape)
+              == (1, cfg.n_kv_heads, t8, 1) for lc in cache8),
+          "the int8 cache has the wrong dtypes or shapes")
+    got8, ms8, cache8 = decode_all(cache8)
+    filled = all(bool((lc["kv"][s] > 0).all()) for lc in cache8
+                 for s in ("k_scale", "v_scale"))
+    got16, ms16, _ = decode_all(model.init_cache(1, t8))
+    del cache8
+    scale = float(want.abs().max())
+    r = {}
+    for name, got in (("int8", got8), ("bf16", got16)):
+        r[name] = {"rel": float((got - want).abs().max()) / scale,
+                   "agree": float((got.argmax(-1) == want.argmax(-1))
+                                  .double().mean())}
+    r["int8"]["ms"], r["bf16"]["ms"] = ms8, ms16
+    print(f"[vlm] (f) int8 KV cache: {t8} tokens decoded from an empty "
+          f"cache vs the forward over them: relative max abs diff "
+          f"{r['int8']['rel']:.4g} (limit < {VLM_INT8_REL}), argmax equal at "
+          f"{r['int8']['agree']:.4f} of positions (limit > "
+          f"{VLM_INT8_AGREE}), every slot's scales written {filled}; the bf16 "
+          f"cache's decode of the same tokens: {r['bf16']['rel']:.4g}, "
+          f"{r['bf16']['agree']:.4f}; ms a decode step int8 {ms8:.2f}, bf16 "
+          f"{ms16:.2f} | {smi}", flush=True)
+    check(r["int8"]["rel"] < VLM_INT8_REL
+          and r["int8"]["agree"] > VLM_INT8_AGREE and filled,
+          "the int8 KV cache's decode disagrees with the forward")
+    del got8, got16, want
+
+    # the caches at max_len LM_T + LM_DECODE: bytes, and a decode step's
+    # time and transient memory against each (the unwritten slots hold
+    # zeros; the step's time, not its output, is read)
+    length = LM_T + LM_DECODE
+    caches = {"int8": tfm.stack_cache_init(qcfg, 1, length, cfg.param_dtype,
+                                           device=dev),
+              "bf16": model.init_cache(1, length)}
+    nbytes = {n: sum(t.numel() * t.element_size() for lc in c
+                     for t in lc["kv"].values()) for n, c in caches.items()}
+    want8 = cfg.n_layers * 2 * cfg.n_kv_heads * length * (cfg.head_dim + 4)
+    want16 = cfg.n_layers * 2 * cfg.n_kv_heads * length * cfg.head_dim * 2
+    # the float32 copy of one layer's int8 k (then v) made for a product,
+    # freed after it: its size from the config's shapes (not measured)
+    transient = cfg.n_kv_heads * length * cfg.head_dim * 4
+    for n, c in caches.items():
+        model.decode_step(tokens[:, LM_T:LM_T + 1], c, LM_T)      # warm-up
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for i in range(LM_T, LM_T + VLM_STEPS_8200):
+            model.decode_step(tokens[:, i:i + 1], c, i)
+        torch.cuda.synchronize()
+        r[n]["ms_8200"] = 1e3 * (time.perf_counter() - t0) / VLM_STEPS_8200
+        r[n]["step_extra_bytes_8200"] = torch.cuda.max_memory_allocated() - base
+    r["int8"]["bytes_8200"], r["bf16"]["bytes_8200"] = (nbytes["int8"],
+                                                       nbytes["bf16"])
+    print(f"[vlm] (f) caches at max_len {length}: int8 {nbytes['int8']} B "
+          f"(want {want8}), bf16 {nbytes['bf16']} B (want {want16}), "
+          f"{nbytes['int8'] / nbytes['bf16']:.4f}x; a decode step against "
+          f"each: int8 {r['int8']['ms_8200']:.2f} ms, bf16 "
+          f"{r['bf16']['ms_8200']:.2f} ms (mean of {VLM_STEPS_8200}); the "
+          f"step's memory above the resident: int8 "
+          f"{r['int8']['step_extra_bytes_8200']} B (of it the float32 copy "
+          f"of one layer's k or v, from the config's shapes: {transient} B), "
+          f"bf16 "
+          f"{r['bf16']['step_extra_bytes_8200']} B | {smi}", flush=True)
+    check(nbytes["int8"] == want8 and nbytes["bf16"] == want16,
+          "the KV caches' bytes are not the config's")
+    del caches
+    torch.cuda.empty_cache()
+
+
+def vlm_phase(dev, seed: int) -> dict:
+    """Phase 22 (see VLM_ARCH). Returns ``flash_attention_sm90``'s
+    qwen2-vl-7b readings for its entry of the kernels line: the launches
+    of the prefill step, the layer shape's times and K3's agreement with
+    the plain attention in the forward. The phase's other readings are in
+    its printed lines only."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_mma, flash_attention_plain,
+        flash_attention_sm90, flash_attention_sm90_d64,
+        flash_attention_sm90_d256)
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+    from repro_torch.train.steps import make_prefill_step
+
+    smi = nvidia_smi_line()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    parts = {}
+    cfg = ARCHS[VLM_ARCH]
+    model = Model(cfg, device=dev).init(seed)
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in model.parameters())
+    par_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    parts["draw"] = time.perf_counter() - t_phase
+    print(f"[vlm] {VLM_ARCH}: {n_par} parameters (config n_params "
+          f"{cfg.n_params()}; {par_bytes / 1e9:.3f} GB bf16), "
+          f"{cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, M-RoPE sections {cfg.mrope_sections}, theta "
+          f"{cfg.rope_theta:g}; drawn on the card in {parts['draw']:.2f} s",
+          flush=True)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (1, LM_T + LM_DECODE),
+                           generator=gen, device=dev)
+    pos = vlm_positions(dev, LM_T + LM_DECODE)
+    pos_pre = pos[:, :, :LM_T]
+
+    # (a) the prefill step over the tokens at the image's ids
+    t0 = time.perf_counter()
+    batch = {"tokens": tokens[:, :LM_T], "positions": pos_pre}
+    step = make_prefill_step(model)
+    step(batch)                                           # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counted = (flash_attention, flash_attention_sm90, flash_attention_mma,
+               flash_attention_sm90_d64, flash_attention_sm90_d256)
+    for w in counted:
+        w.launches = 0
+    t1 = time.perf_counter()
+    last = step(batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = flash_attention_sm90.launches
+    others = sum(w.launches for w in counted[2:])
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[vlm] (a) prefill step, 1 x {LM_T} tokens, a {VLM_GRID} x "
+          f"{VLM_GRID} image's M-RoPE ids at [{VLM_IMAGE_AT}, "
+          f"{VLM_IMAGE_AT + VLM_GRID ** 2}): wall {wall:.4f} s, "
+          f"{LM_T / wall:.1f} tokens/s, K3 launches: flash_attention_sm90 "
+          f"{launches} (want {cfg.n_layers}), the other K3 kernels {others}; "
+          f"peak device memory {peak} B = {peak / par_bytes:.4f} x the "
+          f"parameter bytes | {smi}", flush=True)
+    check(launches == cfg.n_layers and others == 0
+          and flash_attention.launches == cfg.n_layers,
+          f"the qwen2-vl prefill step launched flash_attention_sm90 "
+          f"{launches} times and the other K3 kernels {others}, want "
+          f"{cfg.n_layers} and 0")
+    check(tuple(last.shape) == (1, cfg.vocab_size)
+          and bool(torch.isfinite(last).all()),
+          "qwen2-vl's prefill-step logits are not finite or of the wrong "
+          "shape")
+    parts["a"] = time.perf_counter() - t0
+
+    # (b) the forward with the stubbed patch embeddings, K3 against the
+    # plain attention
+    t0 = time.perf_counter()
+    embeds = vlm_embeds(model, batch["tokens"], gen)
+    agree, _ = lm_agreement(model, batch["tokens"], positions=pos_pre,
+                            embeds=embeds)
+    print(f"[vlm] (b) forward with embeds over {LM_T}, K3 vs plain attention "
+          f"(plain run {agree['plain_wall']:.2f} s): K3 per row on each "
+          f"layer's own q, k, v: max {agree['layers_max']:.4g} (limit "
+          f"{ATTN_ROW_TOL['bfloat16']}), per layer "
+          f"{[round(e, 5) for e in agree['layer_row_err']]}", flush=True)
+    print(f"[vlm] (b) logits max abs diff over max |logit| per position: max "
+          f"{agree['pos_rel_max']:.4g} (limit {LM_REL_TOL_PLAIN}), first "
+          f"{LM_EARLY} positions {agree['pos_rel_early']:.4g}, last "
+          f"{agree['pos_rel_last']:.4g}; argmax equal at "
+          f"{agree['argmax_equal_share']:.4f} of positions, at the last "
+          f"{agree['argmax_last_equal']}", flush=True)
+    check(agree["ok_layers"], "K3 disagrees with its plain version on "
+          "qwen2-vl's own q, k, v")
+    check(agree["ok_logits"], "qwen2-vl's forward disagrees with its "
+          "plain-attention run")
+    parts["b"] = time.perf_counter() - t0
+
+    # (c) M-RoPE on the card against float64, and the image's ids moving
+    # the logits: the prefill step's (image ids) against text ids
+    t0 = time.perf_counter()
+    rope = vlm_rope_reading(model, batch["tokens"], embeds, pos_pre)
+    del embeds
+    text, _ = model.forward(batch["tokens"], last_only=True)
+    text = text[0, -1].float()
+    move = float((last[0].float() - text).abs().max()) / float(
+        text.abs().max())
+    print(f"[vlm] (c) M-RoPE on layer 0's own q, k vs a float64 run of it "
+          f"on the CPU (mrope_f64): max abs diff over max |want| q "
+          f"{rope['q']:.4g}, k {rope['k']:.4g} (limit {VLM_ROPE_TOL}); the "
+          f"last position's logits at the image's ids vs at text ids (i, i, "
+          f"i): relative max abs diff {move:.4g}, against (b)'s largest K3 "
+          f"difference {agree['pos_rel_max']:.4g} (must exceed it); argmax "
+          f"{int(last.argmax())} vs {int(text.argmax())}", flush=True)
+    check(max(rope.values()) <= VLM_ROPE_TOL,
+          "M-RoPE on the card disagrees with its float64 run")
+    check(move > agree["pos_rel_max"],
+          "the image's M-RoPE ids do not move the logits beyond bf16 noise")
+    del last, text, step, batch
+    parts["c"] = time.perf_counter() - t0
+
+    # (d) prefill + decode at the image's ids against the forward
+    t0 = time.perf_counter()
+    logits_pre, cache = model.prefill(tokens[:, :LM_T],
+                                      max_len=LM_T + LM_DECODE,
+                                      positions=pos_pre)
+    outs = [logits_pre[:, -1].float()]
+    del logits_pre
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for i in range(LM_T, LM_T + LM_DECODE):
+        lg, cache = model.decode_step(tokens[:, i:i + 1], cache, i)
+        outs.append(lg[:, 0].float())
+    torch.cuda.synchronize()
+    dec_ms = 1e3 * (time.perf_counter() - t1) / LM_DECODE
+    del cache
+    full, _ = model.forward(tokens, positions=pos)
+    want = full[0, LM_T - 1:].float()
+    del full
+    got = torch.cat(outs)
+    err = (got - want).abs().amax(dim=-1)
+    scale = float(want.abs().max())
+    dec_rel = float(err.max()) / scale
+    same = (got.argmax(-1) == want.argmax(-1)).tolist()
+    print(f"[vlm] (d) prefill({LM_T}) + {LM_DECODE} decode steps vs forward "
+          f"over {LM_T + LM_DECODE}, the image's ids: max abs diff per "
+          f"position {[round(float(x), 5) for x in err]}, max |logit| "
+          f"{scale:.4g}, relative {dec_rel:.4g} (limit {LM_REL_TOL_DECODE}), "
+          f"argmax equal {same}, {dec_ms:.2f} ms per decode step | {smi}",
+          flush=True)
+    check(dec_rel <= LM_REL_TOL_DECODE,
+          "qwen2-vl's prefill + decode disagrees with the forward")
+    del got, want, outs
+    parts["d"] = time.perf_counter() - t0
+
+    # (f) the int8 KV cache, through this model
+    t0 = time.perf_counter()
+    vlm_int8(model, tokens, smi)
+    parts["f"] = time.perf_counter() - t0
+    del model
+    torch.cuda.empty_cache()
+
+    # (e) the serve launcher (it draws its own model)
+    t0 = time.perf_counter()
+    outputs = serve.main(["--arch", VLM_ARCH, "--requests", "8",
+                          "--batch-slots", "4", "--prompt-len", "16",
+                          "--max-new", "16", "--max-len", "256"])
+    parts["e"] = time.perf_counter() - t0
+    print(f"[vlm] (e) serve.main() took {parts['e']:.2f} s with the model's "
+          f"draw", flush=True)
+    check(len(outputs) == 8
+          and all(len(g) == 16 and all(0 <= x < cfg.vocab_size for x in g)
+                  for _, g in outputs),
+          "the serve launcher did not answer 8 requests with 16 tokens")
+    torch.cuda.empty_cache()
+
+    # (g) K3 at the layer shape in turns with SDPA, on the device alone
+    t0 = time.perf_counter()
+    b, hq, hkv, t, _, d = VLM_ATTN_SHAPE[:6]
+    q, k, v = _qkv(dev, seed, b, hq, hkv, t, t, d, torch.bfloat16)
+    runs = {"sm90": lambda: flash_attention_sm90(q, k, v),
+            "sdpa": lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True)}
+    diff = float((runs["sm90"]().float() - runs["sdpa"]().float())
+                 .abs().max())
+    ms = {n: [] for n in runs}
+    for order in (("sm90", "sdpa"), ("sdpa", "sm90")):
+        for n in order:
+            ms[n].append(queued_ms(runs[n], 20))
+    mean = {n: sum(x) / len(x) for n, x in ms.items()}
+    plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v), 3)
+    bound, by = k3_bound(b, hq, hkv, t, d)
+    ratio = mean["sm90"] / mean["sdpa"]
+    print(f"[vlm] (g) K3 at ({b}, {hq}/{hkv}, {t}, {d}) bf16 causal, device "
+          f"alone, in turns: flash_attention_sm90 {ms['sm90']} ms, "
+          f"scaled_dot_product_attention {ms['sdpa']} ms ({ratio:.3f}x "
+          f"SDPA's time); bound {bound:.4f} ms ({by}; "
+          f"{bound / mean['sm90']:.1%} of it); plain version {plain_ms:.3f} "
+          f"ms; max abs diff sm90 vs SDPA {diff:.3g} | {smi}", flush=True)
+    del q, k, v
+    torch.cuda.empty_cache()
+    parts["g"] = time.perf_counter() - t0
+
+    total = time.perf_counter() - t_phase
+    print(f"[vlm] phase parts (s): "
+          f"{ {n: round(x, 2) for n, x in parts.items()} }", flush=True)
+    print(f"[vlm] phase took {total:.1f} s (limit {VLM_PHASE_S} s) | {smi}",
+          flush=True)
+    check(total <= VLM_PHASE_S, f"the qwen2-vl phase took {total:.1f} s")
+    return {"launches": {f"{VLM_ARCH} prefill step (1 x {LM_T}, M-RoPE "
+                         "image ids)": launches},
+            "ms": mean["sm90"], "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": mean["sdpa"],
+            "ms_of": f"bf16 ({b}, {hq}/{hkv}, {t}, {d}) causal",
+            "layers_row_rel_err": agree["layers_max"],
+            "logits_rel": agree["pos_rel_max"]}
+
+
 def sm_clock_max_hz() -> float:
     """The card's top SM clock, as nvidia-smi reads it, in Hz."""
     out = subprocess.run(
@@ -5052,12 +5491,15 @@ def main() -> None:
     # ---- 21. whisper-small, the encoder-decoder -----------------------------
     whisper, k3_mma["whisper"] = whisper_phase(dev, args.seed)
 
+    # ---- 22. qwen2-vl-7b: M-RoPE, the stubbed embeddings, the int8 cache --
+    k3["qwen2_vl"].update(vlm_phase(dev, args.seed))
+
     foreign = sorted(m for m in sys.modules if m.split(".")[0]
                      in ("jax", "jaxlib", "repro", "benchmarks"))
     check(not foreign, f"the smoke imported {foreign[:5]}: JAX, the JAX "
           "package or its benchmarks")
 
-    # ---- 22. kernels line ---------------------------------------------------
+    # ---- 23. kernels line ---------------------------------------------------
     # each kernel's MoE readings beside those of its first path: K3 and
     # K3-bwd at the MoE models' MHA layer shape, P over the whole olmoe
     bwd, _, perturb = train_kernels
@@ -5111,7 +5553,7 @@ def main() -> None:
     kernels.append(wkv)
     print(json.dumps({"kernels": kernels}))
 
-    # ---- 23. result -------------------------------------------------------
+    # ---- 24. result -------------------------------------------------------
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

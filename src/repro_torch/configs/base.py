@@ -36,8 +36,8 @@ class ArchConfig:
     # dispatch in chunks of this many tokens (linearizes the T·E·C·d
     # dispatch einsums); None = classic full-T GShard
     moe_dispatch_chunk: int | None = None
-    # "int8": absmax-quantized KV cache (not ported yet); None = cache in
-    # param dtype
+    # "int8": absmax-quantized KV cache (int8 payloads, a float32 scale a
+    # slot); None = cache in param dtype
     kv_quant: str | None = None
     # positions
     use_rope: bool = True

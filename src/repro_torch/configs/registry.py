@@ -3,7 +3,7 @@ transform.
 
 Port of :mod:`repro.configs.registry`: the same ``ARCHS``, ``reduced()`` and
 ``get()``. ``input_specs`` waits for the dry-run's port (ROADMAP queue 1,
-item 11).
+item 11 step 7).
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Shared NN layers: init rules, norms, MLPs and RoPE.
+"""Shared NN layers: init rules, norms, MLPs, RoPE and M-RoPE.
 
 Port of :mod:`repro.models.layers`. Parameters are ``nn.ParameterDict``s
 keyed as the reference's pytrees (``params["w_in"]``), weights ``(d_in,
@@ -155,7 +155,7 @@ def is_gated(activation: str) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# RoPE (rotate-half, not interleaved). M-RoPE waits for qwen2-vl's port.
+# RoPE (rotate-half, not interleaved) and qwen2-vl's M-RoPE
 # ---------------------------------------------------------------------------
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     half = head_dim // 2
@@ -163,13 +163,41 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
                                          device=device) / half))
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
-    """x: (b, h, t, d_head); positions: (b, t) int. Angles and the rotation
-    in float32, the result cast back to x's dtype."""
+def _rotate_half(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """Rotate x's two halves by the float32 angles ``ang`` (b, 1, t, half);
+    the result cast back to x's dtype."""
     half = x.shape[-1] // 2
-    freqs = rope_freqs(x.shape[-1], theta, device=x.device)
-    ang = positions[:, None, :, None].float() * freqs            # (b,1,t,half)
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
+    """x: (b, h, t, d_head); positions: (b, t) int. Angles and the rotation
+    in float32, the result cast back to x's dtype."""
+    freqs = rope_freqs(x.shape[-1], theta, device=x.device)
+    return _rotate_half(x, positions[:, None, :, None].float() * freqs)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections=(16, 24, 24)):
+    """Qwen2-VL multimodal RoPE. x: (b, h, t, d_head); positions: (b, 3, t)
+    int, the (temporal, height, width) ids.
+
+    The rotary half-dim is split into ``sections`` (t, h, w), and each
+    section rotates by its own position stream. Text tokens carry equal
+    (t, h, w) ids, which gives :func:`apply_rope`'s result bit for bit; a
+    vision patch's ids come from the (stubbed) front end. Angles and the
+    rotation in float32, the result cast back to x's dtype."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to "
+                         f"half the head dim {half}")
+    freqs = rope_freqs(x.shape[-1], theta, device=x.device)
+    parts, start = [], 0
+    for s_i, sec in enumerate(sections):
+        pos = positions[:, s_i]                                  # (b, t)
+        parts.append(pos[:, None, :, None].float() * freqs[start:start + sec])
+        start += sec
+    return _rotate_half(x, torch.cat(parts, dim=-1))             # (b,1,t,half)

@@ -1,9 +1,10 @@
 """Top-level model: embeddings, decoder stack, (optional) encoder, LM head.
 
-Port of :mod:`repro.models.model` for the decoders, dense,
-mixture-of-experts, hybrid (RG-LRU and local attention,
-recurrentgemma-2b) and RWKV6 (rwkv6-3b), and for the encoder-decoder
-(whisper-small), as an ``nn.Module`` that holds its parameters:
+Port of :mod:`repro.models.model` for the decoders, dense (qwen2-vl-7b's
+M-RoPE among them), mixture-of-experts, hybrid (RG-LRU and local
+attention, recurrentgemma-2b) and RWKV6 (rwkv6-3b), and for the
+encoder-decoder (whisper-small), as an ``nn.Module`` that holds its
+parameters:
 
   model = Model(cfg).init(seed)            # on the card unless device= given
   logits, aux = model.forward(tokens)      # frames=... for an encoder-decoder
@@ -19,6 +20,15 @@ output: ``forward(tokens, frames=...)`` and ``loss`` with
 ``batch["frames"]``. It is served by ``fill_cross_cache`` and then
 ``decode_step``; ``prefill`` refuses it, as the reference's does.
 
+A vision-language config (``cfg.mrope``, qwen2-vl) takes (b, 3, t)
+(temporal, height, width) position ids; without ``positions`` every token
+is text, with equal ids (i, i, i). Its vision front end is a stub, as in
+the reference: ``forward(..., embeds=)`` and ``loss`` with
+``batch["embeds"]`` take precomputed (b, t, d) embeddings in place of the
+token embeddings (the caller puts the patch embeddings in the image's
+span). ``prefill`` and the prefill serving step take token ids only, as
+the reference's do. Decode steps carry equal ids (pos, pos, pos).
+
 ``Model(cfg)`` allocates the parameters uninitialised on the device, in
 ``cfg.param_dtype`` (an MoE router in float32, as the reference's);
 ``init`` draws them there from a ``torch.Generator`` one tensor at a time,
@@ -30,8 +40,7 @@ parameters' gradients on with ``model.requires_grad_(True)`` (every
 parameter is made with ``requires_grad=False``, so serving builds no
 graph), and K3's gradient is its backward kernel
 (``kernels.flash_attention.ops``). ``prefill`` and ``decode_step`` run
-under ``torch.no_grad()``, and so does ``fill_cross_cache``. M-RoPE
-configs raise (ROADMAP queue 1, item 11 step 4). The hybrid's
+under ``torch.no_grad()``, and so does ``fill_cross_cache``. The hybrid's
 scan (``kernels.rglru_scan``), K3 at head_dim 256 and RWKV6's recurrence
 (``kernels.rwkv6_wkv``) have no backward kernel: on the card they raise
 where a gradient is asked for.
@@ -53,9 +62,6 @@ from repro_torch.models.layers import draw_, embed_init, make_norm
 class Model(nn.Module):
     def __init__(self, cfg: ArchConfig, *, device=None):
         super().__init__()
-        if cfg.mrope:
-            raise NotImplementedError("M-RoPE (qwen2-vl) is not ported yet "
-                                      "(ROADMAP queue 1, item 11 step 4)")
         self.cfg = cfg
         self.device = resolve_device(device)
         dtype, dev = cfg.param_dtype, self.device
@@ -94,12 +100,18 @@ class Model(nn.Module):
         return self
 
     # ------------------------------------------------------------- embedding
-    def _embed(self, tokens, add_pos=True):
+    def _embed(self, tokens, embeds=None, add_pos=True):
+        """The token embeddings, or ``embeds`` (the stubbed front end's, in
+        ``param_dtype``) in their place; learned positions are added to
+        token embeddings only, as in the reference."""
         cfg = self.cfg
-        x = self.embed[tokens]
+        if embeds is not None:
+            x = embeds.to(cfg.param_dtype)
+        else:
+            x = self.embed[tokens]
         if cfg.embed_scale:
             x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype).item()
-        if cfg.pos_embed == "learned" and add_pos:
+        if cfg.pos_embed == "learned" and embeds is None and add_pos:
             t = tokens.shape[1]
             x = x + self.pos_embed[:t][None]
         return x
@@ -114,6 +126,8 @@ class Model(nn.Module):
         if positions is None and self.cfg.use_rope:
             b, t = tokens.shape[:2]
             positions = torch.arange(t, device=tokens.device)[None].expand(b, t)
+            if self.cfg.mrope:              # text: equal (t, h, w) ids
+                positions = positions[:, None].expand(b, 3, t)
         return positions
 
     # ------------------------------------------------------------- encoder
@@ -133,22 +147,24 @@ class Model(nn.Module):
                 for lp in self.decoder]
 
     # ------------------------------------------------------------- forward
-    def forward(self, tokens, *, positions=None, frames=None,
+    def forward(self, tokens, *, positions=None, embeds=None, frames=None,
                 last_only=False, remat=False):
         """Full-sequence logits (b, t, V), or (b, 1, V) of the last position
         with ``last_only``. Returns (logits, aux), aux the MoE layers'
         summed load-balancing loss (0 for a dense model), each MoE layer at
         the config's capacity. ``remat`` recomputes each pattern unit of the
         layer groups in the backward pass (``transformer.stack_apply``).
-        An encoder-decoder needs ``frames``: every decoder layer then
-        cross-attends the encoder's output (the reference's
-        ``_forward_encdec``)."""
+        ``embeds`` (b, t, d) replaces the token embeddings (the stubbed
+        vision front end). An encoder-decoder needs ``frames``: every
+        decoder layer then cross-attends the encoder's output (the
+        reference's ``_forward_encdec``)."""
         cross = None
         if self.cfg.encoder_layers > 0:
             if frames is None:
                 raise ValueError("enc-dec arch needs frames")
             cross = self._cross_kvs(self.encode(frames))
-        x, aux = tfm.stack_apply(self.decoder, self.cfg, self._embed(tokens),
+        x, aux = tfm.stack_apply(self.decoder, self.cfg,
+                                 self._embed(tokens, embeds),
                                  positions=self._positions(tokens, positions),
                                  causal=True, cross_kvs=cross, remat=remat)
         if last_only:
@@ -158,11 +174,12 @@ class Model(nn.Module):
     # ------------------------------------------------------------------ loss
     def loss(self, batch, *, remat=False):
         """Next-token cross-entropy on float32 logits. batch: tokens (b,
-        t+1) [+ positions, frames]. Returns (loss, {"ce", "aux"}); an MoE
+        t+1) [+ positions, embeds, frames]. Returns (loss, {"ce", "aux"}); an MoE
         config's loss is ``ce + 0.01·aux``."""
         tokens = batch["tokens"]
         inputs, labels = tokens[:, :-1], tokens[:, 1:]
         logits, aux = self.forward(inputs, positions=batch.get("positions"),
+                                   embeds=batch.get("embeds"),
                                    frames=batch.get("frames"), remat=remat)
         logp = torch.log_softmax(logits.float(), dim=-1)
         del logits

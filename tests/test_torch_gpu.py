@@ -64,6 +64,13 @@ lse, its refusals, and the mma.sync kernel still held at those shapes; the
 reduced encoder-decoder on the card against the CPU. Nelder-Mead on the card: a
 chunk replayed as a CUDA graph gives the eager chunks' bits.
 
+qwen2-vl-7b (no kernel of its own; K3 at a GQA group of 7 in
+``ATTN_SHAPES``): the reduced model on the card against the CPU with an
+image's M-RoPE ids and stubbed embeddings, forward, prefill and decode. The
+int8 KV cache: a slot's quantization on the card bit for bit the CPU's on
+the same inputs, and decode from an empty int8 cache on the card against
+the CPU's.
+
 rwkv6-3b's kernel: W (``rwkv6_wkv``, port only: RWKV6's WKV recurrence)
 against its plain version run on the card at ``WKV_SHAPES`` (the model's
 layer shape cut to T = 1024, a T that is no multiple of a chunk, the
@@ -108,6 +115,7 @@ from repro_torch.kernels.rwkv6_wkv.ops import rwkv6_wkv
 from repro_torch.kernels.rwkv6_wkv.ref import wkv_ref
 from repro_torch.models.model import Model
 from repro_torch.objectives import GRIEWANK, OBJECTIVES
+from test_torch_vlm_ids import image_ids
 
 SHAPES = [(1, 128, 16), (4, 256, 64), (3, 512, 128), (2, 128, 33),
           (8, 4096, 50)]
@@ -126,6 +134,9 @@ ATTN_SHAPES = [
     (1, 32, 8, 8192, 8192, 128, True, None),     # the model's layer shape
     (1, 16, 16, 1024, 1024, 128, True, None),    # MHA: the MoE models'
     (1, 16, 16, 8192, 8192, 128, True, None),    # their layer shape
+    # qwen2-vl-7b's GQA group of 7: its layer shape, a ragged batch of 2
+    (1, 28, 4, 8192, 8192, 128, True, None),
+    (2, 28, 4, 333, 333, 128, True, None),
 ]
 # whisper-small's (the Hopper kernel at head_dim 64 in bf16, mma.sync in
 # float32): the encoder's 1500 keys (11 blocks of 128 and a ragged 92; 7
@@ -566,6 +577,71 @@ def test_reduced_whisper_on_the_card_matches_cpu(cuda):
     for i in range(20):
         lg, cache = card.decode_step(toks[:, i:i + 1].to(cuda), cache, i)
         assert float((lg[:, 0].cpu() - want[:, i]).abs().max()) < 1e-4
+
+
+def test_reduced_qwen2_vl_on_the_card_matches_cpu(cuda):
+    """M-RoPE over an image's ids and the stubbed embeddings on the card
+    against the CPU: the forward with ``embeds``, then prefill and decode
+    (text ids past the prompt), each within 1e-4."""
+    cfg = reduced(ARCHS["qwen2-vl-7b"])
+    cpu = Model(cfg, device="cpu").init(0)
+    card = Model(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (2, 50), generator=g)
+    embeds = torch.randn(2, 50, cfg.d_model, generator=g) * 0.125
+    pos = torch.from_numpy(image_ids(2, 50, 8, 4))
+    before = flash_attention.launches
+    lg, _ = card.forward(toks.to(cuda), positions=pos.to(cuda),
+                         embeds=embeds.to(cuda))
+    assert flash_attention.launches == before + cfg.n_layers
+    want, _ = cpu.forward(toks, positions=pos, embeds=embeds)
+    assert float((lg.cpu() - want).abs().max()) < 1e-4
+    want, _ = cpu.forward(toks, positions=pos)
+    _, cache = card.prefill(toks[:, :44].to(cuda), max_len=64,
+                            positions=pos[:, :, :44].to(cuda))
+    for i in range(44, 50):
+        lg, cache = card.decode_step(toks[:, i:i + 1].to(cuda), cache, i)
+        assert float((lg[:, 0].cpu() - want[:, i]).abs().max()) < 1e-4
+
+
+def test_int8_kv_cache_on_the_card_matches_cpu(cuda):
+    """A slot's int8 quantization on the card is the CPU's bit for bit on
+    the same float32 inputs (an all-zero slot and exact .5 ties among
+    them). Decode from an empty int8 cache on the card against the CPU's:
+    logits within 1e-4, payloads within one step (the slot's inputs come
+    from products that round differently on the two devices)."""
+    import dataclasses
+    from repro_torch.models.attention import _quantize_slot
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(3, 4, 1, 128, generator=g) * 5
+    x[0, 0] = 0.0
+    x[0, 1, 0, :6] = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -2.5])
+    x[0, 1, 0, 6:] = 0.25
+    want_q, want_s = _quantize_slot(x)
+    got_q, got_s = _quantize_slot(x.to(cuda))
+    assert torch.equal(got_q.cpu(), want_q)
+    assert torch.equal(got_s.cpu(), want_s)
+
+    cfg = dataclasses.replace(reduced(ARCHS["mistral-nemo-12b"]),
+                              kv_quant="int8")
+    cpu = Model(cfg, device="cpu").init(0)
+    card = Model(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    toks = torch.randint(0, cfg.vocab_size, (2, 16),
+                         generator=torch.Generator().manual_seed(4))
+    c_cpu, c_card = cpu.init_cache(2, 32), card.init_cache(2, 32)
+    for i in range(16):
+        want, c_cpu = cpu.decode_step(toks[:, i:i + 1], c_cpu, i)
+        got, c_card = card.decode_step(toks[:, i:i + 1].to(cuda), c_card, i)
+        assert float((got.cpu() - want).abs().max()) < 1e-4
+    for lc, lg in zip(c_cpu, c_card):
+        for name in ("k", "v"):
+            assert lg["kv"][name].dtype == torch.int8
+            diff = lg["kv"][name].cpu().int() - lc["kv"][name].int()
+            assert int(diff.abs().max()) <= 1
+            assert torch.allclose(lg["kv"][f"{name}_scale"].cpu(),
+                                  lc["kv"][f"{name}_scale"], rtol=1e-5)
 
 
 def test_nelder_mead_on_the_card(cuda, monkeypatch):

@@ -17,6 +17,11 @@ ring wraps) and whose RG-LRU layers' decode state (float32 h, the conv's
 last inputs) is held beside the attention layers' ring caches; its serving
 steps and the serve launcher too. rwkv6-3b's serving steps and launcher
 are held here as well (its model and layers in tests/test_torch_rwkv6.py).
+So is qwen2-vl-7b (M-RoPE; text ids by default): forward, prefill, decode,
+its serving steps (the prefill step with an image's (t, h, w) ids) and the
+launcher; its M-RoPE, image ids and embeddings in
+tests/test_torch_qwen2_vl.py, the int8 KV cache in
+tests/test_torch_kv_int8.py.
 
 Tolerance: 1e-4 max abs on logits (|logits| <= ~5) and caches, layers
 1e-5. Measured (CPU, tests/torch_parity_report.py): <= 3.5e-6 on logits.
@@ -38,10 +43,10 @@ from repro.launch.mesh import make_host_mesh
 from repro.models.model import Model as JModel
 from repro.train import steps as jsteps
 from repro_torch.launch import serve as tserve
-from repro_torch.models import attention as tattn
 from repro_torch.models.model import Model
 from repro_torch.models.params import params_from_jax
 from repro_torch.train import steps as tsteps
+from test_torch_vlm_ids import image_ids
 
 CPU = "cpu"
 TOL = 1e-4
@@ -50,6 +55,7 @@ DENSE = ["mistral-nemo-12b", "h2o-danube-3-4b", "granite-20b",
 MOE = ["olmoe-1b-7b", "moonshot-v1-16b-a3b"]
 HYBRID = ["recurrentgemma-2b"]
 RWKV = ["rwkv6-3b"]
+VLM = ["qwen2-vl-7b"]
 
 
 def _np(x):
@@ -159,7 +165,7 @@ def _cache_layers(jcache, n_layers):
     return out
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE + HYBRID)
+@pytest.mark.parametrize("arch", DENSE + MOE + HYBRID + VLM)
 def test_model_matches_reference(arch):
     jm, params, tm = _pair(arch)
     cfg = tm.cfg
@@ -255,14 +261,25 @@ def test_rwkv6_serving_steps_match_reference(arch):
     _serving_steps_match_reference(arch)
 
 
+@pytest.mark.parametrize("arch", VLM)
+def test_vlm_serving_steps_match_reference(arch):
+    """qwen2-vl-7b: the reference's prefill step takes (b, 3, t) M-RoPE
+    ids in its batch; the decode steps carry (pos, pos, pos)."""
+    _serving_steps_match_reference(arch)
+
+
 def _serving_steps_match_reference(arch):
     jm, params, tm = _pair(arch, seed=7)
     mesh = make_host_mesh(1)
     toks = np.random.RandomState(8).randint(0, 512, (2, 24))
+    batch = {"tokens": toks}
+    if tm.cfg.mrope:            # an image's ids over positions 4..19
+        batch["positions"] = image_ids(2, 24, 4, 4)
     jstep, _ = jsteps.make_prefill_step(jm, mesh)
     with mesh:
-        want = jstep(params, {"tokens": jnp.asarray(toks)})
-    got = tsteps.make_prefill_step(tm)({"tokens": torch.from_numpy(toks)})
+        want = jstep(params, {k: jnp.asarray(v) for k, v in batch.items()})
+    got = tsteps.make_prefill_step(tm)(
+        {k: torch.from_numpy(v) for k, v in batch.items()})
     assert got.shape == (2, 512)
     assert np.abs(got.numpy() - _np(want)).max() < TOL
 
@@ -297,6 +314,11 @@ def test_hybrid_serve_launcher_gives_greedy_tokens_of_forward(arch, capsys):
 
 @pytest.mark.parametrize("arch", RWKV)
 def test_rwkv6_serve_launcher_gives_greedy_tokens_of_forward(arch, capsys):
+    _serve_launcher_gives_greedy_tokens_of_forward(arch, capsys)
+
+
+@pytest.mark.parametrize("arch", VLM)
+def test_vlm_serve_launcher_gives_greedy_tokens_of_forward(arch, capsys):
     _serve_launcher_gives_greedy_tokens_of_forward(arch, capsys)
 
 
@@ -363,31 +385,20 @@ def test_init_draws_the_rglru_rules():
     assert "decoder.2.attn.wq" in sd and "decoder.2.rglru.w_x" not in sd
 
 
-@pytest.mark.parametrize("arch", ["qwen2-vl-7b", "whisper-small"])
+@pytest.mark.parametrize("arch", ["whisper-small"])
 def test_unported_families_raise(arch):
-    """qwen2-vl (M-RoPE) still waits. whisper-small's encoder-decoder is
-    ported (tests/test_torch_whisper.py); what it refuses is the
+    """Every family is ported (whisper-small in
+    tests/test_torch_whisper.py, qwen2-vl-7b in
+    tests/test_torch_qwen2_vl.py); what whisper-small refuses is the
     reference's refusal: ``prefill`` (serve it by ``fill_cross_cache``)."""
-    if arch == "whisper-small":
-        m = Model(TC.reduced(TC.ARCHS[arch]), device=CPU)
-        with pytest.raises(ValueError, match="fill_cross_cache"):
-            m.prefill(torch.zeros(1, 4, dtype=torch.int64), max_len=8)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(TC.reduced(TC.ARCHS[arch]), device=CPU)
+    m = Model(TC.reduced(TC.ARCHS[arch]), device=CPU)
+    with pytest.raises(ValueError, match="fill_cross_cache"):
+        m.prefill(torch.zeros(1, 4, dtype=torch.int64), max_len=8)
 
 
 def test_unported_options_raise():
-    cfg = dataclasses.replace(TC.reduced(TC.ARCHS["mistral-nemo-12b"]),
-                              kv_quant="int8")
-    m = Model(cfg, device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m.init_cache(1, 8)
-    x = torch.zeros(1, 4, 64)
-    mrope = dataclasses.replace(cfg, mrope=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tattn.attn_apply(m.decoder[0]["attn"], mrope, x,
-                         positions=torch.zeros(1, 3, 4, dtype=torch.int64))
+    """--model-parallel waits for item 10 (M-RoPE and the int8 KV cache
+    are ported: tests/test_torch_qwen2_vl.py, tests/test_torch_kv_int8.py)."""
     with pytest.raises(NotImplementedError):
         tserve.main(["--arch", "mistral-nemo-12b", "--reduced",
                      "--model-parallel", "2", "--device", CPU])

@@ -73,6 +73,7 @@ DENSE = ["mistral-nemo-12b", "h2o-danube-3-4b", "granite-20b",
          "internlm2-20b"]
 MOE = ["olmoe-1b-7b", "moonshot-v1-16b-a3b"]
 HYBRID = ["recurrentgemma-2b"]
+VLM = ["qwen2-vl-7b"]
 
 
 def _cfgs(arch, dtype=None):
@@ -129,7 +130,7 @@ def test_bigram_stream_bits(seed):
 # ---------------------------------------------------------------------------
 # the leaf map and the reference's key arithmetic
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("arch", DENSE + MOE + HYBRID)
+@pytest.mark.parametrize("arch", DENSE + MOE + HYBRID + VLM)
 def test_leaf_map_covers_the_reference_tree(arch):
     jm, params, tm = _pair(arch)
     leaves = jax.tree.leaves(params)

@@ -152,8 +152,28 @@ Phases, in order; any failure exits non-zero before the result line:
      decoded against the forward beside the bf16 cache's decode, ms a step
      against 8200-slot caches); the serve launcher (8 requests); K3 at the
      layer shape timed in turns with SDPA;
- 23. one JSON line with every kernel's launches, error and times;
- 24. the last line, ``{"ok": true, "device": {...}}``.
+ 23. the other dense decoders at full width (``[dense]``, DENSE_ARCHS),
+     one at a time: granite-20b (MQA 48/1, LayerNorm, tanh-gelu, a
+     learned table of 32768 rows, tied embeddings), internlm2-20b (48/8)
+     and h2o-danube-3-4b (32/8 at head_dim 120, a 4096 window), each
+     served as phases 12-13 serve mistral-nemo-12b: the prefill step on
+     one T = 8192 request (52, 48 and 24 launches, all of
+     ``flash_attention_sm90``, none of another K3 kernel; wall, tokens/s,
+     peak memory over the parameter bytes), the forward against its
+     plain-attention run (K3 per row on every layer's own q, k, v; the
+     logits at every position), prefill + 8 decode steps against the
+     forward (danube's 4096-slot ring wrapping), the serve launcher (8
+     requests), and K3 at the layer shape timed in turns with SDPA
+     (danube's with the window as a mask, and causal without it);
+     granite-20b also prefills 32768 tokens (wall, peak, K3 at (1, 48/1,
+     32768, 128) timed in turns with SDPA and held to its plain version)
+     and decodes at the learned table's last 8 rows against the forward
+     over 32768, and takes AdamW steps cut to 4 of its 52 layers (step 1
+     against the plain attention, K3 and the Hopper K3-bwd in every
+     layer; K3-bwd at (8, 48/1, 512, 128) timed in turns with SDPA's
+     backward);
+ 24. one JSON line with every kernel's launches, error and times;
+ 25. the last line, ``{"ok": true, "device": {...}}``.
 
 Imports torch and the port only. Exits non-zero, printing no result, when
 no CUDA device is present or the port's sources are not beside this file.
@@ -260,6 +280,15 @@ ATTN_SHAPES = [
     # layer shape, and a ragged one at batch 2
     (1, 28, 4, 8192, 8192, 128, True, None),
     (2, 28, 4, 333, 333, 128, True, None),
+    # the dense decoders' layer shapes (DENSE_ATTN_SHAPES): granite-20b's
+    # MQA, internlm2-20b's 48/8, h2o-danube-3-4b's 32/8 at head_dim 120
+    # under its 4096 window, whose tiles walk ~33 kv blocks, all but the
+    # two edges unmasked; and a ragged d = 120 case at batch 2 whose window
+    # starts mid-block past block 0
+    (1, 48, 1, 8192, 8192, 128, True, None),
+    (1, 48, 8, 8192, 8192, 128, True, None),
+    (1, 32, 8, 8192, 8192, 120, True, 4096),
+    (2, 32, 8, 5000, 5000, 120, True, 4096),
 ]
 LM_ATTN_SHAPE = (1, 32, 8, 8192, 8192, 128, True, None)
 VLM_ATTN_SHAPE = (1, 28, 4, 8192, 8192, 128, True, None)
@@ -395,6 +424,7 @@ TRAIN_BWD_SHAPES = [
     (1, 32, 8, 333, 333, 120, True, 96, "bfloat16"),     # h2o-danube's d
     (2, 4, 2, 100, 300, 128, False, None, "bfloat16"),   # cross: sq != sk
     (1, 48, 1, 256, 256, 128, True, None, "bfloat16"),   # MQA (granite)
+    (8, 48, 1, 512, 512, 128, True, None, "bfloat16"),   # granite's AdamW
 ]
 # A Hopper-eligible shape whose dO rows are BWD_ROUTING_STRIDE elements
 # apart (not a multiple of 8): the mma.sync kernel takes it.
@@ -611,6 +641,25 @@ VLM_INT8_REL = 0.15
 VLM_INT8_AGREE = 0.9
 VLM_STEPS_8200 = 4           # decode steps timed against 8200-slot caches
 VLM_PHASE_S = 90
+# Phase 23, the other dense decoders at full width (bf16, random weights
+# from the seed, nothing cut), one at a time: each serves one LM_T-token
+# request through the prefill step, its forward against the plain
+# attention's, prefill + LM_DECODE decode steps, and the launcher
+# (``lm_serving``, ``lm_launcher``, as phases 12-13 serve mistral-nemo-12b);
+# K3 at its layer shape timed in turns with SDPA. granite-20b also
+# prefills DENSE_LONG_T tokens (the assigned prefill_32k length, the end of
+# its learned table) and takes AdamW steps cut to ADAMW_LAYERS of its 52
+# layers, as phase 15 (d) does for mistral-nemo-12b.
+DENSE_ARCHS = ("granite-20b", "internlm2-20b", "h2o-danube-3-4b")
+DENSE_ATTN_SHAPES = {"granite-20b": (1, 48, 1, 8192, 8192, 128, True, None),
+                     "internlm2-20b": (1, 48, 8, 8192, 8192, 128, True, None),
+                     "h2o-danube-3-4b": (1, 32, 8, 8192, 8192, 120, True,
+                                         4096)}
+DENSE_LONG_ARCH = "granite-20b"
+DENSE_LONG_T = 32768
+DENSE_LONG_SHAPE = (1, 48, 1, DENSE_LONG_T, DENSE_LONG_T, 128, True, None)
+DENSE_BWD_SHAPE = (8, 48, 1, 512, 512, 128, True, None, "bfloat16")
+DENSE_PHASE_S = 240
 
 
 def fail(msg: str) -> None:
@@ -1787,7 +1836,9 @@ def attention_phase(dev, seed: int) -> tuple[dict, dict, dict, dict]:
         if r["shape"] == D256_SHAPE and r["dtype"] == "bfloat16":
             d256_err = {"max_abs_err": r["abs"], "row_rel_err": r["row"]}
         want = {256: "flash_attention_sm90_d256",
-                64: "flash_attention_sm90_d64"}.get(r["shape"][5])
+                64: "flash_attention_sm90_d64",
+                128: "flash_attention_sm90",
+                120: "flash_attention_sm90"}.get(r["shape"][5])
         check(want is None or r["dtype"] != "bfloat16" or r["kernel"] == want,
               f"{r['shape']} bf16 went to {r['kernel']}")
         if r["kernel"] == "flash_attention_sm90_d64":
@@ -2026,16 +2077,196 @@ def lm_agreement(model, tokens, plain=plain_attention, **fwd
     return r, last_ref
 
 
+K3_COUNTED = ("flash_attention", "flash_attention_sm90", "flash_attention_mma",
+              "flash_attention_sm90_d64", "flash_attention_sm90_d256")
+
+
+def prefill_step_reading(model, tokens, tag: str, smi: str = "",
+                         warm_up: bool = True, positions=None) -> dict:
+    """One ``make_prefill_step`` call on ``tokens`` (1, T) at ``positions``
+    (the model's default ids if None), after a warm-up call unless
+    ``warm_up`` is False, timed, with each K3 kernel's launches
+    and the peak memory over the parameter bytes, printed under ``tag``.
+    Fails unless every attention layer launched ``flash_attention_sm90``
+    once, no other K3 kernel ran and the logits are finite. Returns the
+    wall, the launches, the peak, the parameter bytes and the logits."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.train.steps import make_prefill_step
+
+    cfg = model.cfg
+    t = tokens.shape[1]
+    n_attn = sum(cfg.mixer_kind(i) in ("attn", "swa")
+                 for i in range(cfg.n_layers))
+    par_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    batch = {"tokens": tokens, "positions": positions}
+    step = make_prefill_step(model)
+    if warm_up:
+        step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for n in K3_COUNTED:
+        getattr(fa, n).launches = 0
+    t0 = time.perf_counter()
+    last = step(batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {n: getattr(fa, n).launches for n in K3_COUNTED}
+    launches = counts["flash_attention_sm90"]
+    others = sum(counts[n] for n in K3_COUNTED[2:])
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{tag} prefill step, 1 x {t} tokens"
+          f"{'' if warm_up else ' (no warm-up at this length)'}: wall "
+          f"{wall:.4f} s, {t / wall:.1f} tokens/s, K3 launches: "
+          f"flash_attention_sm90 {launches}, flash_attention_mma "
+          f"{counts['flash_attention_mma']}, the other K3 kernels "
+          f"{others - counts['flash_attention_mma']}; peak device memory "
+          f"{peak} B = {peak / par_bytes:.4f} x the parameter bytes{smi}",
+          flush=True)
+    check(launches == n_attn and others == 0
+          and counts["flash_attention"] == n_attn,
+          f"the prefill step on {t} tokens launched flash_attention_sm90 "
+          f"{launches} times and the other K3 kernels {others} times, want "
+          f"{n_attn} and 0")
+    check(tuple(last.shape) == (1, cfg.vocab_size)
+          and bool(torch.isfinite(last).all()),
+          "prefill-step logits are not finite or of the wrong shape")
+    return {"wall": wall, "launches": launches, "peak": peak,
+            "par_bytes": par_bytes, "n_attn": n_attn, "last": last}
+
+
+def lm_serving(model, tokens, tag: str, smi: str = "") -> dict:
+    """The LM serving path of ``model`` (full width, bf16) on one request of
+    ``tokens[:, :LM_T]``: the prefill step (``prefill_step_reading``); the
+    forward against its plain-attention run (``lm_agreement``) and the
+    prefill step's logits against it; prefill + the rest of ``tokens``
+    decoded against the forward over all of them (``decode_seam``). Prints
+    each reading under ``tag``, fails on any check, and returns the
+    readings with each part's seconds."""
+    import torch
+
+    n_new = tokens.shape[1] - LM_T
+    seconds, t_part = {}, time.perf_counter()
+    batch = {"tokens": tokens[:, :LM_T]}
+    pre = prefill_step_reading(model, batch["tokens"], tag, smi)
+    n_attn, last = pre["n_attn"], pre.pop("last")
+    seconds["prefill step"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    agree, ref = lm_agreement(model, batch["tokens"])
+    print(f"{tag} forward over {LM_T}, K3 vs plain attention (plain run "
+          f"{agree['plain_wall']:.2f} s): K3 per row on each layer's own "
+          f"q, k, v: max {agree['layers_max']:.4g} (limit "
+          f"{ATTN_ROW_TOL['bfloat16']}), per layer "
+          f"{[round(e, 5) for e in agree['layer_row_err']]}", flush=True)
+    print(f"{tag} logits max abs diff over max |logit| per position: max "
+          f"{agree['pos_rel_max']:.4g} (limit {LM_REL_TOL_PLAIN}), first "
+          f"{LM_EARLY} positions {agree['pos_rel_early']:.4g}, last "
+          f"{agree['pos_rel_last']:.4g}; argmax equal at "
+          f"{agree['argmax_equal_share']:.4f} of positions, at the last "
+          f"{agree['argmax_last_equal']}", flush=True)
+    check(agree["ok_layers"], "K3 disagrees with its plain version on the "
+          "model's own q, k, v")
+    check(agree["ok_logits"], "the full-width forward disagrees with its "
+          "plain-attention run")
+    err = float((last.float() - ref).abs().max())
+    scale = float(ref.abs().max())
+    step_rel = err / scale
+    print(f"{tag} prefill-step logits vs the plain-attention forward's last "
+          f"position: max abs diff {err:.4g}, max |logit| {scale:.4g}, "
+          f"relative {step_rel:.4g} (limit {LM_REL_TOL_PLAIN}), argmax "
+          f"{int(last.argmax())} vs {int(ref.argmax())}", flush=True)
+    check(int(last.argmax()) == int(ref.argmax())
+          and err <= LM_REL_TOL_PLAIN * scale,
+          "the full-width prefill step disagrees with its plain-attention run")
+    del last, ref
+    torch.cuda.empty_cache()
+    seconds["agreement"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    dec = decode_seam(model, tokens, LM_T)
+    check(dec["prefill_launches"] == n_attn,
+          f"Model.prefill launched K3 {dec['prefill_launches']} times")
+    print(f"{tag} prefill({LM_T}) + {n_new} decode steps vs forward over "
+          f"{LM_T + n_new}: max abs diff per position {dec['err']}, "
+          f"max |logit| {dec['scale']:.4g}, relative {dec['rel']:.4g} "
+          f"(limit {LM_REL_TOL_DECODE}), argmax equal {dec['argmax']}, "
+          f"{dec['ms']:.2f} ms per decode step, {dec['slots']} cache slots "
+          f"a layer{smi}", flush=True)
+    check(dec["rel"] <= LM_REL_TOL_DECODE,
+          "prefill + decode disagrees with the forward")
+    torch.cuda.empty_cache()
+    seconds["decode seam"] = time.perf_counter() - t_part
+    return {**pre, "agree": agree, "step_rel": step_rel, "decode": dec,
+            "seconds": seconds}
+
+
+def decode_seam(model, tokens, t: int) -> dict:
+    """``model.prefill`` of ``tokens[:, :t]`` into caches of all of
+    ``tokens``' slots (a ring of ``window`` under SWA), then decode the
+    rest token by token, against the forward over all of ``tokens`` from
+    position t - 1 on: max abs diff per position, over the forward's max
+    |logit| (``rel``), argmax equal per position, ms a decode step and the
+    first layer's cache slots; and the K3 launches of the prefill."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    total = tokens.shape[1]
+    before = flash_attention.launches
+    logits_pre, cache = model.prefill(tokens[:, :t], max_len=total)
+    launches = flash_attention.launches - before
+    slots = cache[0]["kv"]["k"].shape[2]
+    outs = [logits_pre[:, -1].float()]
+    del logits_pre
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(t, total):
+        lg, cache = model.decode_step(tokens[:, i:i + 1], cache, i)
+        outs.append(lg[:, 0].float())
+    torch.cuda.synchronize()
+    dec_ms = 1e3 * (time.perf_counter() - t0) / (total - t)
+    del cache
+    full, _ = model.forward(tokens)
+    want = full[0, t - 1:].float()
+    del full
+    got = torch.cat(outs)
+    err = (got - want).abs().amax(dim=-1)
+    scale = float(want.abs().max())
+    return {"err": err.tolist(), "scale": scale,
+            "rel": float(err.max()) / scale,
+            "argmax": (got.argmax(-1) == want.argmax(-1)).tolist(),
+            "ms": dec_ms, "slots": slots, "prefill_launches": launches}
+
+
+def lm_launcher(arch: str, tag: str) -> float:
+    """``launch.serve.main`` at full width (it draws its own model): 8
+    requests of 16 tokens over 4 slots, each answered with 16 tokens in the
+    vocabulary. Returns its wall in seconds."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import serve
+    t0 = time.perf_counter()
+    outputs = serve.main(["--arch", arch, "--requests", "8",
+                          "--batch-slots", "4", "--prompt-len", "16",
+                          "--max-new", "16", "--max-len", "256"])
+    wall = time.perf_counter() - t0
+    print(f"{tag} serve.main() took {wall:.2f} s with the model's draw",
+          flush=True)
+    vocab = ARCHS[arch].vocab_size
+    check(len(outputs) == 8
+          and all(len(g) == 16 and all(0 <= x < vocab for x in g)
+                  for _, g in outputs),
+          f"the {arch} serve launcher did not answer 8 requests with 16 "
+          "tokens")
+    torch.cuda.empty_cache()
+    return wall
+
+
 def lm_phase(dev, seed: int) -> int:
-    """Phases 11-12: the LM serving path at full width. Returns the Hopper
+    """Phases 12-13: the LM serving path at full width. Returns the Hopper
     kernel's launches in the main-path run (one prefill step)."""
     import torch
     from repro_torch.configs import ARCHS
-    from repro_torch.kernels.flash_attention.ops import (
-        flash_attention, flash_attention_mma, flash_attention_sm90)
-    from repro_torch.launch import serve
     from repro_torch.models.model import Model
-    from repro_torch.train.steps import make_prefill_step
 
     cfg = ARCHS[LM_ARCH]
     t0 = time.perf_counter()
@@ -2048,105 +2279,12 @@ def lm_phase(dev, seed: int) -> int:
     gen = torch.Generator(device=dev).manual_seed(seed)
     tokens = torch.randint(0, cfg.vocab_size, (1, LM_T + LM_DECODE),
                            generator=gen, device=dev)
-    batch = {"tokens": tokens[:, :LM_T]}
-    step = make_prefill_step(model)
-    step(batch)                                           # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = 0
-    flash_attention_sm90.launches = flash_attention_mma.launches = 0
-    t0 = time.perf_counter()
-    last = step(batch)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = flash_attention_sm90.launches
-    peak = torch.cuda.max_memory_allocated()
-    print(f"[lm] prefill step, 1 x {LM_T} tokens: wall {wall:.4f} s, "
-          f"{LM_T / wall:.1f} tokens/s, K3 launches: flash_attention_sm90 "
-          f"{launches}, flash_attention_mma {flash_attention_mma.launches}; "
-          f"peak device memory {peak} B", flush=True)
-    check(launches == cfg.n_layers and flash_attention_mma.launches == 0
-          and flash_attention.launches == cfg.n_layers,
-          f"the prefill step launched flash_attention_sm90 {launches} times "
-          f"and flash_attention_mma {flash_attention_mma.launches} times, "
-          f"want {cfg.n_layers} and 0")
-    check(tuple(last.shape) == (1, cfg.vocab_size)
-          and bool(torch.isfinite(last).all()),
-          "prefill-step logits are not finite or of the wrong shape")
-
-    agree, ref = lm_agreement(model, batch["tokens"])
-    print(f"[lm] forward over {LM_T}, K3 vs plain attention (plain run "
-          f"{agree['plain_wall']:.2f} s): K3 per row on each layer's own "
-          f"q, k, v: max {agree['layers_max']:.4g} (limit "
-          f"{ATTN_ROW_TOL['bfloat16']}), per layer "
-          f"{[round(e, 5) for e in agree['layer_row_err']]}", flush=True)
-    print(f"[lm] logits max abs diff over max |logit| per position: max "
-          f"{agree['pos_rel_max']:.4g} (limit {LM_REL_TOL_PLAIN}), first "
-          f"{LM_EARLY} positions {agree['pos_rel_early']:.4g}, last "
-          f"{agree['pos_rel_last']:.4g}; argmax equal at "
-          f"{agree['argmax_equal_share']:.4f} of positions, at the last "
-          f"{agree['argmax_last_equal']}", flush=True)
-    check(agree["ok_layers"], "K3 disagrees with its plain version on the "
-          "model's own q, k, v")
-    check(agree["ok_logits"], "the full-width forward disagrees with its "
-          "plain-attention run")
-    err = float((last.float() - ref).abs().max())
-    scale = float(ref.abs().max())
-    print(f"[lm] prefill-step logits vs the plain-attention forward's last "
-          f"position: max abs diff {err:.4g}, max |logit| {scale:.4g}, "
-          f"relative {err / scale:.4g} (limit {LM_REL_TOL_PLAIN}), argmax "
-          f"{int(last.argmax())} vs {int(ref.argmax())}", flush=True)
-    check(int(last.argmax()) == int(ref.argmax())
-          and err <= LM_REL_TOL_PLAIN * scale,
-          "the full-width prefill step disagrees with its plain-attention run")
-    del last, ref
-    torch.cuda.empty_cache()
-
-    flash_attention.launches = 0
-    logits_pre, cache = model.prefill(tokens[:, :LM_T],
-                                      max_len=LM_T + LM_DECODE)
-    check(flash_attention.launches == cfg.n_layers,
-          f"Model.prefill launched K3 {flash_attention.launches} times")
-    last_pre = logits_pre[:, -1].float()
-    del logits_pre
-    outs = []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(LM_T, LM_T + LM_DECODE):
-        lg, cache = model.decode_step(tokens[:, i:i + 1], cache, i)
-        outs.append(lg[:, 0].float())
-    torch.cuda.synchronize()
-    dec_ms = 1e3 * (time.perf_counter() - t0) / LM_DECODE
-    del cache
-    full, _ = model.forward(tokens)
-    want = full[0, LM_T - 1:].float()
-    del full
-    got = torch.cat([last_pre] + outs)
-    err = (got - want).abs().amax(dim=-1)
-    scale = float(want.abs().max())
-    agree = (got.argmax(-1) == want.argmax(-1)).tolist()
-    print(f"[lm] prefill({LM_T}) + {LM_DECODE} decode steps vs forward over "
-          f"{LM_T + LM_DECODE}: max abs diff per position {err.tolist()}, "
-          f"max |logit| {scale:.4g}, relative {float(err.max()) / scale:.4g} "
-          f"(limit {LM_REL_TOL_DECODE}), argmax equal {agree}, "
-          f"{dec_ms:.2f} ms per decode step", flush=True)
-    check(float(err.max()) <= LM_REL_TOL_DECODE * scale,
-          "prefill + decode disagrees with the forward")
-    del model, got, want, outs
+    launches = lm_serving(model, tokens, "[lm]")["launches"]
+    del model
     torch.cuda.empty_cache()
 
     # ---- 13. the serve launcher ---------------------------------------------
-    t0 = time.perf_counter()
-    outputs = serve.main(["--arch", LM_ARCH, "--requests", "8",
-                          "--batch-slots", "4", "--prompt-len", "16",
-                          "--max-new", "16", "--max-len", "256"])
-    print(f"[serve] main() took {time.perf_counter() - t0:.2f} s with the "
-          f"model's draw", flush=True)
-    check(len(outputs) == 8
-          and all(len(g) == 16 and all(0 <= x < cfg.vocab_size for x in g)
-                  for _, g in outputs),
-          "the serve launcher did not answer 8 requests with 16 tokens")
-    torch.cuda.empty_cache()
+    lm_launcher(LM_ARCH, "[serve]")
     return launches
 
 
@@ -2452,26 +2590,126 @@ def recorded_steps(records: list, counted: tuple):
         steps_mod.make_train_step = make
 
 
+def adamw_cut(dev, seed: int, arch: str, tag: str) -> dict:
+    """AdamW through ``make_train_step`` on ``arch`` at full width cut to
+    ADAMW_LAYERS layers (remat, TRAIN_B x TRAIN_T tokens of the bigram
+    stream): step 1's loss and every gradient tensor with K3 against the
+    plain attention's (ADAMW_LOSS_TOL, ADAMW_GRAD_TOL; no projection's
+    gradient zero), then ADAMW_STEPS steps timed, K3 and the Hopper K3-bwd
+    in every layer and no mma.sync kernel; the memory all layers would
+    need. Prints under ``tag``; returns the steps' launches."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.synthetic import BigramStream, StreamConfig
+    from repro_torch.models.model import Model
+    from repro_torch.train import steps as steps_mod
+
+    cfg = ARCHS[arch]
+    counted = train_counted()
+    cfg4 = dataclasses.replace(cfg, n_layers=ADAMW_LAYERS)
+    model = Model(cfg4, device=dev).init(seed).requires_grad_(True)
+    n4 = sum(p.numel() for p in model.parameters())
+    stream = BigramStream(StreamConfig(vocab_size=cfg4.vocab_size,
+                                       seq_len=TRAIN_T, global_batch=TRAIN_B))
+
+    def loss_and_grads(batch):
+        for p in model.parameters():
+            p.grad = None
+        loss = model.loss(batch, remat=True)[0]
+        loss.backward()
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        for p in model.parameters():
+            p.grad = None
+        return float(loss.detach()), grads
+
+    batch0 = {"tokens": stream.torch_batch(0, dev)}
+    loss_k3, g_k3 = loss_and_grads(batch0)
+    with plain_attention([]):
+        loss_plain, g_plain = loss_and_grads(batch0)
+    grad_rel = {n: float((g_k3[n].float() - g_plain[n].float()).abs().max()
+                         / g_plain[n].float().abs().max()) for n in g_k3}
+    qkv_zero = [n for n in g_k3 if n.split(".")[-1] in ("wq", "wk", "wv")
+                and float(g_k3[n].abs().max()) == 0.0]
+    worst = max(grad_rel, key=grad_rel.get)
+    loss_rel = abs(loss_k3 - loss_plain) / abs(loss_plain)
+    tables = {n: round(grad_rel[n], 6) for n in ("embed", "unembed",
+                                                  "pos_embed")
+              if n in grad_rel}
+    print(f"{tag} {arch} cut to {ADAMW_LAYERS} of {cfg.n_layers} "
+          f"layers ({n4} parameters): step 1's loss with K3 {loss_k3:.6f}, "
+          f"with the plain attention {loss_plain:.6f} (relative "
+          f"{loss_rel:.3g}, limit {ADAMW_LOSS_TOL}); gradients, max |diff| / "
+          f"max |plain| per tensor: worst {worst} {grad_rel[worst]:.4g} "
+          f"(limit {ADAMW_GRAD_TOL}), wq/wk/wv "
+          f"{max(v for n, v in grad_rel.items() if n.split('.')[-1] in ('wq', 'wk', 'wv')):.4g},"
+          f" the tables {tables}; zero attention gradients {qkv_zero}",
+          flush=True)
+    check(loss_rel <= ADAMW_LOSS_TOL and grad_rel[worst] <= ADAMW_GRAD_TOL
+          and not qkv_zero, f"{arch}: AdamW's step 1 with K3 disagrees with "
+          "the plain attention's, or a projection's gradient is zero")
+    del g_k3, g_plain
+    step = steps_mod.make_train_step(model, optimizer="adamw", remat=True)
+    state = steps_mod.init_opt_state(model)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for w in counted:
+        w.launches = 0
+    walls, losses = [], []
+    for s in range(ADAMW_STEPS):
+        batch = {"tokens": stream.torch_batch(s, dev)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(met["loss"]))
+    launches = {w.__name__: w.launches for w in counted}
+    peak = torch.cuda.max_memory_allocated()
+    n_all = cfg.n_params()
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"{tag} AdamW, {ADAMW_STEPS} steps of {TRAIN_B} x {TRAIN_T} "
+          f"tokens, remat: wall per step {[round(w, 4) for w in walls]} s, "
+          f"losses {losses}; launches {launches} "
+          f"({ADAMW_STEPS} steps); peak device memory {peak} B = "
+          f"{peak / (2 * n4):.3f} x the bf16 parameter bytes; 16 bytes a "
+          f"parameter (bf16 params and grads, fp32 master, m, v) for all "
+          f"{cfg.n_layers} layers: {16 * n_all} B against the card's {total} B",
+          flush=True)
+    check(all(math.isfinite(x) for x in losses), "AdamW's loss not finite")
+    check(launches["flash_attention_sm90"] >= ADAMW_STEPS * ADAMW_LAYERS
+          and launches["flash_attention_bwd"]
+          == launches["flash_attention_bwd_sm90"]
+          == ADAMW_STEPS * ADAMW_LAYERS
+          and launches["flash_attention_mma"] == 0
+          and launches["flash_attention_bwd_mma"] == 0,
+          f"{arch}: AdamW's steps launched {launches}: K3 and the Hopper "
+          "K3-bwd not in every layer, or a mma.sync kernel ran")
+    del model, step, state, met
+    torch.cuda.empty_cache()
+    return launches
+
+
 def train_phase(dev, seed: int) -> list[dict]:
     """Phase 15, the LM training path (see TRAIN_ARGS): (a) K3-bwd, (b) P,
     (c) ABO-ZO on the whole mistral-nemo-12b, (d) AdamW at full width cut
     to ADAMW_LAYERS layers, (e) the reduced config's resume on the card.
     Returns the entries of the kernels line for both K3-bwd kernels and
     P."""
-    import dataclasses
     import io
     import shutil
 
     import numpy as np
     import torch
     from repro_torch.configs import ARCHS
-    from repro_torch.data.synthetic import BigramStream, StreamConfig
     from repro_torch.kernels.perturb.ops import (abo_zo_perturb,
                                                  abo_zo_perturb_plain)
     from repro_torch.launch import train as train_launch
     from repro_torch.models.model import Model
     from repro_torch.models.params import leaf_map
-    from repro_torch.train import abo_zo, steps as steps_mod
+    from repro_torch.train import abo_zo
 
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
@@ -2494,6 +2732,8 @@ def train_phase(dev, seed: int) -> list[dict]:
             bwd_main = r
         if r["shape"] == TRAIN_BWD_SHAPES[1][:8]:
             bwd_reduced = r
+        if r["shape"] == DENSE_BWD_SHAPE[:8]:
+            bwd_granite = r
     b, hq, hkv, d = TRAIN_B, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     t = TRAIN_T
     bwd_adamw = bwd_times(dev, seed, b, hq, hkv, t, d, 20)
@@ -2615,83 +2855,7 @@ def train_phase(dev, seed: int) -> list[dict]:
     torch.cuda.empty_cache()
 
     # ---- (d) AdamW at full width, ADAMW_LAYERS layers --------------------
-    cfg4 = dataclasses.replace(cfg, n_layers=ADAMW_LAYERS)
-    model = Model(cfg4, device=dev).init(seed).requires_grad_(True)
-    n4 = sum(p.numel() for p in model.parameters())
-    stream = BigramStream(StreamConfig(vocab_size=cfg4.vocab_size,
-                                       seq_len=TRAIN_T, global_batch=TRAIN_B))
-
-    def loss_and_grads(batch):
-        for p in model.parameters():
-            p.grad = None
-        loss = model.loss(batch, remat=True)[0]
-        loss.backward()
-        grads = {n: p.grad for n, p in model.named_parameters()}
-        for p in model.parameters():
-            p.grad = None
-        return float(loss.detach()), grads
-
-    batch0 = {"tokens": stream.torch_batch(0, dev)}
-    loss_k3, g_k3 = loss_and_grads(batch0)
-    with plain_attention([]):
-        loss_plain, g_plain = loss_and_grads(batch0)
-    grad_rel = {n: float((g_k3[n].float() - g_plain[n].float()).abs().max()
-                         / g_plain[n].float().abs().max()) for n in g_k3}
-    qkv_zero = [n for n in g_k3 if n.split(".")[-1] in ("wq", "wk", "wv")
-                and float(g_k3[n].abs().max()) == 0.0]
-    worst = max(grad_rel, key=grad_rel.get)
-    loss_rel = abs(loss_k3 - loss_plain) / abs(loss_plain)
-    print(f"[train] (d) {LM_ARCH} cut to {ADAMW_LAYERS} of {cfg.n_layers} "
-          f"layers ({n4} parameters): step 1's loss with K3 {loss_k3:.6f}, "
-          f"with the plain attention {loss_plain:.6f} (relative "
-          f"{loss_rel:.3g}, limit {ADAMW_LOSS_TOL}); gradients, max |diff| / "
-          f"max |plain| per tensor: worst {worst} {grad_rel[worst]:.4g} "
-          f"(limit {ADAMW_GRAD_TOL}), wq/wk/wv "
-          f"{max(v for n, v in grad_rel.items() if n.split('.')[-1] in ('wq', 'wk', 'wv')):.4g};"
-          f" zero attention gradients {qkv_zero}", flush=True)
-    check(loss_rel <= ADAMW_LOSS_TOL and grad_rel[worst] <= ADAMW_GRAD_TOL
-          and not qkv_zero, "AdamW's step 1 with K3 disagrees with the plain "
-          "attention's, or a projection's gradient is zero")
-    del g_k3, g_plain
-    step = steps_mod.make_train_step(model, optimizer="adamw", remat=True)
-    state = steps_mod.init_opt_state(model)
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    for w in counted:
-        w.launches = 0
-    walls, losses = [], []
-    for s in range(ADAMW_STEPS):
-        batch = {"tokens": stream.torch_batch(s, dev)}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, met = step(state, batch)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        losses.append(float(met["loss"]))
-    launches_adamw = {w.__name__: w.launches for w in counted}
-    peak = torch.cuda.max_memory_allocated()
-    n40 = cfg.n_params()
-    total = torch.cuda.get_device_properties(0).total_memory
-    print(f"[train] (d) AdamW, {ADAMW_STEPS} steps of {TRAIN_B} x {TRAIN_T} "
-          f"tokens, remat: wall per step {[round(w, 4) for w in walls]} s, "
-          f"losses {losses}; launches {launches_adamw} "
-          f"({ADAMW_STEPS} steps); peak device memory {peak} B = "
-          f"{peak / (2 * n4):.3f} x the bf16 parameter bytes; 16 bytes a "
-          f"parameter (bf16 params and grads, fp32 master, m, v) for all "
-          f"{cfg.n_layers} layers: {16 * n40} B against the card's {total} B",
-          flush=True)
-    check(all(math.isfinite(x) for x in losses), "AdamW's loss not finite")
-    check(launches_adamw["flash_attention_sm90"] >= ADAMW_STEPS * ADAMW_LAYERS
-          and launches_adamw["flash_attention_bwd"]
-          == launches_adamw["flash_attention_bwd_sm90"]
-          == ADAMW_STEPS * ADAMW_LAYERS
-          and launches_adamw["flash_attention_mma"] == 0
-          and launches_adamw["flash_attention_bwd_mma"] == 0,
-          f"AdamW's steps launched {launches_adamw}: K3 and the Hopper "
-          "K3-bwd not in every layer, or a mma.sync kernel ran")
-    del model, step, state, met
-    torch.cuda.empty_cache()
+    launches_adamw = adamw_cut(dev, seed, LM_ARCH, "[train] (d)")
 
     # ---- (e) resume on the card, bit for bit -----------------------------
     root = os.path.join(ROOT, "build", "train_smoke")
@@ -2759,7 +2923,10 @@ def train_phase(dev, seed: int) -> list[dict]:
                   "held_ms": bwd_long_plain["ms"]["sm90"],
                   "held_plain_ms": bwd_long_plain["plain_ms"],
                   "max_abs_err": held["abs"], "max_rel_err": held["rel"],
-                  "row_rel_err": held["row"]}},
+                  "row_rel_err": held["row"]},
+         DENSE_LONG_ARCH: {"max_abs_err": bwd_granite["abs"],
+                           "max_rel_err": bwd_granite["rel"],
+                           "row_rel_err": bwd_granite["row"]}},
         {"name": "flash_attention_bwd_mma", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
          "replaces": None, "note": note,
@@ -4972,15 +5139,9 @@ def vlm_phase(dev, seed: int) -> dict:
     the plain attention in the forward. The phase's other readings are in
     its printed lines only."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.configs import ARCHS
-    from repro_torch.kernels.flash_attention.ops import (
-        flash_attention, flash_attention_mma, flash_attention_plain,
-        flash_attention_sm90, flash_attention_sm90_d64,
-        flash_attention_sm90_d256)
     from repro_torch.launch import serve
     from repro_torch.models.model import Model
-    from repro_torch.train.steps import make_prefill_step
 
     smi = nvidia_smi_line()
     torch.cuda.empty_cache()
@@ -5008,37 +5169,11 @@ def vlm_phase(dev, seed: int) -> dict:
     # (a) the prefill step over the tokens at the image's ids
     t0 = time.perf_counter()
     batch = {"tokens": tokens[:, :LM_T], "positions": pos_pre}
-    step = make_prefill_step(model)
-    step(batch)                                           # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    counted = (flash_attention, flash_attention_sm90, flash_attention_mma,
-               flash_attention_sm90_d64, flash_attention_sm90_d256)
-    for w in counted:
-        w.launches = 0
-    t1 = time.perf_counter()
-    last = step(batch)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t1
-    launches = flash_attention_sm90.launches
-    others = sum(w.launches for w in counted[2:])
-    peak = torch.cuda.max_memory_allocated()
-    print(f"[vlm] (a) prefill step, 1 x {LM_T} tokens, a {VLM_GRID} x "
-          f"{VLM_GRID} image's M-RoPE ids at [{VLM_IMAGE_AT}, "
-          f"{VLM_IMAGE_AT + VLM_GRID ** 2}): wall {wall:.4f} s, "
-          f"{LM_T / wall:.1f} tokens/s, K3 launches: flash_attention_sm90 "
-          f"{launches} (want {cfg.n_layers}), the other K3 kernels {others}; "
-          f"peak device memory {peak} B = {peak / par_bytes:.4f} x the "
-          f"parameter bytes | {smi}", flush=True)
-    check(launches == cfg.n_layers and others == 0
-          and flash_attention.launches == cfg.n_layers,
-          f"the qwen2-vl prefill step launched flash_attention_sm90 "
-          f"{launches} times and the other K3 kernels {others}, want "
-          f"{cfg.n_layers} and 0")
-    check(tuple(last.shape) == (1, cfg.vocab_size)
-          and bool(torch.isfinite(last).all()),
-          "qwen2-vl's prefill-step logits are not finite or of the wrong "
-          "shape")
+    pre = prefill_step_reading(
+        model, batch["tokens"], f"[vlm] (a) a {VLM_GRID} x {VLM_GRID} "
+        f"image's M-RoPE ids at [{VLM_IMAGE_AT}, "
+        f"{VLM_IMAGE_AT + VLM_GRID ** 2}),", f" | {smi}", positions=pos_pre)
+    launches, last = pre["launches"], pre["last"]
     parts["a"] = time.perf_counter() - t0
 
     # (b) the forward with the stubbed patch embeddings, K3 against the
@@ -5084,7 +5219,7 @@ def vlm_phase(dev, seed: int) -> dict:
           "M-RoPE on the card disagrees with its float64 run")
     check(move > agree["pos_rel_max"],
           "the image's M-RoPE ids do not move the logits beyond bf16 noise")
-    del last, text, step, batch
+    del last, text, batch, pre
     parts["c"] = time.perf_counter() - t0
 
     # (d) prefill + decode at the image's ids against the forward
@@ -5144,29 +5279,8 @@ def vlm_phase(dev, seed: int) -> dict:
 
     # (g) K3 at the layer shape in turns with SDPA, on the device alone
     t0 = time.perf_counter()
-    b, hq, hkv, t, _, d = VLM_ATTN_SHAPE[:6]
-    q, k, v = _qkv(dev, seed, b, hq, hkv, t, t, d, torch.bfloat16)
-    runs = {"sm90": lambda: flash_attention_sm90(q, k, v),
-            "sdpa": lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True)}
-    diff = float((runs["sm90"]().float() - runs["sdpa"]().float())
-                 .abs().max())
-    ms = {n: [] for n in runs}
-    for order in (("sm90", "sdpa"), ("sdpa", "sm90")):
-        for n in order:
-            ms[n].append(queued_ms(runs[n], 20))
-    mean = {n: sum(x) / len(x) for n, x in ms.items()}
-    plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v), 3)
-    bound, by = k3_bound(b, hq, hkv, t, d)
-    ratio = mean["sm90"] / mean["sdpa"]
-    print(f"[vlm] (g) K3 at ({b}, {hq}/{hkv}, {t}, {d}) bf16 causal, device "
-          f"alone, in turns: flash_attention_sm90 {ms['sm90']} ms, "
-          f"scaled_dot_product_attention {ms['sdpa']} ms ({ratio:.3f}x "
-          f"SDPA's time); bound {bound:.4f} ms ({by}; "
-          f"{bound / mean['sm90']:.1%} of it); plain version {plain_ms:.3f} "
-          f"ms; max abs diff sm90 vs SDPA {diff:.3g} | {smi}", flush=True)
-    del q, k, v
-    torch.cuda.empty_cache()
+    k3 = k3_turns(dev, seed, VLM_ATTN_SHAPE, 20, 3)
+    print_k3_turns("[vlm] (g)", k3, smi)
     parts["g"] = time.perf_counter() - t0
 
     total = time.perf_counter() - t_phase
@@ -5177,11 +5291,233 @@ def vlm_phase(dev, seed: int) -> dict:
     check(total <= VLM_PHASE_S, f"the qwen2-vl phase took {total:.1f} s")
     return {"launches": {f"{VLM_ARCH} prefill step (1 x {LM_T}, M-RoPE "
                          "image ids)": launches},
-            "ms": mean["sm90"], "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": by, "library_ms": mean["sdpa"],
-            "ms_of": f"bf16 ({b}, {hq}/{hkv}, {t}, {d}) causal",
+            "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+            "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
+            "library_ms": k3["library_ms"], "ms_of": k3["shape"],
             "layers_row_rel_err": agree["layers_max"],
             "logits_rel": agree["pos_rel_max"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 23: the other dense decoders at full width
+# ---------------------------------------------------------------------------
+def k3_turns(dev, seed: int, shape, reps: int, plain_reps: int) -> dict:
+    """``flash_attention_sm90`` at ``shape`` (bf16) in turns with SDPA on
+    the device alone (``queued_ms``; kernel, SDPA, SDPA, kernel): SDPA
+    causal with ``enable_gqa``, and under a window also with the window as
+    a boolean mask, K and V repeated to the query heads first (the same
+    function: the kernels line's library call there). Then the plain
+    version over ``plain_reps`` calls, the kernel held to it (ATTN_TOL,
+    ATTN_ROW_TOL), and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_plain, flash_attention_sm90)
+    b, hq, hkv, t, _, d, causal, window = shape
+    q, k, v = _qkv(dev, seed, b, hq, hkv, t, t, d, torch.bfloat16)
+    runs = {"sm90": (lambda: flash_attention_sm90(q, k, v, causal=causal,
+                                                  window=window), reps),
+            "sdpa": (lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), reps)}
+    library = "sdpa"
+    if window:
+        kr, vr = (x.repeat_interleave(hq // hkv, 1) for x in (k, v))
+        pos = torch.arange(t, device=dev)
+        mask = ((pos[:, None] >= pos[None])
+                & (pos[:, None] - pos[None] < window))
+        runs["sdpa_window_mask"] = (lambda: F.scaled_dot_product_attention(
+            q, kr, vr, attn_mask=mask), max(2, reps // 4))
+        library = "sdpa_window_mask"
+    got = runs["sm90"][0]()
+    diff = float((got.float() - runs[library][0]().float()).abs().max())
+    for fn, _ in runs.values():
+        fn()                                              # warm-up
+    ms = {n: [] for n in runs}
+    order = tuple(runs)
+    for turn in (order, order[::-1]):
+        for n in turn:
+            ms[n].append(queued_ms(*runs[n]))
+    mean = {n: sum(x) / len(x) for n, x in ms.items()}
+    held = {}
+    plain_ms = cuda_ms(lambda: held.update(want=flash_attention_plain(
+        q, k, v, causal=causal, window=window)), plain_reps)
+    want = held.pop("want")
+    err = float((got.float() - want.float()).abs().max())
+    row = row_rel_err(got, want)
+    bound, by = k3_bound(b, hq, hkv, t, d, window=window)
+    del q, k, v, got, want, runs
+    torch.cuda.empty_cache()
+    out = {"shape": f"bf16 ({b}, {hq}/{hkv}, {t}, {d}) causal"
+                    + (f", window {window}" if window else ""),
+           "ms": mean["sm90"], "turns": ms["sm90"], "plain_ms": plain_ms,
+           "bound_ms": bound, "bound_by": by,
+           "library_ms": mean[library], "library_turns": ms[library],
+           "max_abs_err": err, "row_rel_err": row,
+           "max_abs_diff_library": diff}
+    if window:
+        out["library_call"] = ("scaled_dot_product_attention with the "
+                               "window as a boolean attn_mask, K and V "
+                               f"repeated to {hq} heads")
+        out["library_ms_causal_no_window"] = mean["sdpa"]
+    check(err < ATTN_TOL["bfloat16"] and row < ATTN_ROW_TOL["bfloat16"],
+          f"flash_attention_sm90 disagrees with its plain version at {shape}")
+    check(bound <= mean["sm90"], f"flash_attention_sm90 beat its bound at "
+          f"{shape}: the bound is not a floor")
+    return out
+
+
+def print_k3_turns(tag: str, r: dict, smi: str) -> None:
+    nowin = ("" if "library_ms_causal_no_window" not in r else
+             f" (with the window as a boolean mask, K and V repeated); "
+             f"SDPA causal without the window "
+             f"{r['library_ms_causal_no_window']:.4f} ms")
+    print(f"{tag} K3 at {r['shape']}, device alone, in turns: "
+          f"flash_attention_sm90 {r['turns']} ms, "
+          f"scaled_dot_product_attention {r['library_turns']} ms{nowin}; "
+          f"the kernel at {r['ms'] / r['library_ms']:.3f}x SDPA's time; "
+          f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
+          f"{r['bound_ms'] / r['ms']:.1%} of it); plain version "
+          f"{r['plain_ms']:.3f} ms, the kernel against it max abs "
+          f"{r['max_abs_err']:.3g} (limit {ATTN_TOL['bfloat16']}), per row "
+          f"{r['row_rel_err']:.3g} (limit {ATTN_ROW_TOL['bfloat16']}); max "
+          f"abs diff vs SDPA {r['max_abs_diff_library']:.3g} | {smi}",
+          flush=True)
+
+
+def dense_long(model, gen, smi: str) -> dict:
+    """granite-20b at DENSE_LONG_T tokens (the assigned prefill_32k length
+    at batch 1): one prefill step (``prefill_step_reading``, no warm-up at
+    this length), then prefill of all but LM_DECODE tokens into caches of
+    DENSE_LONG_T slots and LM_DECODE decode steps at the learned table's
+    last rows, against the forward over DENSE_LONG_T."""
+    import torch
+    cfg, t = model.cfg, DENSE_LONG_T
+    tag = f"[dense] {cfg.name} (f)"
+    tokens = torch.randint(0, cfg.vocab_size, (1, t), generator=gen,
+                           device=model.device)
+    pre = prefill_step_reading(model, tokens, tag, f" | {smi}",
+                               warm_up=False)
+    del pre["last"]
+    dec = decode_seam(model, tokens, t - LM_DECODE)
+    print(f"{tag} prefill({t - LM_DECODE}) into {dec['slots']} slots + "
+          f"{LM_DECODE} decode steps at positions {t - LM_DECODE}..{t - 1} "
+          f"(the learned table's last rows) vs the forward over {t}: max "
+          f"abs diff per position {dec['err']}, max |logit| "
+          f"{dec['scale']:.4g}, relative {dec['rel']:.4g} (limit "
+          f"{LM_REL_TOL_DECODE}), argmax equal {dec['argmax']}, "
+          f"{dec['ms']:.2f} ms per decode step", flush=True)
+    check(dec["prefill_launches"] == cfg.n_layers
+          and dec["rel"] <= LM_REL_TOL_DECODE,
+          f"{cfg.name}'s prefill + decode at the table's end disagrees with "
+          "the forward")
+    del tokens
+    torch.cuda.empty_cache()
+    return {**pre, "decode": dec}
+
+
+def dense_serving(dev, seed: int, arch: str, smi: str, parts: dict) -> dict:
+    """One dense decoder of phase 23 (see DENSE_ARCHS): drawn at full
+    width, served through ``lm_serving`` (a-c), granite-20b also at
+    DENSE_LONG_T (``dense_long``, f); freed; the launcher (d); K3 at its
+    layer shape in turns with SDPA (e). Returns the readings."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.model import Model
+
+    cfg = ARCHS[arch]
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev).init(seed)
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in model.parameters())
+    par_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    parts[f"{arch} draw"] = time.perf_counter() - t0
+    positions = (f"a learned table of {cfg.max_position} rows"
+                 if cfg.pos_embed == "learned"
+                 else f"RoPE theta {cfg.rope_theta:g}")
+    print(f"[dense] {arch}: {n_par} parameters (config n_params "
+          f"{cfg.n_params()}, which leaves out the final norm and LayerNorm "
+          f"biases; {par_bytes / 1e9:.3f} GB bf16), {cfg.n_layers} layers "
+          f"({cfg.pattern[0]}), d {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads of {cfg.head_dim}, window {cfg.window}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.norm}, "
+          f"{cfg.activation}, {positions}, tied embeddings "
+          f"{cfg.tie_embeddings}; drawn on the card in "
+          f"{parts[f'{arch} draw']:.2f} s", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (1, LM_T + LM_DECODE),
+                           generator=gen, device=dev)
+    r = lm_serving(model, tokens, f"[dense] {arch} (a-c)", f" | {smi}")
+    for name, sec in r["seconds"].items():
+        parts[f"{arch} {name}"] = sec
+    del tokens
+    if arch == DENSE_LONG_ARCH:
+        t0 = time.perf_counter()
+        r["long"] = dense_long(model, gen, smi)
+        parts[f"{arch} {DENSE_LONG_T}"] = time.perf_counter() - t0
+    del model
+    torch.cuda.empty_cache()
+    parts[f"{arch} launcher"] = lm_launcher(arch, f"[dense] {arch} (d)")
+    t0 = time.perf_counter()
+    r["k3"] = k3_turns(dev, seed, DENSE_ATTN_SHAPES[arch], 20, 2)
+    print_k3_turns(f"[dense] {arch} (e)", r["k3"], smi)
+    parts[f"{arch} K3 turns"] = time.perf_counter() - t0
+    return r
+
+
+def dense_phase(dev, seed: int) -> dict:
+    """Phase 23 (see DENSE_ARCHS). Returns ``flash_attention_sm90``'s
+    readings for its entry of the kernels line (each model's layer shape
+    and granite-20b's DENSE_LONG_SHAPE: launches, times, bound, SDPA's
+    time, the kernel's error) and the Hopper K3-bwd's at granite-20b's
+    AdamW shape. The phase's other readings are in its printed lines."""
+    import torch
+
+    smi = nvidia_smi_line()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    parts, k3, bwd = {}, {}, {}
+    for arch in DENSE_ARCHS:
+        r = dense_serving(dev, seed, arch, smi, parts)
+        k3[arch] = {**r["k3"], "launches": {
+                        f"{arch} prefill step (1 x {LM_T})": r["launches"]},
+                    "layers_row_rel_err": r["agree"]["layers_max"],
+                    "logits_rel": r["agree"]["pos_rel_max"]}
+        if arch != DENSE_LONG_ARCH:
+            continue
+        # (f) K3 at the long prefill's layer shape, the model freed
+        t0 = time.perf_counter()
+        long = k3_turns(dev, seed, DENSE_LONG_SHAPE, 4, 1)
+        print_k3_turns(f"[dense] {arch} (f)", long, smi)
+        k3[f"{arch} {DENSE_LONG_T}"] = {**long, "launches": {
+            f"{arch} prefill step (1 x {DENSE_LONG_T})":
+                r["long"]["launches"]}}
+        parts[f"{arch} {DENSE_LONG_T} K3 turns"] = time.perf_counter() - t0
+        # (g) AdamW cut to ADAMW_LAYERS layers, and K3-bwd at its shape
+        t0 = time.perf_counter()
+        launches = adamw_cut(dev, seed, arch, f"[dense] {arch} (g)")
+        b, hq, hkv, t, _, d = DENSE_BWD_SHAPE[:6]
+        times = bwd_times(dev, seed, b, hq, hkv, t, d, 20, device_only=True)
+        print_bwd_times(f"[dense] {arch} (g)", times)
+        bwd = {"shape": times["shape"], "ms": times["ms"]["sm90"],
+               "turns": times["turns"]["sm90"],
+               "plain_ms": times["plain_ms"], "bound_ms": times["bound_ms"],
+               "bound_by": times["bound_by"],
+               "library_ms": times["ms"]["sdpa"],
+               "mma_ms": times["ms"]["mma"],
+               "launches": {f"{arch} {ADAMW_STEPS} AdamW steps at "
+                            f"{ADAMW_LAYERS} layers":
+                                launches["flash_attention_bwd_sm90"]}}
+        k3[arch]["launches"][f"{arch} {ADAMW_STEPS} AdamW steps at "
+                             f"{ADAMW_LAYERS} layers"] = launches[
+                                 "flash_attention_sm90"]
+        parts[f"{arch} AdamW"] = time.perf_counter() - t0
+    total = time.perf_counter() - t_phase
+    print(f"[dense] phase parts (s): "
+          f"{ {n: round(x, 2) for n, x in parts.items()} }", flush=True)
+    print(f"[dense] phase took {total:.1f} s (limit {DENSE_PHASE_S} s) | "
+          f"{smi}", flush=True)
+    check(total <= DENSE_PHASE_S, f"the dense phase took {total:.1f} s")
+    return {"k3": k3, "bwd": bwd}
 
 
 def sm_clock_max_hz() -> float:
@@ -5494,15 +5830,22 @@ def main() -> None:
     # ---- 22. qwen2-vl-7b: M-RoPE, the stubbed embeddings, the int8 cache --
     k3["qwen2_vl"].update(vlm_phase(dev, args.seed))
 
+    # ---- 23. granite-20b, internlm2-20b, h2o-danube-3-4b ---------------------
+    dense = dense_phase(dev, args.seed)
+
     foreign = sorted(m for m in sys.modules if m.split(".")[0]
                      in ("jax", "jaxlib", "repro", "benchmarks"))
     check(not foreign, f"the smoke imported {foreign[:5]}: JAX, the JAX "
           "package or its benchmarks")
 
-    # ---- 23. kernels line ---------------------------------------------------
+    # ---- 24. kernels line ---------------------------------------------------
     # each kernel's MoE readings beside those of its first path: K3 and
-    # K3-bwd at the MoE models' MHA layer shape, P over the whole olmoe
+    # K3-bwd at the MoE models' MHA layer shape, P over the whole olmoe;
+    # K3's at the dense decoders' layer shapes and granite-20b's at
+    # DENSE_LONG_T, K3-bwd's at granite-20b's AdamW shape
     bwd, _, perturb = train_kernels
+    k3["dense"] = dense["k3"]
+    bwd[DENSE_LONG_ARCH].update(dense["bwd"])
     k3["moe"] = {**moe["k3"], "launches": {
         **{f"{a} prefill step": n for a, n in moe["prefill_launches"].items()},
         f"{MOE_TRAIN_ARCH} {ABO_STEPS} ABO-ZO steps":
@@ -5553,7 +5896,7 @@ def main() -> None:
     kernels.append(wkv)
     print(json.dumps({"kernels": kernels}))
 
-    # ---- 24. result -------------------------------------------------------
+    # ---- 25. result -------------------------------------------------------
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

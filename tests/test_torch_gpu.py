@@ -64,6 +64,11 @@ lse, its refusals, and the mma.sync kernel still held at those shapes; the
 reduced encoder-decoder on the card against the CPU. Nelder-Mead on the card: a
 chunk replayed as a CUDA graph gives the eager chunks' bits.
 
+granite-20b, internlm2-20b and h2o-danube-3-4b (no kernel of their own):
+K3 at their layer shapes in ``ATTN_SHAPES`` and granite's AdamW shape in
+``BWD_SHAPES``; their real head layouts at narrow width on the card
+against the CPU, forward, prefill and decode.
+
 qwen2-vl-7b (no kernel of its own; K3 at a GQA group of 7 in
 ``ATTN_SHAPES``): the reduced model on the card against the CPU with an
 image's M-RoPE ids and stubbed embeddings, forward, prefill and decode. The
@@ -115,6 +120,7 @@ from repro_torch.kernels.rwkv6_wkv.ops import rwkv6_wkv
 from repro_torch.kernels.rwkv6_wkv.ref import wkv_ref
 from repro_torch.models.model import Model
 from repro_torch.objectives import GRIEWANK, OBJECTIVES
+from test_torch_dense_layouts import DENSE_HEADS, narrow, prompt_len
 from test_torch_vlm_ids import image_ids
 
 SHAPES = [(1, 128, 16), (4, 256, 64), (3, 512, 128), (2, 128, 33),
@@ -137,6 +143,15 @@ ATTN_SHAPES = [
     # qwen2-vl-7b's GQA group of 7: its layer shape, a ragged batch of 2
     (1, 28, 4, 8192, 8192, 128, True, None),
     (2, 28, 4, 333, 333, 128, True, None),
+    # the dense decoders' layer shapes: granite-20b's MQA (48 query heads
+    # over 1), internlm2-20b's 48/8, h2o-danube-3-4b's 32/8 at head_dim 120
+    # under its 4096 window (unmasked blocks between the window's edge and
+    # the diagonal); and a ragged d = 120 case at batch 2 whose window
+    # starts mid-block past block 0
+    (1, 48, 1, 8192, 8192, 128, True, None),
+    (1, 48, 8, 8192, 8192, 128, True, None),
+    (1, 32, 8, 8192, 8192, 120, True, 4096),
+    (2, 32, 8, 5000, 5000, 120, True, 4096),
 ]
 # whisper-small's (the Hopper kernel at head_dim 64 in bf16, mma.sync in
 # float32): the encoder's 1500 keys (11 blocks of 128 and a ragged 92; 7
@@ -215,6 +230,7 @@ BWD_SHAPES = [
     (1, 32, 8, 333, 333, 120, True, 96, torch.bfloat16),     # d = 120
     (2, 4, 2, 100, 300, 128, False, None, torch.bfloat16),   # sq != sk
     (1, 48, 1, 256, 256, 128, True, None, torch.bfloat16),   # MQA
+    (8, 48, 1, 512, 512, 128, True, None, torch.bfloat16),   # granite's AdamW
     (2, 4, 2, 200, 200, 128, True, None, torch.bfloat16, 132),  # dO stride
 ]
 BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
@@ -551,6 +567,33 @@ def test_reduced_model_on_the_card_matches_cpu(cuda, arch):
     max_len = cfg.window or 64
     _, cache = card.prefill(toks[:, :44].to(cuda), max_len=max_len)
     for i in range(44, 50):
+        lg, cache = card.decode_step(toks[:, i:i + 1].to(cuda), cache, i)
+        assert float((lg[:, 0].cpu() - want[:, i]).abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("arch", DENSE_HEADS)
+def test_narrow_head_layout_on_the_card_matches_cpu(cuda, arch):
+    """granite-20b's, internlm2-20b's and h2o-danube-3-4b's real head
+    layouts at narrow width (``test_torch_dense_layouts.narrow``; float32,
+    so K3's mma.sync kernel at GQA groups of 48, 6 and 4 and at d = 120
+    under a window) on the card against the CPU: the forward, one K3 launch
+    a layer, then prefill and 6 decode steps, danube's 64-slot ring
+    wrapping, each within 1e-4."""
+    cfg = narrow(ARCHS[arch])
+    cpu = Model(cfg, device="cpu").init(0)
+    card = Model(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    t_prompt = prompt_len(cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, t_prompt + 6),
+                         generator=torch.Generator().manual_seed(2))
+    before = flash_attention.launches
+    lg, _ = card.forward(toks.to(cuda))
+    assert flash_attention.launches == before + cfg.n_layers
+    want, _ = cpu.forward(toks)
+    assert float((lg.cpu() - want).abs().max()) < 1e-4
+    _, cache = card.prefill(toks[:, :t_prompt].to(cuda),
+                            max_len=cfg.window or 64)
+    for i in range(t_prompt, t_prompt + 6):
         lg, cache = card.decode_step(toks[:, i:i + 1].to(cuda), cache, i)
         assert float((lg[:, 0].cpu() - want[:, i]).abs().max()) < 1e-4
 

@@ -21,7 +21,9 @@ So is qwen2-vl-7b (M-RoPE; text ids by default): forward, prefill, decode,
 its serving steps (the prefill step with an image's (t, h, w) ids) and the
 launcher; its M-RoPE, image ids and embeddings in
 tests/test_torch_qwen2_vl.py, the int8 KV cache in
-tests/test_torch_kv_int8.py.
+tests/test_torch_kv_int8.py. The serve launcher is held on each of the
+four dense decoders' reduced configs; their real head layouts at narrow
+width are in tests/test_torch_dense_heads.py.
 
 Tolerance: 1e-4 max abs on logits (|logits| <= ~5) and caches, layers
 1e-5. Measured (CPU, tests/torch_parity_report.py): <= 3.5e-6 on logits.
@@ -298,8 +300,9 @@ def _serving_steps_match_reference(arch):
         tdec(torch.from_numpy(toks[:1, :1]), ct, 5)
 
 
-def test_serve_launcher_gives_greedy_tokens_of_forward(capsys):
-    _serve_launcher_gives_greedy_tokens_of_forward("mistral-nemo-12b", capsys)
+@pytest.mark.parametrize("arch", DENSE)
+def test_serve_launcher_gives_greedy_tokens_of_forward(arch, capsys):
+    _serve_launcher_gives_greedy_tokens_of_forward(arch, capsys)
 
 
 @pytest.mark.parametrize("arch", MOE)

@@ -111,7 +111,7 @@ Phases, in order; any failure exits non-zero before the result line:
  18. RWKV6 at full width (``[rwkv6]``, RWKV_ARCH): W (RWKV6's WKV
      recurrence, port only) against its plain version at ``WKV_SHAPES``
      (y and the last state, overall and per head), the same bits on a
-     repeat, refusing a gradient; W and the plain loop timed in turns at
+     repeat, a gradient launching W-bwd; W and the plain loop timed in turns at
      the model's layer shape beside the bound; ``rwkv6-3b``'s prefill step
      on one T = 8192 request (32 launches of W and none of any other
      kernel; wall, tokens/s, peak memory); the bf16 forward against the
@@ -172,8 +172,24 @@ Phases, in order; any failure exits non-zero before the result line:
      against the plain attention, K3 and the Hopper K3-bwd in every
      layer; K3-bwd at (8, 48/1, 512, 128) timed in turns with SDPA's
      backward);
- 24. one JSON line with every kernel's launches, error and times;
- 25. the last line, ``{"ok": true, "device": {...}}``.
+ 24. the recurrent families' and whisper-small's training at full width
+     (``[rtrain]``, RTRAIN_T): the three backward kernels the path adds,
+     S-bwd, W-bwd and K3-bwd at head_dim 256, each against its plain
+     version on the card (T no tile or chunk divides, T below and above
+     the window, MQA and GQA, float32 and bf16), the same bits on a repeat,
+     each timed on the device alone beside its plain version's held call
+     and its bound (K3-bwd in turns with SDPA's backward); AdamW through
+     ``make_train_step`` on recurrentgemma-2b and rwkv6-3b (1 x 4096
+     tokens, remat): step 1's loss and every gradient against the plain
+     versions' (rwkv6's held in float32 cut to 2 layers, its bf16 read),
+     two steps timed (wall, peak memory, launches a step forward and
+     backward apart: 18 S-bwd and 8 K3-bwd, 32 W-bwd; no plain version
+     called); one ABO-ZO step on each of the three whole models; whisper-
+     small's AdamW step held the same way, its 36 K3-bwd launches at head
+     dim 64 counted by kernel; the launcher's AdamW (recurrentgemma-2b) and
+     ABO-ZO (rwkv6-3b) runs at 1 x 4096 tokens;
+ 25. one JSON line with every kernel's launches, error and times;
+ 26. the last line, ``{"ok": true, "device": {...}}``.
 
 Imports torch and the port only. Exits non-zero, printing no result, when
 no CUDA device is present or the port's sources are not beside this file.
@@ -660,6 +676,54 @@ DENSE_LONG_T = 32768
 DENSE_LONG_SHAPE = (1, 48, 1, DENSE_LONG_T, DENSE_LONG_T, 128, True, None)
 DENSE_BWD_SHAPE = (8, 48, 1, 512, 512, 128, True, None, "bfloat16")
 DENSE_PHASE_S = 240
+# Phase 24, the recurrent families' and whisper-small's training at full
+# width (``[rtrain]``): (a) the three backward kernels the path adds, each
+# against its plain version run on the card, twice for the bits, then timed
+# on the device alone beside that held call's time (K3-bwd in turns with
+# SDPA's backward):
+# S-bwd (``rglru_lru_bwd``) at S_BWD_SHAPES, W-bwd (``rwkv6_wkv_bwd``) at
+# W_BWD_SHAPES, K3-bwd at head_dim 256 (``flash_attention_bwd_mma``) at
+# D256_BWD_SHAPES, each gradient held as max |got - want| over max |want|
+# (RTRAIN_TOL: float32 outputs sum in other orders over up to 4096 steps;
+# bf16 outputs are one bf16 spacing, 2^-8, apart where a rounding flips)
+# and K3-bwd also per row (BWD_TOL, BWD_ROW_TOL); (b) AdamW through
+# make_train_step with remat at full width on recurrentgemma-2b and rwkv6-3b
+# (bf16, random weights from the seed, nothing cut; 1 x RTRAIN_T tokens of
+# the bigram stream, train_4k's length, so that recurrentgemma's 2048-token
+# window applies): step 1's loss and every gradient against the same step
+# with every kernel's plain version (``plain_recurrent``: the plain
+# attention, S's and W's plain forward with their plain backward),
+# ADAMW_LOSS_TOL and ADAMW_GRAD_TOL; rwkv6's random-weight bf16 model is
+# chaotic (ROADMAP "Known about the reference"), so its bf16 gradients are
+# read and they are held on the float32 model cut to RWKV_HOLD_LAYERS of its
+# 32 layers (the plain loops' time); then RTRAIN_STEPS steps timed (wall,
+# peak memory over the parameter bytes, the launches of every kernel a
+# step, forward and backward apart, no plain version called); (c) one
+# ABO-ZO step on each of the three whole models (the loss at or below the
+# incumbent; peak memory against twice the parameter bytes plus one
+# forward's own peak: at 4096 tokens recurrentgemma's float32 logits alone
+# outweigh half its parameters); (d) whisper-small's AdamW step (4 x 448
+# tokens over 4 x 1500 stub frames) held as (b), every K3-bwd launch at
+# head_dim 64 counted by kernel; (e) ``launch.train``'s own loop, AdamW on
+# recurrentgemma-2b and ABO-ZO on rwkv6-3b, RTRAIN_STEPS steps each.
+RTRAIN_T = 4096
+RTRAIN_STEPS = 2
+S_BWD_SHAPES = [(1, RTRAIN_T, 2560, "bfloat16"), (3, 1000, 2568, "float32"),
+                (2, 65, 264, "bfloat16")]
+W_BWD_SHAPES = [(1, RTRAIN_T, 40, 64, "bfloat16", 0.0),
+                (1, 1000, 40, 64, "float32", 0.0),
+                (2, 77, 40, 64, "float32", 3.0),
+                (3, 100, 4, 16, "bfloat16", 0.0)]
+D256_BWD_SHAPES = [
+    (1, 10, 1, RTRAIN_T, RTRAIN_T, 256, True, 2048, "bfloat16"),  # the path
+    (1, 10, 1, 1000, 1000, 256, True, 2048, "bfloat16"),  # T below the window
+    (2, 8, 2, 640, 640, 256, True, 300, "bfloat16"),      # GQA
+    (1, 2, 1, 77, 77, 256, True, None, "bfloat16"),       # ragged, no window
+]
+RTRAIN_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
+RWKV_HOLD_LAYERS = 2
+RTRAIN_ARCHS = ("recurrentgemma-2b", "rwkv6-3b")
+RTRAIN_PHASE_S = 240
 
 
 def fail(msg: str) -> None:
@@ -2590,6 +2654,18 @@ def recorded_steps(records: list, counted: tuple):
         steps_mod.make_train_step = make
 
 
+def _loss_grads(model, batch):
+    """Step 1's loss (float) and every gradient, with remat."""
+    for p in model.parameters():
+        p.grad = None
+    loss = model.loss(batch, remat=True)[0]
+    loss.backward()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    for p in model.parameters():
+        p.grad = None
+    return float(loss.detach()), grads
+
+
 def adamw_cut(dev, seed: int, arch: str, tag: str) -> dict:
     """AdamW through ``make_train_step`` on ``arch`` at full width cut to
     ADAMW_LAYERS layers (remat, TRAIN_B x TRAIN_T tokens of the bigram
@@ -2614,20 +2690,10 @@ def adamw_cut(dev, seed: int, arch: str, tag: str) -> dict:
     stream = BigramStream(StreamConfig(vocab_size=cfg4.vocab_size,
                                        seq_len=TRAIN_T, global_batch=TRAIN_B))
 
-    def loss_and_grads(batch):
-        for p in model.parameters():
-            p.grad = None
-        loss = model.loss(batch, remat=True)[0]
-        loss.backward()
-        grads = {n: p.grad for n, p in model.named_parameters()}
-        for p in model.parameters():
-            p.grad = None
-        return float(loss.detach()), grads
-
     batch0 = {"tokens": stream.torch_batch(0, dev)}
-    loss_k3, g_k3 = loss_and_grads(batch0)
+    loss_k3, g_k3 = _loss_grads(model, batch0)
     with plain_attention([]):
-        loss_plain, g_plain = loss_and_grads(batch0)
+        loss_plain, g_plain = _loss_grads(model, batch0)
     grad_rel = {n: float((g_k3[n].float() - g_plain[n].float()).abs().max()
                          / g_plain[n].float().abs().max()) for n in g_k3}
     qkv_zero = [n for n in g_k3 if n.split(".")[-1] in ("wq", "wk", "wv")
@@ -3944,7 +4010,7 @@ def wkv_rel(got, want, head_dims) -> tuple[float, list]:
 
 def wkv_readings(dev, seed: int) -> dict:
     """W against its plain version at WKV_SHAPES, twice; a gradient
-    refused; W and the plain loop timed in turns at the model's layer
+    through it launching W-bwd; W and the plain loop timed in turns at the model's layer
     shape (the last of WKV_SHAPES' order here) beside the bound. Returns
     W's entry of the kernels line, without launches."""
     import torch
@@ -3984,12 +4050,17 @@ def wkv_readings(dev, seed: int) -> dict:
         worst = {"y": max(worst["y"], rel_y), "state": max(worst["state"],
                                                            rel_s),
                  "abs": max(worst["abs"], err)}
-    try:
-        rwkv6_wkv(r.float().requires_grad_(True), k.float(), v.float(), logw,
-                  u)
-        fail("W took an input that requires grad")
-    except ValueError as e:
-        print(f"[W] an input that requires grad: refused ({e})", flush=True)
+    from repro_torch.kernels.rwkv6_wkv.ops import rwkv6_wkv_bwd
+    before = rwkv6_wkv_bwd.launches
+    y_g, _ = rwkv6_wkv(r.float().requires_grad_(True), k.float(), v.float(),
+                       logw, u)
+    y_g.sum().backward()
+    torch.cuda.synchronize()
+    moved = rwkv6_wkv_bwd.launches - before
+    print(f"[W] an input that requires grad: its gradient launched W-bwd "
+          f"{moved} time(s) (phase 24 holds W-bwd)", flush=True)
+    check(moved == 1, "a gradient through W did not launch W-bwd once")
+    del y_g
     # the layer's shape, in turns: W, plain, W, plain
     t_ms = {"kernel": [], "plain": [plain_ms]}
     for name in ("kernel", "plain", "kernel"):
@@ -5520,6 +5591,652 @@ def dense_phase(dev, seed: int) -> dict:
     return {"k3": k3, "bwd": bwd}
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the recurrent families' and whisper-small's training
+# ---------------------------------------------------------------------------
+def rel_max(got, want) -> float:
+    """max |got - want| over max |want|."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+def window_pairs(t: int, window) -> int:
+    """The (query, key) pairs causal attention over t tokens keeps, each
+    query seeing at most ``window`` keys."""
+    w = window or t
+    return sum(min(q + 1, w) for q in range(t))
+
+
+def s_bwd_bound(b, t, d, itemsize) -> tuple[float, str]:
+    """Least time for S-bwd on (b, t, d): u, xi, xr and dh read once, du,
+    dxi and dxr written once, in the model's type; against its float32
+    operations, 32 an element (the gates' 15 of ``scan_bound``, the
+    reverse step's 2 and the chain rule's 15), a transcendental counted as
+    one."""
+    return bound_ms(7 * itemsize * b * t * d, 32 * b * t * d)
+
+
+def w_bwd_bound(b, t, h, hd, itemsize) -> tuple[float, str]:
+    """Least time for W-bwd on (b, t, h, hd): r, k, v (the model's type),
+    logw and dy (float32) read once, dr, dk, dv and dlogw written once;
+    against the step form's 12 float32 operations an element of the state
+    a step (6 multiply-adds: the state rebuilt, G·v, G ⊙ S, dy·S, G·k and
+    G's update) on the CUDA cores."""
+    n = b * t * h * hd
+    return bound_ms(n * (6 * itemsize + 12), 12 * n * hd, PEAK_F32_OPS_S)
+
+
+def d256_bwd_bound(b, hq, hkv, t, d, window) -> tuple[float, str]:
+    """Least time for K3-bwd at (b, hq/hkv, t, d) causal with a window:
+    q, k, v, O, dO and the lse read once, dQ, dK, dV written once (bf16);
+    five products of 2·d FLOP a kept (query, key) pair."""
+    return bound_ms(2 * (4 * b * hq * t * d + 4 * b * hkv * t * d)
+                    + 4 * b * hq * t,
+                    10 * d * b * hq * window_pairs(t, window),
+                    PEAK_BF16_OPS_S)
+
+
+def _plain_fn(fwd, bwd, n_in: int):
+    """A torch.autograd.Function whose forward is ``fwd`` and backward
+    ``bwd(*inputs, *output_grads)``: a kernel's plain version with its plain
+    backward, for the reference runs."""
+    import torch
+
+    class Plain(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, *inputs):
+            ctx.save_for_backward(*inputs)
+            return fwd(*inputs)
+
+        @staticmethod
+        def backward(ctx, *grads):
+            grads = tuple(grads)
+            return tuple(bwd(*ctx.saved_tensors, *grads))[:n_in]
+    return Plain
+
+
+@contextlib.contextmanager
+def plain_recurrent():
+    """Run the model through every kernel's plain version, forward and
+    backward: the attention's plain version (autograd through it), S's and
+    W's plain forwards with their plain backwards (``rglru_lru_bwd_ref``,
+    ``wkv_bwd_ref``). No kernel runs inside."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import flash_attention_plain
+    from repro_torch.kernels.rglru_scan.ref import (rglru_lru_bwd_ref,
+                                                    rglru_lru_ref)
+    from repro_torch.kernels.rwkv6_wkv.ref import wkv_bwd_ref, wkv_ref
+    from repro_torch.models import attention, rglru, rwkv6
+
+    def lru_bwd(u, xi, xr, lam, dh, dlast):
+        du, dxi, dxr, dlam = rglru_lru_bwd_ref(
+            u, xi, xr, lam, torch.zeros_like(u) if dh is None else dh, dlast)
+        return du, dxi, dxr, dlam.to(lam.dtype)
+
+    def wkv_bwd(r, k, v, logw, u, dy, dS):
+        if dy is None:
+            dy = torch.zeros(r.shape, dtype=torch.float32, device=r.device)
+        return wkv_bwd_ref(r, k, v, logw, u, dy, dS)
+
+    lru = _plain_fn(rglru_lru_ref, lru_bwd, 4)
+    wkv = _plain_fn(wkv_ref, wkv_bwd, 5)
+    saved = (attention.flash_attention, rglru.rglru_lru, rwkv6.rwkv6_wkv)
+    attention.flash_attention = flash_attention_plain
+    rglru.rglru_lru = lambda *a: lru.apply(*a)
+    rwkv6.rwkv6_wkv = lambda *a: wkv.apply(*a)
+    try:
+        yield
+    finally:
+        attention.flash_attention, rglru.rglru_lru, rwkv6.rwkv6_wkv = saved
+
+
+@contextlib.contextmanager
+def plain_calls(counter: dict):
+    """Count every call of a kernel's plain version made through the ops
+    modules (the wrappers' CPU branch and the backward Functions'), into
+    ``counter`` by name: on the card the path must make none."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rglru_scan import ops as s_ops
+    from repro_torch.kernels.rwkv6_wkv import ops as w_ops
+    names = [(fa, "flash_attention_plain"), (fa, "flash_attention_bwd_plain"),
+             (s_ops, "rglru_lru_ref"), (s_ops, "rglru_lru_bwd_ref"),
+             (w_ops, "wkv_ref"), (w_ops, "wkv_bwd_ref")]
+    saved = [getattr(m, n) for m, n in names]
+
+    def counting(name, fn):
+        def run(*a, **kw):
+            counter[name] = counter.get(name, 0) + 1
+            return fn(*a, **kw)
+        return run
+
+    for (m, n), fn in zip(names, saved):
+        setattr(m, n, counting(n, fn))
+    try:
+        yield
+    finally:
+        for (m, n), fn in zip(names, saved):
+            setattr(m, n, fn)
+
+
+def rtrain_counted() -> dict:
+    """The wrappers a recurrent or whisper training step can launch, by
+    direction."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.perturb.ops import abo_zo_perturb
+    from repro_torch.kernels.rglru_scan.ops import rglru_lru, rglru_lru_bwd
+    from repro_torch.kernels.rwkv6_wkv.ops import rwkv6_wkv, rwkv6_wkv_bwd
+    return {"forward": (rglru_lru, rwkv6_wkv, fa.flash_attention_sm90_d256,
+                        fa.flash_attention_sm90_d64, fa.flash_attention_sm90,
+                        fa.flash_attention_mma),
+            "backward": (rglru_lru_bwd, rwkv6_wkv_bwd, fa.flash_attention_bwd,
+                         fa.flash_attention_bwd_mma,
+                         fa.flash_attention_bwd_sm90),
+            "perturb": (abo_zo_perturb,)}
+
+
+def _counts(counted: dict) -> dict:
+    return {d: {w.__name__: w.launches for w in ws}
+            for d, ws in counted.items()}
+
+
+def _moved(before: dict, after: dict) -> dict:
+    return {d: {n: after[d][n] - c for n, c in ws.items()
+                if after[d][n] != c} for d, ws in before.items()}
+
+
+def s_bwd_readings(dev, seed: int) -> dict:
+    """(a) S-bwd at S_BWD_SHAPES against its plain version on the card,
+    twice; the kernel timed at the first shape beside its plain version's
+    held call. Returns its reading for the kernels line."""
+    import torch
+    from repro_torch.kernels.rglru_scan.ops import rglru_lru_bwd
+    from repro_torch.kernels.rglru_scan.ref import rglru_lru_bwd_ref
+    from repro_torch.models.rglru import log_lambda_init
+    err, out = 0.0, {}
+    for b, t, d, name in S_BWD_SHAPES[::-1]:        # the path's shape last
+        dtype = getattr(torch, name)
+        g = torch.Generator(device=dev).manual_seed(seed + t)
+        u, xi, xr, dh = (torch.randn((b, t, d), generator=g, device=dev)
+                         .to(dtype) for _ in range(4))
+        dlast = torch.randn((b, d), generator=g, device=dev)
+        lam = log_lambda_init(d, dev).to(dtype)
+        before = rglru_lru_bwd.launches
+        got = rglru_lru_bwd(u, xi, xr, lam, dh, dlast)
+        again = rglru_lru_bwd(u, xi, xr, lam, dh, dlast)
+        moved = rglru_lru_bwd.launches - before
+        want = []
+        plain_ms = cuda_ms(lambda: want.extend(rglru_lru_bwd_ref(
+            u, xi, xr, lam, dh, dlast)), 1)
+        rel = {n: rel_max(a, w) for n, a, w in
+               zip(("du", "dxi", "dxr", "dlam"), got, want)}
+        same = all(torch.equal(a, c) for a, c in zip(got, again))
+        lim = {n: RTRAIN_TOL[name if n != "dlam" else "float32"]
+               for n in rel}
+        print(f"[rtrain] (a) S-bwd ({b}, {t}, {d}) {name}, dlast given: "
+              f"max |err| / max |plain| {rel} (limits {lim}); a second run "
+              f"the same bits {same}; launches {moved}", flush=True)
+        check(same and moved == 2 and all(rel[n] <= lim[n] for n in rel)
+              and all(bool(torch.isfinite(a).all()) for a in got),
+              f"S-bwd disagrees with its plain version at ({b}, {t}, {d}) "
+              f"{name}, or gave other bits on a repeat")
+        err = max(err, max(float((a.float() - w.float()).abs().max())
+                           for a, w in zip(got, want)))
+        out = {"shape": (b, t, d), "rel": rel}
+    # the plain version's time is its held call's, just above
+    t_ms = {"kernel": [queued_ms(lambda: rglru_lru_bwd(u, xi, xr, lam, dh),
+                                 20) for _ in range(2)], "plain": [plain_ms]}
+    ms = {n: sum(v) / len(v) for n, v in t_ms.items()}
+    bound, by = s_bwd_bound(b, t, d, 2)
+    print(f"[rtrain] (a) S-bwd ({b}, {t}, {d}) bf16: kernel "
+          f"{t_ms['kernel']} ms (device alone, queued_ms, twice), plain "
+          f"version {t_ms['plain']} ms (events, its held call above, dlast "
+          f"given); bound {bound:.4f} ms ({by}), "
+          f"{bound / ms['kernel']:.1%} of it; no library call computes the "
+          f"RG-LRU's gradient | {nvidia_smi_line()}", flush=True)
+    check(bound <= ms["kernel"], "S-bwd beat its bound")
+    del u, xi, xr, dh, got, again, want
+    torch.cuda.empty_cache()
+    return {"name": "rglru_lru_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rglru_scan_bwd.cu",
+            "replaces": "port only: stands for the autodiff of _gates and "
+                        "jax.lax.associative_scan at "
+                        "src/repro/models/rglru.py:37-46,74",
+            "launches": 0, "max_abs_err": err, "ms": ms["kernel"],
+            "plain_ms": ms["plain"], "bound_ms": bound, "bound_by": by,
+            "library_ms": None, "max_rel_err": out["rel"],
+            "ms_of": f"bf16 at {out['shape']}"}
+
+
+def w_bwd_readings(dev, seed: int) -> dict:
+    """(a) W-bwd at W_BWD_SHAPES against its plain version on the card,
+    overall and per head, twice; the kernel timed at the first shape beside
+    its plain version's held call. Returns its reading for the kernels
+    line."""
+    import torch
+    from repro_torch.kernels.rwkv6_wkv.ops import rwkv6_wkv_bwd
+    from repro_torch.kernels.rwkv6_wkv.ref import wkv_bwd_ref
+    err, out = 0.0, {}
+    for b, t, h, hd, name, shift in W_BWD_SHAPES[::-1]:
+        dtype = getattr(torch, name)
+        g = torch.Generator(device=dev).manual_seed(seed + t + hd)
+        r, k, v, logw, u = wkv_inputs(dev, g, (b, t, h, hd), dtype, shift)
+        dy = torch.randn((b, t, h, hd), generator=g, device=dev)
+        dS = torch.randn((b, h, hd, hd), generator=g, device=dev)
+        before = rwkv6_wkv_bwd.launches
+        got = rwkv6_wkv_bwd(r, k, v, logw, u, dy, dS)
+        again = rwkv6_wkv_bwd(r, k, v, logw, u, dy, dS)
+        moved = rwkv6_wkv_bwd.launches - before
+        want = []
+        plain_ms = cuda_ms(lambda: want.extend(wkv_bwd_ref(
+            r, k, v, logw, u, dy, dS)), 1)
+        names = ("dr", "dk", "dv", "dlogw", "du")
+        rel = {n: rel_max(a, w) for n, a, w in zip(names, got, want)}
+        head = {n: float(((a.float() - w.float()).abs().amax((0, 1, 3))
+                          / w.float().abs().amax((0, 1, 3)).clamp_min(1e-30))
+                         .max()) for n, a, w in zip(names[:3], got, want)}
+        same = all(torch.equal(a, c) for a, c in zip(got, again))
+        lim = {n: RTRAIN_TOL[name if n in names[:3] else "float32"]
+               for n in names}
+        print(f"[rtrain] (a) W-bwd ({b}, {t}, {h}, {hd}) {name}, decay "
+              f"shift {shift}, dS given: max |err| / max |plain| {rel}, "
+              f"worst head {head} (limits {lim}); a second run the same bits "
+              f"{same}; launches {moved}", flush=True)
+        check(same and moved == 2 and all(rel[n] <= lim[n] for n in rel)
+              and all(head[n] <= lim[n] for n in head)
+              and all(bool(torch.isfinite(a).all()) for a in got),
+              f"W-bwd disagrees with its plain version at ({b}, {t}, {h}, "
+              f"{hd}) {name}, or gave other bits on a repeat")
+        err = max(err, max(float((a.float() - w.float()).abs().max())
+                           for a, w in zip(got, want)))
+        out = {"shape": (b, t, h, hd), "rel": rel}
+    # the plain version's time is its held call's, just above
+    t_ms = {"kernel": [queued_ms(lambda: rwkv6_wkv_bwd(r, k, v, logw, u, dy),
+                                 10) for _ in range(2)], "plain": [plain_ms]}
+    ms = {n: sum(x) / len(x) for n, x in t_ms.items()}
+    bound, by = w_bwd_bound(b, t, h, hd, 2)
+    print(f"[rtrain] (a) W-bwd ({b}, {t}, {h}, {hd}) bf16: kernel "
+          f"{t_ms['kernel']} ms (device alone, twice), plain version "
+          f"{t_ms['plain']} ms (events, its held call above, dS given); "
+          f"bound {bound:.4f} ms ({by}), "
+          f"{bound / ms['kernel']:.1%} of it; no library call computes "
+          f"RWKV6's gradient | {nvidia_smi_line()}", flush=True)
+    check(bound <= ms["kernel"], "W-bwd beat its bound")
+    del r, k, v, logw, dy, dS, got, again, want
+    torch.cuda.empty_cache()
+    return {"name": "rwkv6_wkv_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rwkv6_wkv_bwd.cu",
+            "replaces": "port only: stands for the autodiff of the "
+                        "jax.lax.scan at src/repro/models/rwkv6.py:97-111",
+            "launches": 0, "max_abs_err": err, "ms": ms["kernel"],
+            "plain_ms": ms["plain"], "bound_ms": bound, "bound_by": by,
+            "library_ms": None, "max_rel_err": out["rel"],
+            "ms_of": f"bf16 at {out['shape']}"}
+
+
+def d256_bwd_readings(dev, seed: int) -> dict:
+    """(a) K3-bwd at head_dim 256 at D256_BWD_SHAPES through
+    ``flash_attention``'s gradient (the d = 256 Hopper forward's lse, the
+    mma.sync backward) against the plain backward, per row, twice; then the
+    kernel, SDPA's backward (the window as a boolean mask, and causal
+    without it) and the plain version timed in turns at the path's shape.
+    Returns its reading for the kernels line."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa
+    first = None
+    for shape in D256_BWD_SHAPES:
+        b, hq, hkv, sq, sk, d, causal, window, name = shape
+        q, k, v = (_model_layout(x).requires_grad_(True)
+                   for x in _qkv(dev, seed, b, hq, hkv, sq, sk, d,
+                                 torch.bfloat16))
+        g = torch.Generator(device=dev).manual_seed(seed + 7)
+        dout = torch.randn((b, hq, sq, d), generator=g, device=dev).to(
+            torch.bfloat16)
+        before = _bwd_counts()
+        got = torch.autograd.grad(
+            fa.flash_attention(q, k, v, causal=causal, window=window),
+            (q, k, v), dout)
+        ran = _bwd_ran(before)
+        again = torch.autograd.grad(
+            fa.flash_attention(q, k, v, causal=causal, window=window),
+            (q, k, v), dout)
+        want = fa.flash_attention_bwd_plain(q, k, v, dout, causal=causal,
+                                            window=window)
+        torch.cuda.synchronize()
+        r = bwd_reading(got, again, want, name, ran,
+                        bwd_kernel_for(name, d), shape)
+        print(f"[rtrain] (a) K3-bwd {r['shape']} bf16: ran {r['kernel']} "
+              f"(want {r['want_kernel']}); max |err| / max |want| "
+              f"{r['rel']} (limit {BWD_TOL[name]}), per row {r['row']} "
+              f"(limit {BWD_ROW_TOL[name]}), max abs {r['abs']:.4g}; a "
+              f"second run the same bits {r['same_bits']}", flush=True)
+        check(r["ok"], f"K3-bwd at head_dim 256 disagrees with its plain "
+              f"version at {r['shape']}, gave other bits on a repeat, or "
+              f"ran {r['kernel']}")
+        first = first or r
+        del q, k, v, dout, got, again, want
+    b, hq, hkv, t, _, d, causal, window, _ = D256_BWD_SHAPES[0]
+    q, k, v = (_model_layout(x) for x in _qkv(dev, seed, b, hq, hkv, t, t,
+                                              d, torch.bfloat16))
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+    dout = torch.randn((b, hq, t, d), generator=g, device=dev).to(
+        torch.bfloat16)
+    lse = torch.empty((b, hq, t), dtype=torch.float32, device=dev)
+    o = fa.flash_attention_sm90_d256(q, k, v, causal=causal, window=window,
+                                     lse=lse)
+    qs, krs, vrs = (x.detach().clone().requires_grad_(True) for x in (
+        q, k.repeat_interleave(hq // hkv, 1), v.repeat_interleave(hq // hkv,
+                                                                  1)))
+    pos = torch.arange(t, device=dev)
+    mask = (pos[:, None] >= pos[None]) & (pos[:, None] - pos[None] < window)
+    o_mask = F.scaled_dot_product_attention(qs, krs, vrs, attn_mask=mask)
+    o_causal = F.scaled_dot_product_attention(qs, krs, vrs, is_causal=True)
+    runs = {"kernel": (lambda: fa.flash_attention_bwd_mma(
+                q, k, v, o, dout, lse, causal=causal, window=window), 10),
+            "sdpa_window_mask": (lambda: torch.autograd.grad(
+                o_mask, (qs, krs, vrs), dout, retain_graph=True), 3),
+            "sdpa_causal": (lambda: torch.autograd.grad(
+                o_causal, (qs, krs, vrs), dout, retain_graph=True), 10)}
+    for fn, _ in runs.values():
+        fn()                                               # warm-up
+    t_ms = {n: [] for n in runs}
+    for order in (("kernel", "sdpa_window_mask", "sdpa_causal"),
+                  ("sdpa_causal", "sdpa_window_mask", "kernel")):
+        for n in order:
+            t_ms[n].append(queued_ms(*runs[n]))
+    ms = {n: sum(x) / len(x) for n, x in t_ms.items()}
+    plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, dout, causal=causal, window=window), 1)
+    bound, by = d256_bwd_bound(b, hq, hkv, t, d, window)
+    print(f"[rtrain] (a) K3-bwd at {D256_BWD_SHAPES[0][:8]} bf16 "
+          f"({window_pairs(t, window) * hq} kept pairs), in turns, device "
+          f"alone: flash_attention_bwd_mma {t_ms['kernel']} ms, SDPA's "
+          f"backward with the window as a boolean mask "
+          f"{t_ms['sdpa_window_mask']} ms, causal without the window "
+          f"{t_ms['sdpa_causal']} ms (K and V repeated to the {hq} heads); "
+          f"plain version {plain_ms:.3f} ms; bound {bound:.4f} ms ({by}), "
+          f"{bound / ms['kernel']:.1%} of it | {nvidia_smi_line()}",
+          flush=True)
+    check(bound <= ms["kernel"], "K3-bwd at head_dim 256 beat its bound")
+    del q, k, v, dout, lse, o, qs, krs, vrs, mask, o_mask, o_causal, runs
+    torch.cuda.empty_cache()
+    return {"name": "flash_attention_bwd_mma_d256", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": None,
+            "note": "port only: stands for the autodiff of "
+                    "src/repro/kernels/flash_attention/ref.py::attention_ref"
+                    " at head_dim 256; the mma.sync K3-bwd's bf16 pairs of "
+                    "warps (the same wrapper and launch count as "
+                    "flash_attention_bwd_mma)",
+            "launches": 0, "max_abs_err": first["abs"], "ms": ms["kernel"],
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": ms["sdpa_window_mask"],
+            "library": "scaled_dot_product_attention's backward with the "
+                       "window as a boolean attn_mask",
+            "library_ms_causal_no_window": ms["sdpa_causal"],
+            "max_rel_err": first["rel"], "row_rel_err": first["row"],
+            "ms_of": f"bf16 at {D256_BWD_SHAPES[0][:8]}"}
+
+
+def held_step1(model, batch, tag: str, hold: bool) -> dict:
+    """Step 1's loss and every gradient through the kernels against the
+    same with ``plain_recurrent``; checked against ADAMW_LOSS_TOL and
+    ADAMW_GRAD_TOL where ``hold``, printed either way."""
+    import torch
+    counted = rtrain_counted()
+    before = _counts(counted)
+    t0 = time.perf_counter()
+    loss_k, g_k = _loss_grads(model, batch)
+    moved = _moved(before, _counts(counted))
+    t1 = time.perf_counter()
+    with plain_recurrent():
+        loss_p, g_p = _loss_grads(model, batch)
+    t2 = time.perf_counter()
+    rel = {n: rel_max(g_k[n], g_p[n]) for n in g_k}
+    zero = [n for n in g_k if float(g_k[n].abs().max()) == 0.0]
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"{tag} step 1 through the kernels: loss {loss_k:.6f}, with every "
+          f"plain version {loss_p:.6f} (relative {loss_rel:.3g}, limit "
+          f"{ADAMW_LOSS_TOL}); gradients, max |diff| / max |plain| per "
+          f"tensor: worst {worst} {rel[worst]:.4g} (limit {ADAMW_GRAD_TOL}), "
+          f"median {sorted(rel.values())[len(rel) // 2]:.4g}; zero gradients "
+          f"{zero}; {'held' if hold else 'read, not held'}; launches "
+          f"{moved}; walls {t1 - t0:.2f} s, the plain run {t2 - t1:.2f} s",
+          flush=True)
+    if hold:
+        check(loss_rel <= ADAMW_LOSS_TOL and rel[worst] <= ADAMW_GRAD_TOL
+              and not zero and all(bool(torch.isfinite(g).all())
+                                   for g in g_k.values()),
+              f"{tag} step 1 through the kernels disagrees with the plain "
+              "versions', or a gradient is zero")
+    del g_k, g_p
+    torch.cuda.empty_cache()
+    return {"loss": loss_k, "plain_loss": loss_p, "loss_rel": loss_rel,
+            "worst": worst, "worst_rel": rel[worst], "launches": moved}
+
+
+def timed_adamw(model, batches, tag: str) -> dict:
+    """AdamW through make_train_step (remat) over ``batches``: each step's
+    wall and launches (forward and backward apart), the peak over the
+    parameter bytes, no plain version called."""
+    import torch
+    from repro_torch.train import steps as steps_mod
+    counted = rtrain_counted()
+    step = steps_mod.make_train_step(model, optimizer="adamw", remat=True)
+    state = steps_mod.init_opt_state(model)
+    par_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    walls, losses, launches, plain = [], [], [], {}
+    with plain_calls(plain):
+        for batch in batches:
+            before = _counts(counted)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, met = step(state, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            launches.append(_moved(before, _counts(counted)))
+            losses.append(float(met["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{tag} AdamW, {len(batches)} steps, remat: wall per step "
+          f"{[round(w, 4) for w in walls]} s, losses {losses}; launches a "
+          f"step {launches[-1]}; peak device memory {peak} B = "
+          f"{peak / par_bytes:.3f} x the parameter bytes {par_bytes}; plain "
+          f"versions called {plain} | {nvidia_smi_line()}", flush=True)
+    check(all(math.isfinite(x) for x in losses), f"{tag} AdamW's loss is "
+          "not finite")
+    check(not plain, f"{tag} the AdamW steps called a plain version: "
+          f"{plain}")
+    del step, state
+    torch.cuda.empty_cache()
+    return {"walls": walls, "losses": losses, "launches": launches[-1],
+            "peak": peak, "par_bytes": par_bytes}
+
+
+def abo_zo_step(model, batch, tag: str) -> dict:
+    """One ABO-ZO step on the whole model: the loss at or below the
+    incumbent; peak memory against what was allocated before (the
+    parameters, the batch), one probe buffer of the parameters' bytes and
+    one forward's own peak (measured first, no grad)."""
+    import numpy as np
+    import torch
+    from repro_torch.train import abo_zo
+    from repro_torch.train import steps as steps_mod
+    counted = rtrain_counted()
+    model.requires_grad_(False)
+    par_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()          # the parameters and batch
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        model.loss(batch)
+    torch.cuda.synchronize()
+    fwd_extra = torch.cuda.max_memory_allocated() - base
+    step = steps_mod.make_train_step(model, optimizer="abo_zo", remat=True)
+    state = steps_mod.init_opt_state(model, "abo_zo")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = _counts(counted)
+    t0 = time.perf_counter()
+    state, met = step(state, batch, abo_zo.fold_in(abo_zo.prng_key(1), 0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    moved = _moved(before, _counts(counted))
+    peak = torch.cuda.max_memory_allocated()
+    limit = base + par_bytes + 1.1 * fwd_extra + 64 * 2**20
+    loss, inc = float(met["loss"]), float(met["incumbent"])
+    print(f"{tag} ABO-ZO, one step of {met['fe']} forwards: wall {wall:.3f} "
+          f"s, incumbent {inc:.6f}, loss {loss:.6f} (candidate "
+          f"{met['best']}); launches {moved}; peak {peak} B = "
+          f"{peak / par_bytes:.3f} x the parameter bytes (limit: what was "
+          f"allocated before, {base} B, the probe buffer's parameter bytes "
+          f"and 1.1 x one forward's own peak {fwd_extra} B, = "
+          f"{limit / par_bytes:.3f} x)", flush=True)
+    check(math.isfinite(loss) and np.float32(loss) <= np.float32(inc)
+          and peak <= limit, f"{tag} ABO-ZO's loss is not finite or above "
+          f"its incumbent, or its peak {peak} exceeds {limit}")
+    del step, state
+    torch.cuda.empty_cache()
+    return {"wall": wall, "loss": loss, "incumbent": inc, "peak": peak,
+            "par_bytes": par_bytes, "launches": moved}
+
+
+def rtrain_phase(dev, seed: int) -> list[dict]:
+    """Phase 24 (see RTRAIN_T). Returns S-bwd's, W-bwd's and K3-bwd at
+    head_dim 256's entries of the kernels line, their launches those of
+    one AdamW step at full width."""
+    import dataclasses
+    import io
+
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.synthetic import BigramStream, StreamConfig
+    from repro_torch.models.model import Model
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    s_entry = s_bwd_readings(dev, seed)
+    w_entry = w_bwd_readings(dev, seed)
+    k_entry = d256_bwd_readings(dev, seed)
+    print(f"[rtrain] (a) took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    steps = {}
+    for arch in RTRAIN_ARCHS:
+        t_arch = time.perf_counter()
+        tag = f"[rtrain] (b) {arch}"
+        cfg = ARCHS[arch]
+        stream = BigramStream(StreamConfig(
+            vocab_size=cfg.vocab_size, seq_len=RTRAIN_T, global_batch=1))
+        batches = [{"tokens": stream.torch_batch(s, dev)}
+                   for s in range(RTRAIN_STEPS)]
+        if arch == "rwkv6-3b":          # float32 held, bf16 read
+            for dtype in ("float32", "bfloat16"):
+                cut = dataclasses.replace(cfg, dtype=dtype,
+                                          n_layers=RWKV_HOLD_LAYERS)
+                model = Model(cut, device=dev).init(seed).requires_grad_(True)
+                held_step1(model, batches[0], f"{tag} {dtype} cut to "
+                           f"{RWKV_HOLD_LAYERS} of {cfg.n_layers} layers",
+                           dtype == "float32")
+                del model
+                torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        model = Model(cfg, device=dev).init(seed).requires_grad_(True)
+        torch.cuda.synchronize()
+        n_par = sum(p.numel() for p in model.parameters())
+        print(f"{tag}: {n_par} parameters at full width, {cfg.n_layers} "
+              f"layers, bf16, drawn in {time.perf_counter() - t0:.2f} s; 1 x "
+              f"{RTRAIN_T} tokens a step", flush=True)
+        if arch != "rwkv6-3b":
+            held_step1(model, batches[0], f"{tag} bf16", True)
+        steps[arch] = timed_adamw(model, batches, tag)
+        kinds = [cfg.mixer_kind(i) for i in range(cfg.n_layers)]
+        bwd = steps[arch]["launches"]["backward"]
+        want = ({"rglru_lru_bwd": kinds.count("rglru"),
+                 "flash_attention_bwd": kinds.count("swa"),
+                 "flash_attention_bwd_mma": kinds.count("swa")}
+                if arch == "recurrentgemma-2b" else
+                {"rwkv6_wkv_bwd": kinds.count("rwkv6")})
+        check(bwd == want, f"{tag}: an AdamW step's backward launched {bwd}, "
+              f"want {want}")
+        abo = abo_zo_step(model, batches[0], f"[rtrain] (c) {arch}")
+        steps[arch]["abo"] = abo
+        del model
+        torch.cuda.empty_cache()
+        print(f"{tag} and (c) took {time.perf_counter() - t_arch:.1f} s",
+              flush=True)
+
+    # (e) the launcher, as a user trains: AdamW on recurrentgemma-2b and
+    # ABO-ZO on rwkv6-3b, RTRAIN_STEPS steps of 1 x RTRAIN_T tokens each
+    from repro_torch.launch import train as train_launch
+    for arch, opt in zip(RTRAIN_ARCHS, ("adamw", "abo_zo")):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            final = train_launch.main([
+                "--arch", arch, "--optimizer", opt, "--steps",
+                str(RTRAIN_STEPS), "--seq-len", str(RTRAIN_T), "--batch", "1",
+                "--log-every", "1"])
+        torch.cuda.empty_cache()
+        lines = [ln for ln in out.getvalue().splitlines() if "step" in ln]
+        print(f"[rtrain] (e) launch.train --arch {arch} --optimizer {opt} "
+              f"--steps {RTRAIN_STEPS} --seq-len {RTRAIN_T} --batch 1: "
+              f"final loss {final:.6f} in {time.perf_counter() - t0:.1f} s; "
+              f"{lines}", flush=True)
+        check(math.isfinite(final), f"the launcher's {opt} run on {arch} "
+              "ended with a loss that is not finite")
+
+    # (d) whisper-small
+    cfg = ARCHS[WHISPER_ARCH]
+    model = Model(cfg, device=dev).init(seed).requires_grad_(True)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    wb = []
+    for _ in range(RTRAIN_STEPS):
+        wb.append({"tokens": torch.randint(0, cfg.vocab_size,
+                                           (WHISPER_B, WHISPER_T + 1),
+                                           generator=gen, device=dev),
+                   "frames": torch.randn((WHISPER_B, cfg.encoder_len,
+                                          cfg.d_model), generator=gen,
+                                         device=dev).to(cfg.param_dtype)})
+    tag = f"[rtrain] (d) {WHISPER_ARCH}"
+    print(f"{tag}: {WHISPER_B} x {WHISPER_T} tokens over {WHISPER_B} x "
+          f"{cfg.encoder_len} stub frames a step", flush=True)
+    held_step1(model, wb[0], tag, True)
+    wsteps = timed_adamw(model, wb, tag)
+    n_k3 = cfg.encoder_layers + 2 * cfg.n_layers
+    bwd = wsteps["launches"]["backward"]
+    check(bwd == {"flash_attention_bwd": n_k3,
+                  "flash_attention_bwd_mma": n_k3},
+          f"{tag}: an AdamW step's backward launched {bwd}, want {n_k3} of "
+          "the mma.sync K3-bwd at head_dim 64")
+    abo_zo_step(model, wb[0], f"[rtrain] (c) {WHISPER_ARCH}")
+    del model
+    torch.cuda.empty_cache()
+
+    total_s = time.perf_counter() - t_phase
+    print(f"[rtrain] phase took {total_s:.1f} s (limit {RTRAIN_PHASE_S} s)",
+          flush=True)
+    check(total_s <= RTRAIN_PHASE_S, f"the recurrent training phase took "
+          f"{total_s:.1f} s")
+    rg, rw = steps["recurrentgemma-2b"], steps["rwkv6-3b"]
+    s_entry["launches"] = rg["launches"]["backward"]["rglru_lru_bwd"]
+    w_entry["launches"] = rw["launches"]["backward"]["rwkv6_wkv_bwd"]
+    k_entry["launches"] = rg["launches"]["backward"][
+        "flash_attention_bwd_mma"]
+    for e, arch in ((s_entry, "recurrentgemma-2b"), (w_entry, "rwkv6-3b"),
+                    (k_entry, "recurrentgemma-2b")):
+        e["launches_of"] = f"one AdamW step of {arch} at full width"
+        e["step"] = {"arch": arch, "walls": steps[arch]["walls"],
+                     "peak_over_params": steps[arch]["peak"]
+                     / steps[arch]["par_bytes"]}
+    return [s_entry, w_entry, k_entry]
+
+
 def sm_clock_max_hz() -> float:
     """The card's top SM clock, as nvidia-smi reads it, in Hz."""
     out = subprocess.run(
@@ -5833,12 +6550,15 @@ def main() -> None:
     # ---- 23. granite-20b, internlm2-20b, h2o-danube-3-4b ---------------------
     dense = dense_phase(dev, args.seed)
 
+    # ---- 24. the recurrent families' and whisper-small's training -----------
+    rtrain = rtrain_phase(dev, args.seed)
+
     foreign = sorted(m for m in sys.modules if m.split(".")[0]
                      in ("jax", "jaxlib", "repro", "benchmarks"))
     check(not foreign, f"the smoke imported {foreign[:5]}: JAX, the JAX "
           "package or its benchmarks")
 
-    # ---- 24. kernels line ---------------------------------------------------
+    # ---- 25. kernels line ---------------------------------------------------
     # each kernel's MoE readings beside those of its first path: K3 and
     # K3-bwd at the MoE models' MHA layer shape, P over the whole olmoe;
     # K3's at the dense decoders' layer shapes and granite-20b's at
@@ -5894,9 +6614,10 @@ def main() -> None:
     kernels.extend(train_kernels)
     kernels.append(scan)
     kernels.append(wkv)
+    kernels.extend(rtrain)
     print(json.dumps({"kernels": kernels}))
 
-    # ---- 25. result -------------------------------------------------------
+    # ---- 26. result -------------------------------------------------------
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -8,7 +8,8 @@
 // What it computes, per (batch, query head): with S = Q·Kᵀ · sm_scale under
 // K3's masks (k < sk, causal q >= k, window q - k < window) and the
 // forward's log-sum-exp L of each query row, P = exp(S - L) (0 where
-// masked), D = rowsum(dO ∘ O), dS = P ∘ (dO·Vᵀ - D) · sm_scale:
+// masked), D = rowsum(P ∘ dP) = rowsum(dO ∘ O), dS = P ∘ (dP - D) ·
+// sm_scale with dP = dO·Vᵀ:
 //   dV = Pᵀ·dO, dK = dSᵀ·Q, dQ = dS·K,
 // summed for dK and dV over the hq / hkv query heads that read a kv head
 // (GQA/MQA: query head h reads kv head h / (hq / hkv)). P and dS are
@@ -17,7 +18,15 @@
 //
 // Design, three launches on the caller's stream, no atomics, every sum in
 // a fixed order (two runs give the same bits):
-//   * delta: one warp per query row, D = rowsum(dO ∘ O) in float32.
+//   * D: in float32, one warp per query row, D = rowsum(dO ∘ O). In bf16,
+//     O is the forward's output rounded to bf16, and rowsum(dO ∘ O) would
+//     carry that rounding (2^-9 of |dO|·|O|) into every dS of the row, and
+//     into dQ as D's error times the row's P-weighted mean key. Where
+//     attention is near uniform, dQ is small and that error is not:
+//     whisper-small's decoder self-attention read dQ 9% off at random
+//     weights (PERF.md). So in bf16 D = rowsum(P ∘ dP) in float32,
+//     from the same P the other passes use, in a pass of the dQ kernel
+//     (S and dP over the row's kv blocks; two more products a pair).
 //   * dK, dV: one CTA per (kv block, batch·kv head). The CTA's keys stay in
 //     shared memory and their dK, dV accumulators in registers while it
 //     walks the group's query heads in order and, for each, the q blocks
@@ -25,12 +34,16 @@
 //     window: up to its last key + window).
 //   * dQ: one CTA per (q block, batch·query head), walking the kv blocks
 //     its rows can see in order (K3's forward's range).
-//   * bf16 (head_dim zero-padded to 32, 64 or 128 in shared memory): 4 warps
-//     of mma.sync m16n8k16, 16 keys (dK, dV) or 16 query rows (dQ) a warp.
+//   * bf16 (head_dim zero-padded to 32, 64 or 128 in shared memory, or 256):
+//     warps of mma.sync m16n8k16, 16 keys (dK, dV) or 16 query rows (dQ) a
+//     warp; at head_dim 256 two warps share each 16 rows, each recomputing
+//     S and dP over the 256 dimensions and accumulating half of dK and dV
+//     (or dQ), with smaller tiles (see the bf16 section).
 //     For dK and dV the warp computes Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ directly,
 //     so that Pᵀ and dSᵀ come out in the accumulator layout that converts
-//     in registers to the A operand of Pᵀ·dO and dSᵀ·Q; Q and dO are staged
-//     both row-major and transposed. For dQ, K is staged transposed.
+//     in registers to the A operand of Pᵀ·dO and dSᵀ·Q. Every tile is
+//     staged row-major once; the B operands of Pᵀ·dO, dSᵀ·Q and dS·K come
+//     from the row-major Q, dO and K tiles by ldmatrix .trans.
 //   * float32: 8 threads a row (key rows for dK, dV; query rows for dQ),
 //     each holding d / 8 interleaved dimensions, the other operand staged
 //     in shared memory, dot products reduced across the 8 lanes by
@@ -48,6 +61,12 @@
 // tensor-core FLOP, take 0.044 ms at 989 TFLOP/s. This first version
 // (mma.sync, synchronous loads, S and dP recomputed in the dQ pass) is far
 // from either; PERF.md has its time.
+//
+// At recurrentgemma-2b's local attention (1, 10/1, 4096, 256, causal,
+// window 2048: 62,924,800 kept pairs) the five products are 1.61e11 FLOP,
+// 0.163 ms at 989 TFLOP/s: operations. There the dK, dV pass runs 128 CTAs
+// of 32 keys, each walking the 10 query heads' blocks in its window, and
+// S and dP are computed twice (by both warps of a pair).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -105,17 +124,12 @@ __device__ __forceinline__ void q_range(const Geom& g, int k0, int bn,
   *qb1 = hi > lo ? (hi + bm - 1) / bm : *qb0;
 }
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 // ------------------------------------------------------------------ delta --
 constexpr int kDeltaRows = 8;       // one warp a row
 
-template <typename T>
 __global__ void __launch_bounds__(32 * kDeltaRows)
-bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
+bwd_delta(const float* __restrict__ o, const float* __restrict__ dout,
           float* __restrict__ delta, Geom g, long long rows) {
   const long long r = static_cast<long long>(blockIdx.x) * kDeltaRows +
                       threadIdx.x / 32;
@@ -124,10 +138,10 @@ bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
   const int row = static_cast<int>(r % g.sq);
   const long long bh = r / g.sq;
   const int b = static_cast<int>(bh / g.hq), h = static_cast<int>(bh % g.hq);
-  const T* op = o + b * g.o_sb + h * g.o_sh + row * g.o_ss;
-  const T* dp = dout + b * g.do_sb + h * g.do_sh + row * g.do_ss;
+  const float* op = o + b * g.o_sb + h * g.o_sh + row * g.o_ss;
+  const float* dp = dout + b * g.do_sb + h * g.do_sh + row * g.do_ss;
   float acc = 0.0f;
-  for (int c = lane; c < g.d; c += 32) acc = fmaf(to_f(dp[c]), to_f(op[c]), acc);
+  for (int c = lane; c < g.d; c += 32) acc = fmaf(dp[c], op[c], acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -135,9 +149,18 @@ bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
 }
 
 // ---------------------------------------------------------------- bf16 --
-constexpr int kBM = 64;        // query rows a step (dK, dV) or a CTA (dQ)
-constexpr int kBN = 64;        // keys a CTA (dK, dV) or a step (dQ)
-constexpr int kThreads = 128;  // 4 warps
+// Tiles: BM query rows a step (dK, dV) or a CTA (dQ), BN keys a CTA (dK,
+// dV) or a step (dQ), each warp 16 keys (dK, dV) or 16 query rows (dQ) and
+// DP / DS of the head dimensions of its accumulators: with DS = 2 two warps
+// share 16 rows, each recomputing S and dP over all of DP and keeping half
+// of dK and dV (or dQ). Head_dim up to 128: BM = BN = 64, DS = 1; 256: dK
+// and dV with BM = 32, BN = 32, dQ with BM = 64, BN = 32, both DS = 2, so
+// that the accumulators (64 floats a thread for each of dK and dV) fit; the
+// K, V, Q and dO tiles take 67,840 and 101,376 bytes of shared memory.
+template <int BM, int BN, int DS>
+constexpr int kKvThreads = 32 * (BN / 16) * DS;
+template <int BM, int BN, int DS>
+constexpr int kQThreads = 32 * (BM / 16) * DS;
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -177,33 +200,17 @@ __device__ __forceinline__ uint4 load8(const __nv_bfloat16* src, long long ss,
   return val;
 }
 
-// Rows [r0, r0 + ROWS) of src into dst[ROWS][ld], row-major.
-template <int DP, int ROWS>
+// Rows [r0, r0 + ROWS) of src into dst[ROWS][ld], row-major, by NT threads.
+template <int DP, int ROWS, int NT>
 __device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, int ld,
                                            const __nv_bfloat16* src,
                                            long long ss, int r0, int nrows,
                                            int d, int vec16) {
   constexpr int kChunks = DP / 8;
-  for (int c = threadIdx.x; c < ROWS * kChunks; c += kThreads) {
+  for (int c = threadIdx.x; c < ROWS * kChunks; c += NT) {
     const int r = c / kChunks, col = (c % kChunks) * 8;
     *reinterpret_cast<uint4*>(dst + r * ld + col) =
         load8(src, ss, r0 + r, nrows, col, d, vec16);
-  }
-}
-
-// Rows [r0, r0 + ROWS) of src into dst[DP][ld], transposed.
-template <int DP, int ROWS>
-__device__ __forceinline__ void stage_rows_t(__nv_bfloat16* dst, int ld,
-                                             const __nv_bfloat16* src,
-                                             long long ss, int r0, int nrows,
-                                             int d, int vec16) {
-  constexpr int kChunks = DP / 8;
-  for (int c = threadIdx.x; c < ROWS * kChunks; c += kThreads) {
-    const int r = c / kChunks, col = (c % kChunks) * 8;
-    const uint4 val = load8(src, ss, r0 + r, nrows, col, d, vec16);
-    const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&val);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dst[(col + i) * ld + r] = h[i];
   }
 }
 
@@ -239,19 +246,28 @@ __device__ __forceinline__ void mma_rows(float (&acc)[NT][4],
   }
 }
 
-// acc[NT][4] += A (16 x 16 KS, bf16 fragments in registers) · Bᵀ, B's 8 NT
-// rows of 16 KS stored row-major in bs.
+// acc[NT][4] += A (16 x 16 KS, bf16 fragments in registers) · B, B's 16 KS
+// rows of 8 NT columns stored row-major in bs (ldb elements a row, a
+// multiple of 8): each B fragment by ldmatrix .trans, which reads the rows
+// as they lie (conflict-free where a row is an odd number of 16-byte
+// chunks) and hands each thread the column pairs mma.sync wants.
 template <int KS, int NT>
-__device__ __forceinline__ void mma_frags(float (&acc)[NT][4],
-                                          const uint32_t (&a)[KS][4],
-                                          const __nv_bfloat16* bs, int ldb,
-                                          int gr, int tg) {
+__device__ __forceinline__ void mma_frags_t(float (&acc)[NT][4],
+                                            const uint32_t (&a)[KS][4],
+                                            const __nv_bfloat16* bs, int ldb,
+                                            int lane) {
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk) {
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
-      const __nv_bfloat16* br = bs + (nt * 8 + gr) * ldb + kk * 16 + 2 * tg;
-      mma_bf16(acc[nt], a[kk], ld32(br), ld32(br + 8));
+      const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(
+          bs + (kk * 16 + (lane & 15)) * ldb + nt * 8));
+      uint32_t b0, b1;
+      asm volatile(
+          "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+          : "=r"(b0), "=r"(b1)
+          : "r"(addr));
+      mma_bf16(acc[nt], a[kk], b0, b1);
     }
   }
 }
@@ -268,8 +284,8 @@ __device__ __forceinline__ void to_frags(uint32_t (&a)[NT / 2][4],
   }
 }
 
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
+template <int DP, int BM, int BN, int DS>
+__global__ void __launch_bounds__(kKvThreads<BM, BN, DS>)
 bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v,
@@ -277,40 +293,40 @@ bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q,
               const float* __restrict__ lse, const float* __restrict__ delta,
               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
               Geom g, int vec16) {
+  constexpr int kNT = kKvThreads<BM, BN, DS>;
   constexpr int kLd = DP + 8;      // row-major tiles, +16 bytes a row
-  constexpr int kLdt = kBM + 8;    // transposed tiles
   constexpr int kKS = DP / 16;
-  constexpr int kTilesQ = kBM / 8;
-  constexpr int kTilesD = DP / 8;
+  constexpr int kTilesQ = BM / 8;
+  constexpr int kDW = DP / DS;     // head dimensions a warp accumulates
+  constexpr int kTilesD = kDW / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* vs = ks + kBN * kLd;        // [kBN][kLd]
-  __nv_bfloat16* qs = vs + kBN * kLd;        // [kBM][kLd]
-  __nv_bfloat16* dos = qs + kBM * kLd;       // [kBM][kLd]
-  __nv_bfloat16* qt = dos + kBM * kLd;       // [DP][kLdt]
-  __nv_bfloat16* dot = qt + DP * kLdt;       // [DP][kLdt]
-  float* lse_s = reinterpret_cast<float*>(dot + DP * kLdt);   // [kBM]
-  float* dl_s = lse_s + kBM;                                  // [kBM]
+  __nv_bfloat16* vs = ks + BN * kLd;         // [BN][kLd]
+  __nv_bfloat16* qs = vs + BN * kLd;         // [BM][kLd]
+  __nv_bfloat16* dos = qs + BM * kLd;        // [BM][kLd]
+  float* lse_s = reinterpret_cast<float*>(dos + BM * kLd);    // [BM]
+  float* dl_s = lse_s + BM;                                   // [BM]
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gr = lane >> 2, tg = lane & 3;
-  const int k0 = blockIdx.x * kBN;
+  const int dsel = warp / (BN / 16);        // the warp's part of DP
+  const int k0 = blockIdx.x * BN;
   const int bkv = blockIdx.y;
   const int b = bkv / g.hkv, kvh = bkv % g.hkv;
-  stage_rows<DP, kBN>(ks, kLd, k + b * g.k_sb + kvh * g.k_sh, g.k_ss, k0,
-                      g.sk, g.d, vec16);
-  stage_rows<DP, kBN>(vs, kLd, v + b * g.v_sb + kvh * g.v_sh, g.v_ss, k0,
-                      g.sk, g.d, vec16);
+  stage_rows<DP, BN, kNT>(ks, kLd, k + b * g.k_sb + kvh * g.k_sh, g.k_ss, k0,
+                          g.sk, g.d, vec16);
+  stage_rows<DP, BN, kNT>(vs, kLd, v + b * g.v_sb + kvh * g.v_sh, g.v_ss, k0,
+                          g.sk, g.d, vec16);
 
   float dka[kTilesD][4], dva[kTilesD][4];
 #pragma unroll
   for (int nt = 0; nt < kTilesD; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dka[nt][e] = dva[nt][e] = 0.0f;
-  const int kr = warp * 16;                 // the warp's keys in the block
+  const int kr = (warp % (BN / 16)) * 16;   // the warp's keys in the block
   const int key0 = k0 + kr + gr, key1 = key0 + 8;
   int qb0, qb1;
-  q_range(g, k0, kBN, kBM, &qb0, &qb1);
+  q_range(g, k0, BN, BM, &qb0, &qb1);
 
   for (int hi = 0; hi < g.group; ++hi) {
     const int h = kvh * g.group + hi;
@@ -319,26 +335,24 @@ bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q,
     const float* lsep = lse + (static_cast<long long>(b) * g.hq + h) * g.sq;
     const float* dlp = delta + (static_cast<long long>(b) * g.hq + h) * g.sq;
     for (int qb = qb0; qb < qb1; ++qb) {
-      const int q0 = qb * kBM;
+      const int q0 = qb * BM;
       __syncthreads();               // the previous block is consumed
-      stage_rows<DP, kBM>(qs, kLd, qp, g.q_ss, q0, g.sq, g.d, vec16);
-      stage_rows<DP, kBM>(dos, kLd, dop, g.do_ss, q0, g.sq, g.d, vec16);
-      stage_rows_t<DP, kBM>(qt, kLdt, qp, g.q_ss, q0, g.sq, g.d, vec16);
-      stage_rows_t<DP, kBM>(dot, kLdt, dop, g.do_ss, q0, g.sq, g.d, vec16);
-      for (int r = threadIdx.x; r < kBM; r += kThreads) {
+      stage_rows<DP, BM, kNT>(qs, kLd, qp, g.q_ss, q0, g.sq, g.d, vec16);
+      stage_rows<DP, BM, kNT>(dos, kLd, dop, g.do_ss, q0, g.sq, g.d, vec16);
+      for (int r = threadIdx.x; r < BM; r += kNT) {
         const bool in = q0 + r < g.sq;
         lse_s[r] = in ? lsep[q0 + r] : 0.0f;
         dl_s[r] = in ? dlp[q0 + r] : 0.0f;
       }
       __syncthreads();
 
-      // Pᵀ (16 keys x 64 query rows) from Sᵀ = K·Qᵀ
+      // Pᵀ (16 keys x BM query rows) from Sᵀ = K·Qᵀ
       float pt[kTilesQ][4];
 #pragma unroll
       for (int nt = 0; nt < kTilesQ; ++nt)
         pt[nt][0] = pt[nt][1] = pt[nt][2] = pt[nt][3] = 0.0f;
       mma_rows<kKS, kTilesQ>(pt, ks, kLd, kr, qs, kLd, gr, tg);
-      const bool masked = needs_mask(g, q0, kBM, k0, kBN);
+      const bool masked = needs_mask(g, q0, BM, k0, BN);
 #pragma unroll
       for (int nt = 0; nt < kTilesQ; ++nt) {
 #pragma unroll
@@ -350,9 +364,10 @@ bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q,
                           : 0.0f;
         }
       }
-      uint32_t af[kBM / 16][4];
+      uint32_t af[BM / 16][4];
       to_frags<kTilesQ>(af, pt);
-      mma_frags<kBM / 16, kTilesD>(dva, af, dot, kLdt, gr, tg);   // Pᵀ·dO
+      mma_frags_t<BM / 16, kTilesD>(dva, af, dos + dsel * kDW, kLd,
+                                    lane);                         // Pᵀ·dO
 
       // dSᵀ = Pᵀ ∘ (dPᵀ - D) · sm_scale, dPᵀ = V·dOᵀ
       float dpt[kTilesQ][4];
@@ -369,7 +384,8 @@ bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q,
         }
       }
       to_frags<kTilesQ>(af, dpt);
-      mma_frags<kBM / 16, kTilesD>(dka, af, qt, kLdt, gr, tg);    // dSᵀ·Q
+      mma_frags_t<BM / 16, kTilesD>(dka, af, qs + dsel * kDW, kLd,
+                                    lane);                         // dSᵀ·Q
     }
   }
 
@@ -377,7 +393,7 @@ bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q,
   __nv_bfloat16* dvp = dv + b * g.dv_sb + kvh * g.dv_sh;
 #pragma unroll
   for (int nt = 0; nt < kTilesD; ++nt) {
-    const int col = nt * 8 + 2 * tg;
+    const int col = dsel * kDW + nt * 8 + 2 * tg;
     if (col >= g.d) continue;
     if (key0 < g.sk) {
       *reinterpret_cast<__nv_bfloat162*>(dkp + key0 * g.dk_ss + col) =
@@ -394,44 +410,49 @@ bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
+// With DELTA, the pass that writes each query row's D = rowsum(P ∘ dP)
+// into `delta` (S and dP over every kv block the rows see, summed in the
+// block order, then over the quad's four lanes); without, dQ from it.
+template <int DP, int BM, int BN, int DS, bool DELTA>
+__global__ void __launch_bounds__(kQThreads<BM, BN, DS>)
 bwd_dq_bf16(const __nv_bfloat16* __restrict__ q,
             const __nv_bfloat16* __restrict__ k,
             const __nv_bfloat16* __restrict__ v,
             const __nv_bfloat16* __restrict__ dout,
-            const float* __restrict__ lse, const float* __restrict__ delta,
+            const float* __restrict__ lse, float* __restrict__ delta,
             __nv_bfloat16* __restrict__ dq, Geom g, int vec16) {
+  constexpr int kNT = kQThreads<BM, BN, DS>;
   constexpr int kLd = DP + 8;
-  constexpr int kLdt = kBN + 8;
   constexpr int kKS = DP / 16;
-  constexpr int kTilesK = kBN / 8;
-  constexpr int kTilesD = DP / 8;
+  constexpr int kTilesK = BN / 8;
+  constexpr int kDW = DP / DS;
+  constexpr int kTilesD = kDW / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* dos = qs + kBM * kLd;       // [kBM][kLd]
-  __nv_bfloat16* ks = dos + kBM * kLd;       // [kBN][kLd]
-  __nv_bfloat16* vs = ks + kBN * kLd;        // [kBN][kLd]
-  __nv_bfloat16* kt = vs + kBN * kLd;        // [DP][kLdt]
+  __nv_bfloat16* dos = qs + BM * kLd;        // [BM][kLd]
+  __nv_bfloat16* ks = dos + BM * kLd;        // [BN][kLd]
+  __nv_bfloat16* vs = ks + BN * kLd;         // [BN][kLd]
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gr = lane >> 2, tg = lane & 3;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBM;   // longest rows first
+  const int dsel = warp / (BM / 16);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;   // longest rows first
   const int bh = blockIdx.y;
   const int b = bh / g.hq, h = bh % g.hq, kvh = h / g.group;
   const __nv_bfloat16* kp = k + b * g.k_sb + kvh * g.k_sh;
   const __nv_bfloat16* vp = v + b * g.v_sb + kvh * g.v_sh;
-  stage_rows<DP, kBM>(qs, kLd, q + b * g.q_sb + h * g.q_sh, g.q_ss, q0, g.sq,
-                      g.d, vec16);
-  stage_rows<DP, kBM>(dos, kLd, dout + b * g.do_sb + h * g.do_sh, g.do_ss,
-                      q0, g.sq, g.d, vec16);
-  const int qr = warp * 16;
+  stage_rows<DP, BM, kNT>(qs, kLd, q + b * g.q_sb + h * g.q_sh, g.q_ss, q0,
+                          g.sq, g.d, vec16);
+  stage_rows<DP, BM, kNT>(dos, kLd, dout + b * g.do_sb + h * g.do_sh,
+                          g.do_ss, q0, g.sq, g.d, vec16);
+  const int qr = (warp % (BM / 16)) * 16;
   const int row0 = q0 + qr + gr, row1 = row0 + 8;
   const long long base = (static_cast<long long>(b) * g.hq + h) * g.sq;
   const float lse0 = row0 < g.sq ? lse[base + row0] : 0.0f;
   const float lse1 = row1 < g.sq ? lse[base + row1] : 0.0f;
-  const float dl0 = row0 < g.sq ? delta[base + row0] : 0.0f;
-  const float dl1 = row1 < g.sq ? delta[base + row1] : 0.0f;
+  const float dl0 = !DELTA && row0 < g.sq ? delta[base + row0] : 0.0f;
+  const float dl1 = !DELTA && row1 < g.sq ? delta[base + row1] : 0.0f;
+  float sum0 = 0.0f, sum1 = 0.0f;      // DELTA: the rows' Σ P·dP
 
   float dqa[kTilesD][4];
 #pragma unroll
@@ -439,13 +460,12 @@ bwd_dq_bf16(const __nv_bfloat16* __restrict__ q,
     dqa[nt][0] = dqa[nt][1] = dqa[nt][2] = dqa[nt][3] = 0.0f;
 
   int kb0, kb1;
-  kv_range(g, q0, kBM, kBN, &kb0, &kb1);
+  kv_range(g, q0, BM, BN, &kb0, &kb1);
   for (int kb = kb0; kb < kb1; ++kb) {
-    const int k0 = kb * kBN;
+    const int k0 = kb * BN;
     __syncthreads();
-    stage_rows<DP, kBN>(ks, kLd, kp, g.k_ss, k0, g.sk, g.d, vec16);
-    stage_rows<DP, kBN>(vs, kLd, vp, g.v_ss, k0, g.sk, g.d, vec16);
-    stage_rows_t<DP, kBN>(kt, kLdt, kp, g.k_ss, k0, g.sk, g.d, vec16);
+    stage_rows<DP, BN, kNT>(ks, kLd, kp, g.k_ss, k0, g.sk, g.d, vec16);
+    stage_rows<DP, BN, kNT>(vs, kLd, vp, g.v_ss, k0, g.sk, g.d, vec16);
     __syncthreads();
 
     float p[kTilesK][4];
@@ -453,7 +473,7 @@ bwd_dq_bf16(const __nv_bfloat16* __restrict__ q,
     for (int nt = 0; nt < kTilesK; ++nt)
       p[nt][0] = p[nt][1] = p[nt][2] = p[nt][3] = 0.0f;
     mma_rows<kKS, kTilesK>(p, qs, kLd, qr, ks, kLd, gr, tg);     // Q·Kᵀ
-    const bool masked = needs_mask(g, q0, kBM, k0, kBN);
+    const bool masked = needs_mask(g, q0, BM, k0, BN);
 #pragma unroll
     for (int nt = 0; nt < kTilesK; ++nt) {
 #pragma unroll
@@ -470,21 +490,43 @@ bwd_dq_bf16(const __nv_bfloat16* __restrict__ q,
     for (int nt = 0; nt < kTilesK; ++nt)
       ds[nt][0] = ds[nt][1] = ds[nt][2] = ds[nt][3] = 0.0f;
     mma_rows<kKS, kTilesK>(ds, dos, kLd, qr, vs, kLd, gr, tg);   // dO·Vᵀ
+    if constexpr (DELTA) {
 #pragma unroll
-    for (int nt = 0; nt < kTilesK; ++nt) {
+      for (int nt = 0; nt < kTilesK; ++nt) {
+        sum0 = fmaf(p[nt][0], ds[nt][0], sum0);
+        sum0 = fmaf(p[nt][1], ds[nt][1], sum0);
+        sum1 = fmaf(p[nt][2], ds[nt][2], sum1);
+        sum1 = fmaf(p[nt][3], ds[nt][3], sum1);
+      }
+    } else {
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        ds[nt][e] = p[nt][e] * (ds[nt][e] - (e < 2 ? dl0 : dl1)) * g.scale;
+      for (int nt = 0; nt < kTilesK; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          ds[nt][e] = p[nt][e] * (ds[nt][e] - (e < 2 ? dl0 : dl1)) * g.scale;
+      }
+      uint32_t af[BN / 16][4];
+      to_frags<kTilesK>(af, ds);
+      mma_frags_t<BN / 16, kTilesD>(dqa, af, ks + dsel * kDW, kLd,
+                                    lane);                         // dS·K
     }
-    uint32_t af[kBN / 16][4];
-    to_frags<kTilesK>(af, ds);
-    mma_frags<kBN / 16, kTilesD>(dqa, af, kt, kLdt, gr, tg);      // dS·K
+  }
+  if constexpr (DELTA) {
+    sum0 += __shfl_xor_sync(0xffffffffu, sum0, 1);
+    sum0 += __shfl_xor_sync(0xffffffffu, sum0, 2);
+    sum1 += __shfl_xor_sync(0xffffffffu, sum1, 1);
+    sum1 += __shfl_xor_sync(0xffffffffu, sum1, 2);
+    if (tg == 0 && dsel == 0) {
+      if (row0 < g.sq) delta[base + row0] = sum0;
+      if (row1 < g.sq) delta[base + row1] = sum1;
+    }
+    return;
   }
 
   __nv_bfloat16* dqp = dq + b * g.dq_sb + h * g.dq_sh;
 #pragma unroll
   for (int nt = 0; nt < kTilesD; ++nt) {
-    const int col = nt * 8 + 2 * tg;
+    const int col = dsel * kDW + nt * 8 + 2 * tg;
     if (col >= g.d) continue;
     if (row0 < g.sq)
       *reinterpret_cast<__nv_bfloat162*>(dqp + row0 * g.dq_ss + col) =
@@ -495,31 +537,44 @@ bwd_dq_bf16(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int DP>
+// D with the dQ pass's tiles (QM, QN, DS), then dK, dV with (KM, KN, DS),
+// then dQ.
+template <int DP, int KM, int KN, int QM, int QN, int DS>
 int launch_bf16(const void* q, const void* k, const void* v, const void* dout,
-                const float* lse, const float* delta, void* dq, void* dk,
+                const float* lse, float* delta, void* dq, void* dk,
                 void* dv, const Geom& g, int batch, int vec16,
                 cudaStream_t stream) {
-  constexpr int kSmemKV = (2 * kBN * (DP + 8) + 2 * kBM * (DP + 8) +
-                           2 * DP * (kBM + 8)) * 2 + 2 * kBM * 4;
-  constexpr int kSmemQ = (2 * kBM * (DP + 8) + 2 * kBN * (DP + 8) +
-                          DP * (kBN + 8)) * 2;
+  constexpr int kSmemKV = (2 * KN * (DP + 8) + 2 * KM * (DP + 8)) * 2 +
+                          2 * KM * 4;
+  constexpr int kSmemQ = (2 * QM * (DP + 8) + 2 * QN * (DP + 8)) * 2;
+  auto kv_kernel = bwd_dkdv_bf16<DP, KM, KN, DS>;
+  auto d_kernel = bwd_dq_bf16<DP, QM, QN, DS, true>;
+  auto q_kernel = bwd_dq_bf16<DP, QM, QN, DS, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_dkdv_bf16<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemKV);
+      kv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemKV);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaFuncSetAttribute(
-      bwd_dq_bf16<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemQ);
+      q_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemQ);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(
+      d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemQ);
   if (err != cudaSuccess) return static_cast<int>(err);
   typedef const __nv_bfloat16* P;
-  const dim3 grid_kv((g.sk + kBN - 1) / kBN, batch * g.hkv);
-  bwd_dkdv_bf16<DP><<<grid_kv, kThreads, kSmemKV, stream>>>(
+  const dim3 grid_q((g.sq + QM - 1) / QM, batch * g.hq);
+  d_kernel<<<grid_q, kQThreads<QM, QN, DS>, kSmemQ, stream>>>(
+      static_cast<P>(q), static_cast<P>(k), static_cast<P>(v),
+      static_cast<P>(dout), lse, delta, static_cast<__nv_bfloat16*>(dq), g,
+      vec16);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid_kv((g.sk + KN - 1) / KN, batch * g.hkv);
+  kv_kernel<<<grid_kv, kKvThreads<KM, KN, DS>, kSmemKV, stream>>>(
       static_cast<P>(q), static_cast<P>(k), static_cast<P>(v),
       static_cast<P>(dout), lse, delta, static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), g, vec16);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid_q((g.sq + kBM - 1) / kBM, batch * g.hq);
-  bwd_dq_bf16<DP><<<grid_q, kThreads, kSmemQ, stream>>>(
+  q_kernel<<<grid_q, kQThreads<QM, QN, DS>, kSmemQ, stream>>>(
       static_cast<P>(q), static_cast<P>(k), static_cast<P>(v),
       static_cast<P>(dout), lse, delta, static_cast<__nv_bfloat16*>(dq), g,
       vec16);
@@ -730,8 +785,8 @@ extern "C" {
 // dq, dk, dv shaped as q, k, v; each with its (batch, head, sequence)
 // strides in elements and the last dimension contiguous. lse (the
 // forward's natural-log log-sum-exp of each row) and delta (scratch, filled
-// here) are contiguous (b, hq, sq) float32. dtype: 0 float32, 1 bfloat16;
-// d a multiple of 8 up to 128. window <= 0: none. vec16: every bf16 row
+// here) are contiguous (b, hq, sq) float32. dtype: 0 float32 with d a
+// multiple of 8 up to 128, 1 bfloat16 with d that or 256. window <= 0: none. vec16: every bf16 row
 // start of q, k, v, dout is 16-byte aligned. Returns the cudaError_t of the
 // first launch that failed (0 on success); the wrapper checks shapes and
 // types.
@@ -758,22 +813,26 @@ int flash_attention_bwd_launch(
   const unsigned blocks =
       static_cast<unsigned>((rows + kDeltaRows - 1) / kDeltaRows);
   if (dtype == 0) {
-    bwd_delta<float><<<blocks, 32 * kDeltaRows, 0, s>>>(
+    bwd_delta<<<blocks, 32 * kDeltaRows, 0, s>>>(
         static_cast<const float*>(o), static_cast<const float*>(dout), dl, g,
         rows);
-  } else {
-    bwd_delta<__nv_bfloat16><<<blocks, 32 * kDeltaRows, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(o),
-        static_cast<const __nv_bfloat16*>(dout), dl, g, rows);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return launch_f32(q, k, v, dout, l, dl, dq, dk, dv, g, batch, s);
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dtype == 0) return launch_f32(q, k, v, dout, l, dl, dq, dk, dv, g, batch, s);
   if (d <= 32)
-    return launch_bf16<32>(q, k, v, dout, l, dl, dq, dk, dv, g, batch, vec16, s);
+    return launch_bf16<32, 64, 64, 64, 64, 1>(q, k, v, dout, l, dl, dq, dk,
+                                              dv, g, batch, vec16, s);
   if (d <= 64)
-    return launch_bf16<64>(q, k, v, dout, l, dl, dq, dk, dv, g, batch, vec16, s);
-  return launch_bf16<128>(q, k, v, dout, l, dl, dq, dk, dv, g, batch, vec16, s);
+    return launch_bf16<64, 64, 64, 64, 64, 1>(q, k, v, dout, l, dl, dq, dk,
+                                              dv, g, batch, vec16, s);
+  if (d <= 128)
+    return launch_bf16<128, 64, 64, 64, 64, 1>(q, k, v, dout, l, dl, dq, dk,
+                                               dv, g, batch, vec16, s);
+  if (d == 256)
+    return launch_bf16<256, 32, 32, 64, 32, 2>(q, k, v, dout, l, dl, dq, dk,
+                                               dv, g, batch, vec16, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 const char* kernel_error_string(int code) {

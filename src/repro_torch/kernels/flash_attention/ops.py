@@ -47,17 +47,21 @@ O, dO and the lse; no atomics), which launches the port-only kernel that
   rings of shared-memory stages, wgmma) where the forward took
   ``flash_attention_sm90`` and O and dO pass the same alignment test;
 * ``flash_attention_bwd_mma`` (``csrc/flash_attention_bwd.cu``: mma.sync
-  in bf16, CUDA cores in float32) for everything else.
+  in bf16, CUDA cores in float32) for everything else, bf16 at head_dim
+  256 (recurrentgemma-2b's local attention) among it.
 
 The reference has no backward kernel: its gradient through attention is
 autodiff of ``attention_ref``, so the plain version of the backward is
 autograd through ``flash_attention_plain``, and on a CPU tensor the op is
 the plain version, autograd and all. Where neither backward kernel takes
 the inputs (a dtype other than float32 and bfloat16, head_dim not a
-multiple of 8 up to 128), the op raises rather than fall back.
+multiple of 8 up to 128 and not bf16 at 256), the op raises rather than
+fall back.
 ``flash_attention_bwd.launches`` counts calls of its wrapper, and each
 kernel wrapper its own: one call, one layer's backward, runs three CUDA
-kernels (the ``rowsum(dO·O)`` pre-pass, dK and dV, dQ).
+kernels (a pass for each row's D, dK and dV, dQ). D is ``rowsum(dO·O)``,
+except in the mma.sync kernel's bf16 path, where it is ``rowsum(P·dP)``:
+O rounded to bf16 would shift it, and dQ with it.
 """
 from __future__ import annotations
 
@@ -307,8 +311,10 @@ def choose_bwd_kernel(q, k, v, out, dout) -> str:
     """Which backward kernel takes (q, k, v, O, dO):
     ``"flash_attention_bwd_sm90"`` where ``choose_kernel(q, k, v)`` is
     ``"flash_attention_sm90"`` and ``out`` and ``dout`` are bf16 and pass
-    the same alignment test, else ``"flash_attention_bwd_mma"``. Reads only
-    dtypes, shapes, strides and pointers: no device query."""
+    the same alignment test, else ``"flash_attention_bwd_mma"`` (bf16 at
+    head_dim 256 among them: recurrentgemma-2b's local attention, whose
+    forward is ``flash_attention_sm90_d256``). Reads only dtypes, shapes,
+    strides and pointers: no device query."""
     if (choose_kernel(q, k, v) == "flash_attention_sm90"
             and out.dtype == dout.dtype == torch.bfloat16
             and _tma_aligned(out) and _tma_aligned(dout)):
@@ -546,13 +552,17 @@ _KERNELS = {"flash_attention_sm90": flash_attention_sm90,
 
 # ---------------------------------------------------------------- backward
 def check_bwd(q) -> None:
-    """Raise unless the backward kernel takes q's dtype and head_dim."""
+    """Raise unless a backward kernel takes q's dtype and head_dim: float32
+    or bfloat16 with head_dim a multiple of 8 up to 128, or bfloat16 at
+    256 (the mma.sync kernel's pairs of warps)."""
     d = q.shape[-1]
-    if q.dtype not in _DTYPES or d % 8 or d > 128:
+    if not (q.dtype in _DTYPES and d % 8 == 0 and d <= 128
+            or q.dtype == torch.bfloat16 and d == SM90_D256):
         raise ValueError(
             f"flash_attention's backward kernel takes float32 or bfloat16 "
-            f"with head_dim a multiple of 8 up to 128, not {q.dtype} with "
-            f"head_dim {d}: no gradient is taken through K3 here")
+            f"with head_dim a multiple of 8 up to 128, or bfloat16 at 256, "
+            f"not {q.dtype} with head_dim {d}: no gradient is taken through "
+            f"K3 here")
 
 
 def flash_attention_bwd_plain(q, k, v, dout, *, causal=True, window=None):
@@ -584,13 +594,14 @@ def _check_bwd_args(q, k, v, out, dout, lse, window, name):
 
 def flash_attention_bwd_mma(q, k, v, out, dout, lse, *, causal=True,
                             window=None):
-    """The kernel of ``csrc/flash_attention_bwd.cu``: a pre-pass for each
-    row's ``rowsum(dO·O)``, one CTA per (batch, kv head, kv block) for dK
+    """The kernel of ``csrc/flash_attention_bwd.cu``: a pass for each
+    row's D (``rowsum(dO·O)`` in float32; ``rowsum(P·dP)`` in bf16, a pass
+    of the dQ kernel), one CTA per (batch, kv head, kv block) for dK
     and dV over the group's query heads and every q block in order, one
     CTA per (batch, query head, q block) for dQ; mma.sync in bf16, CUDA
     cores in float32. Takes float32 or bfloat16 with d a multiple of 8 up
-    to 128 and any strides with the last dimension contiguous; arguments
-    and result as ``flash_attention_bwd``."""
+    to 128, or bfloat16 at 256, and any strides with the last dimension
+    contiguous; arguments and result as ``flash_attention_bwd``."""
     b, hq, hkv, sk, d = _check_bwd_args(q, k, v, out, dout, lse, window,
                                         "flash_attention_bwd_mma")
     check_bwd(q)
@@ -668,8 +679,9 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal=True,
 
     q (b, hq, sq, d), k and v (b, hkv, sk, d), ``out`` and ``dout`` (b,
     hq, sq, d), any strides with the last dimension contiguous, float32 or
-    bfloat16, d a multiple of 8 up to 128; ``lse`` the forward's (b, hq,
-    sq) float32 log-sum-exp. Returns (dq, dk, dv) in q's dtype, each a
+    bfloat16, d a multiple of 8 up to 128 (or bf16 at 256); ``lse`` the
+    forward's (b, hq, sq) float32 log-sum-exp. Returns (dq, dk, dv) in q's
+    dtype, each a
     (b, h, s, d) view of a (b, s, h, d) buffer. On CPU tensors it is
     ``flash_attention_bwd_plain`` (``out`` and ``lse`` unused)."""
     _check(q, k, v, window)

@@ -14,9 +14,16 @@ products with the state and with v on the tensor cores in split TF32, a
 cluster of hd / 16 CTAs a head (``ref.wkv_chunked`` is its arithmetic in
 plain PyTorch). It is held to the plain version by a tolerance, not bit
 for bit; two runs give the same bits. On a CPU tensor it runs the plain
-version. No fallback. The kernel has no backward: on a CUDA tensor that
-requires grad the op raises rather than stop the gradient. Its tiles
-arrive by TMA, so r, k, v and logw must start on 16 bytes.
+version. No fallback. Its tiles arrive by TMA, so r, k, v and logw must
+start on 16 bytes.
+
+The gradient. Where grad mode is on and an input requires grad, the op is
+a ``torch.autograd.Function`` that saves r, k, v, logw and u. Its backward
+is W-bwd (``rwkv6_wkv_bwd``): on a CUDA tensor the port-only kernel of
+``csrc/rwkv6_wkv_bwd.cu`` (counted in ``rwkv6_wkv_bwd.launches``), on a
+CPU tensor its plain version ``ref.wkv_bwd_ref``: dr, dk and dv in the
+input's type, dlogw float32 and du float32 (H, hd), summed over the batch
+and T in a fixed order.
 """
 # repro: hot-path — RWKV6's prefill and forward; no host sync by construction
 from __future__ import annotations
@@ -27,7 +34,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.rwkv6_wkv.ref import wkv_ref
+from repro_torch.kernels.rwkv6_wkv.ref import wkv_bwd_ref, wkv_ref
 
 HEAD_DIMS = (16, 64)
 
@@ -40,6 +47,19 @@ def _launcher():
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
+
+
+@functools.cache
+def _launcher_bwd():
+    lib = _build.load("rwkv6_wkv_bwd")
+    fn = lib.rwkv6_wkv_bwd_launch
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+BWD_CHUNK = 16      # W-bwd's steps a chunk: one checkpoint of S a chunk
 
 
 def _check(r, k, v, logw, u) -> bool:
@@ -67,11 +87,8 @@ def _check(r, k, v, logw, u) -> bool:
 
 
 def _kernel_takes(tensors) -> None:
-    """Raise on what the kernel does not take: a gradient, a stride, a head
-    size other than 16 or 64, a start off 16 bytes."""
-    if torch.is_grad_enabled() and any(x.requires_grad for x in tensors):
-        raise ValueError("rwkv6_wkv's kernel has no backward: no gradient is "
-                         "taken through RWKV6's recurrence on the card")
+    """Raise on what the kernel does not take: a stride, a head size other
+    than 16 or 64, a start off 16 bytes."""
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("rwkv6_wkv's kernel needs contiguous tensors")
     if tensors[0].shape[-1] not in HEAD_DIMS:
@@ -97,9 +114,7 @@ def _launch(r, k, v, logw, u, y, state) -> bool:
     return True
 
 
-def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              logw: torch.Tensor, u: torch.Tensor
-              ) -> tuple[torch.Tensor, torch.Tensor]:
+def _forward(r, k, v, logw, u):
     if not _check(r, k, v, logw, u):
         return wkv_ref(r, k, v, logw, u)
     _kernel_takes((r, k, v, logw, u))
@@ -112,4 +127,84 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return y, state
 
 
+class _WKV(torch.autograd.Function):
+    """W with W-bwd as its gradient; saves the inputs, not the states."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u):
+        ctx.save_for_backward(r, k, v, logw, u)
+        return _forward(r, k, v, logw, u)
+
+    @staticmethod
+    def backward(ctx, dy, dS):        # autograd materializes unused grads
+        return rwkv6_wkv_bwd(*ctx.saved_tensors, dy, dS)
+
+
+def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              logw: torch.Tensor, u: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (r, k, v, logw, u)):
+        return _WKV.apply(r, k, v, logw, u)
+    return _forward(r, k, v, logw, u)
+
+
+def rwkv6_wkv_bwd(r, k, v, logw, u, dy, dS=None):
+    """W-bwd: the gradient of ``rwkv6_wkv`` at (dy, dS), as
+    ``ref.wkv_bwd_ref`` returns it: (dr, dk, dv) in r's type, dlogw float32
+    (b, T, H, hd) and du float32 (H, hd). dy is float32 of r's shape, dS
+    float32 (b, H, hd, hd) or None (zero). On CUDA tensors the kernel of
+    ``csrc/rwkv6_wkv_bwd.cu`` (what W takes, any start): three CUDA
+    kernels, the sweeps over T and then the fixed-order sums of dv's row
+    slices and of du over the batch, counted as one launch; on CPU tensors
+    the plain version. No fallback."""
+    on_card = _check(r, k, v, logw, u)
+    b, t, h, hd = r.shape
+    if (tuple(dy.shape) != tuple(r.shape) or dy.dtype != torch.float32
+            or dy.device != r.device):
+        raise ValueError(f"rwkv6_wkv_bwd takes dy float32 of shape "
+                         f"{tuple(r.shape)}, got {dy.dtype} "
+                         f"{tuple(dy.shape)}")
+    if dS is not None and (tuple(dS.shape) != (b, h, hd, hd)
+                           or dS.device != r.device):
+        raise ValueError(f"rwkv6_wkv_bwd takes dS of shape {(b, h, hd, hd)}"
+                         f", got {tuple(dS.shape)}")
+    if not on_card:
+        return wkv_bwd_ref(r, k, v, logw, u, dy, dS)
+    dy = dy.contiguous()
+    u = u.contiguous()
+    if not all(x.is_contiguous() for x in (r, k, v, logw)):
+        raise ValueError("rwkv6_wkv_bwd's kernel needs contiguous tensors")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"rwkv6_wkv_bwd's kernel takes head sizes "
+                         f"{HEAD_DIMS}, not {hd}")
+    dr, dk, dv = (torch.empty_like(r) for _ in range(3))
+    dlogw = torch.empty(r.shape, dtype=torch.float32, device=r.device)
+    du = torch.empty((h, hd), dtype=torch.float32, device=r.device)
+    if r.numel() == 0:
+        du.zero_()
+        return dr, dk, dv, dlogw, du
+    slices = hd // 16
+    chunks = -(-t // BWD_CHUNK)
+    ckpt = torch.empty((b, h, chunks, hd, hd), dtype=torch.float32,
+                       device=r.device)
+    dv_part = torch.empty((slices, b, t, h, hd), dtype=torch.float32,
+                          device=r.device)
+    du_part = torch.empty((b, h, hd), dtype=torch.float32, device=r.device)
+    ds = None if dS is None else dS.float().contiguous()
+    lib, fn = _launcher_bwd()
+    with torch.cuda.device(r.device):
+        code = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
+                  u.data_ptr(), dy.data_ptr(),
+                  None if ds is None else ds.data_ptr(), ckpt.data_ptr(),
+                  dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                  dlogw.data_ptr(), dv_part.data_ptr(), du_part.data_ptr(),
+                  du.data_ptr(), b, t, h, hd, int(r.dtype == torch.bfloat16),
+                  torch.cuda.current_stream(r.device).cuda_stream)
+    _build.check(lib, code, "rwkv6_wkv_bwd")
+    rwkv6_wkv_bwd.launches += 1
+    return dr, dk, dv, dlogw, du
+
+
 rwkv6_wkv.launches = 0
+rwkv6_wkv_bwd.launches = 0

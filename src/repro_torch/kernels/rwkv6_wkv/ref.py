@@ -20,6 +20,12 @@ holds W against it on the card; no main path runs it where there is one.
 ``wkv_chunked(r, k, v, logw, u, chunk, sub)`` is the same function in the
 kernel's chunked arithmetic (``csrc/rwkv6_wkv.cu``), for the CPU tests:
 no path calls it.
+
+``wkv_bwd_ref(r, k, v, logw, u, dy, dS)`` is its gradient, the plain
+version of W-bwd (``csrc/rwkv6_wkv_bwd.cu``): the states recomputed in
+float32 (float64 for float64 inputs) from the start, kept at every
+``CHUNK``-th step, each chunk's states rebuilt from its checkpoint, and
+the reverse step taken over the chunk.
 """
 from __future__ import annotations
 
@@ -27,6 +33,11 @@ import torch
 
 CHUNK = 512     # steps whose k ⊗ v is taken in one op
 LOG2E = 1.4426950408889634
+
+
+def _work(x):
+    """x in float32, or as it is where it is float64."""
+    return x if x.dtype == torch.float64 else x.float()
 
 
 def wkv_step(S, r_t, kv_t, w_t, u):
@@ -48,22 +59,23 @@ def wkv_decode(S, r_t, k_t, v_t, logw_t, u):
 
 def wkv_ref(r, k, v, logw, u, S0=None):
     """(y float32 (b, T, H, hd), S_T float32 (b, H, hd, hd)), from S0 (zero
-    where None)."""
+    where None); float64 inputs stay float64."""
     b, t, h, hd = r.shape
-    S = (torch.zeros(b, h, hd, hd, dtype=torch.float32, device=r.device)
-         if S0 is None else S0.float())
-    rf, wf = r.float()[..., None, :], torch.exp(logw.float())[..., None]
-    uf = u.float()[..., None]
+    work = _work(r).dtype
+    S = (torch.zeros(b, h, hd, hd, dtype=work, device=r.device)
+         if S0 is None else S0.to(work))
+    rf, wf = _work(r)[..., None, :], torch.exp(_work(logw))[..., None]
+    uf = _work(u)[..., None]
     ys = []
     for c in range(0, t, CHUNK):
-        kv = (k[:, c:c + CHUNK].float()[..., :, None]
-              * v[:, c:c + CHUNK].float()[..., None, :])  # (b,CHUNK,H,hd,hd)
+        kv = (_work(k[:, c:c + CHUNK])[..., :, None]
+              * _work(v[:, c:c + CHUNK])[..., None, :])  # (b,CHUNK,H,hd,hd)
         for r_t, kv_t, w_t in zip(rf[:, c:c + CHUNK].unbind(1), kv.unbind(1),
                                   wf[:, c:c + CHUNK].unbind(1)):
             y, S = wkv_step(S, r_t, kv_t, w_t, uf)
             ys.append(y)
     y = (torch.stack(ys, 1)[..., 0, :] if ys else
-         torch.zeros(b, 0, h, hd, dtype=torch.float32, device=r.device))
+         torch.zeros(b, 0, h, hd, dtype=work, device=r.device))
     return y, S
 
 
@@ -148,3 +160,59 @@ def wkv_chunked(r, k, v, logw, u, chunk=16, sub=16):
     y = (torch.cat(ys, 2)[:, :, :t] if ys else
          torch.zeros(b, h, 0, hd, dtype=torch.float32, device=dev))
     return y.permute(0, 2, 1, 3).contiguous(), S
+
+
+def wkv_bwd_ref(r, k, v, logw, u, dy, dS=None):
+    """The gradient of ``wkv_ref``'s (y, S_T) from a zero state at (dy,
+    dS): (dr, dk, dv) in r's type, dlogw (b, T, H, hd) and du (H, hd) in
+    float32 (float64 for float64 inputs); ``dS`` None is zero.
+
+    With S_{t-1} the state before step t and G the gradient of the state
+    after it (G = dS after the last step), each step from the last:
+
+    - dr_t = S_{t-1} dy_t + u ⊙ k_t (dy_t · v_t);
+    - dk_t = G v_t + r_t ⊙ u (dy_t · v_t);
+    - dv_t = Gᵀ k_t + dy_t (r_t · (u ⊙ k_t));
+    - dlogw_t = w_t ⊙ rowsum(G ⊙ S_{t-1}), w_t = exp(logw_t);
+    - du += r_t ⊙ k_t (dy_t · v_t), summed over T, then the batch;
+    - G ← diag(w_t) G + r_tᵀ dy_t.
+    """
+    b, t, h, hd = r.shape
+    work = _work(r).dtype
+    rf, kf, vf, lw, uf = (_work(x) for x in (r, k, v, logw, u))
+    wf = torch.exp(lw)
+    dyf = dy.to(work)
+    G = (torch.zeros(b, h, hd, hd, dtype=work, device=r.device)
+         if dS is None else dS.to(work).clone())
+    starts = list(range(0, t, CHUNK))
+    S = torch.zeros(b, h, hd, hd, dtype=work, device=r.device)
+    ckpts = []
+    for c in starts:
+        ckpts.append(S)
+        for i in range(c, min(c + CHUNK, t)):
+            S = torch.addcmul(kf[:, i, :, :, None] * vf[:, i, :, None, :],
+                              wf[:, i, :, :, None], S)
+    dr, dk, dv, dlogw = (torch.empty(b, t, h, hd, dtype=work,
+                                     device=r.device) for _ in range(4))
+    du = torch.zeros(b, h, hd, dtype=work, device=r.device)
+    for c, S in zip(reversed(starts), reversed(ckpts)):
+        before = []
+        for i in range(c, min(c + CHUNK, t)):
+            before.append(S)
+            S = torch.addcmul(kf[:, i, :, :, None] * vf[:, i, :, None, :],
+                              wf[:, i, :, :, None], S)
+        for i in range(min(c + CHUNK, t) - 1, c - 1, -1):
+            Sp = before[i - c]
+            r_t, k_t, v_t, w_t, dy_t = (x[:, i] for x in (rf, kf, vf, wf,
+                                                           dyf))
+            dyv = (dy_t * v_t).sum(-1, keepdim=True)          # (b, h, 1)
+            dr[:, i] = (Sp @ dy_t[..., None])[..., 0] + uf * k_t * dyv
+            dk[:, i] = (G @ v_t[..., None])[..., 0] + r_t * uf * dyv
+            dv[:, i] = ((G.transpose(-1, -2) @ k_t[..., None])[..., 0]
+                        + dy_t * (r_t * uf * k_t).sum(-1, keepdim=True))
+            dlogw[:, i] = w_t * (G * Sp).sum(-1)
+            du += r_t * k_t * dyv
+            G = torch.addcmul(r_t[..., :, None] * dy_t[..., None, :],
+                              w_t[..., :, None], G)
+    return (dr.to(r.dtype), dk.to(r.dtype), dv.to(r.dtype), dlogw,
+            du.sum(0))

@@ -38,12 +38,12 @@ parameters instead.
 ``forward`` and ``loss`` are differentiable: the AdamW route turns the
 parameters' gradients on with ``model.requires_grad_(True)`` (every
 parameter is made with ``requires_grad=False``, so serving builds no
-graph), and K3's gradient is its backward kernel
-(``kernels.flash_attention.ops``). ``prefill`` and ``decode_step`` run
-under ``torch.no_grad()``, and so does ``fill_cross_cache``. The hybrid's
-scan (``kernels.rglru_scan``), K3 at head_dim 256 and RWKV6's recurrence
-(``kernels.rwkv6_wkv``) have no backward kernel: on the card they raise
-where a gradient is asked for.
+graph). Each kernel's gradient is a backward kernel: K3's is K3-bwd
+(``kernels.flash_attention.ops``, head_dim 256 included), the hybrid's
+RG-LRU's is S-bwd (``kernels.rglru_scan``) and RWKV6's recurrence's is
+W-bwd (``kernels.rwkv6_wkv``); on CPU tensors their plain versions.
+``prefill`` and ``decode_step`` run under ``torch.no_grad()``, and so does
+``fill_cross_cache``.
 """
 from __future__ import annotations
 

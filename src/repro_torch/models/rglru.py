@@ -6,7 +6,8 @@ full-sequence forms (``rglru_apply``, ``rglru_prefill``) run the gates'
 elementwise part and the recurrence ``h_t = a_t · h_{t-1} + b_t`` through
 S (``kernels.rglru_scan.ops.rglru_lru``: one CUDA kernel on the card, its
 plain version on the CPU) where the reference runs ``_gates`` and
-``jax.lax.associative_scan``; S writes h in the model's type. Decode is the
+``jax.lax.associative_scan``; S writes h in the model's type, and its
+gradient is S-bwd (``rglru_lru_bwd``). Decode is the
 one-step update in plain torch, through the same gate function
 (``ref.rglru_gates_ref``) as S's plain version. The gates, ``a``, the
 gated input and the decode state ``h`` are float32; the state a decode

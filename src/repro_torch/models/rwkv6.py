@@ -9,8 +9,9 @@ bonus u for the current token, a float32 (dk x dv) WKV state a head, group
 norm and a SiLU output gate. The full-sequence forms (``rwkv6_apply``,
 ``rwkv6_prefill``) run the WKV recurrence through W
 (``kernels.rwkv6_wkv.ops.rwkv6_wkv``: one CUDA kernel on the card, its plain
-version on the CPU), which returns the last state too, where the reference
-runs a ``jax.lax.scan`` over T; decode is one eager step, through the same
+version on the CPU), which returns the last state too and whose gradient
+is W-bwd (``rwkv6_wkv_bwd``), where the reference runs a ``jax.lax.scan``
+over T; decode is one eager step, through the same
 step function as W's plain version (``ref.wkv_decode``). The decode state is
 S (b, H, hd, hd) float32 and the last normed input of the mixer (``shift``)
 and of the channel mix (the layer's ``cmix_shift``): O(1) in sequence

@@ -244,12 +244,17 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 
 def test_d256_forward_has_no_gradient_kernel():
-    """A gradient through K3 at head_dim 256 is refused on the card before
-    any launch (no backward kernel takes it); without grad the forward is
-    the Hopper kernel's."""
+    """A gradient through K3 at head_dim 256 in bf16 has a backward kernel,
+    the mma.sync one (the name is older than that kernel); in float32, which
+    no forward kernel takes at 256, it is refused on the card before any
+    launch."""
     q = _bf16(1, 2, 8, 256)
+    ops.check_bwd(q)
+    assert ops.choose_bwd_kernel(q, q, q, q, q) == "flash_attention_bwd_mma"
     with pytest.raises(ValueError, match="backward kernel"):
-        ops.check_bwd(q)
+        ops.check_bwd(q.float())
+    with pytest.raises(ValueError, match="backward kernel"):
+        ops.check_bwd(_bf16(1, 2, 8, 264))
 
 
 # d256_plan: (b, hq, hkv, sq, clusters the card holds of 1 and of 2 CTAs)

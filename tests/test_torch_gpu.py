@@ -82,8 +82,20 @@ layer shape cut to T = 1024, a T that is no multiple of a chunk, the
 reduced config's float32 head of 16, a strong-decay draw), y and the last
 state each within WKV_TOL of the plain version's max |value|, overall and
 per head, the same bits on a repeat; raising on a head size other than 16
-or 64, a stride, a gradient and a start off 16 bytes; the reduced model
-on the card against the CPU.
+or 64, a stride and a start off 16 bytes (a gradient launches W-bwd);
+the reduced model on the card against the CPU.
+
+The recurrent families' training kernels (port only): S-bwd
+(``rglru_lru_bwd``) and W-bwd (``rwkv6_wkv_bwd``) against their plain
+versions run on the card at ``LRU_BWD_SHAPES`` and ``WKV_BWD_SHAPES`` (the
+models' layer shapes, T no tile or chunk divides, float32 and bf16, a
+strong-decay draw), each gradient within ``RTRAIN_TOL`` of its max |plain|
+(bf16: the outputs round to bf16), the same bits on a repeat, the
+gradient through each op launching its kernel; K3-bwd at head_dim 256
+(``D256_BWD_SHAPES``: recurrentgemma-2b's layer, T below its window, GQA,
+a ragged T) on the mma.sync kernel under BWD_TOL and BWD_ROW_TOL; the
+reduced recurrentgemma-2b, rwkv6-3b and whisper-small's gradients on the
+card against the CPU's.
 """
 import pytest
 import torch
@@ -113,11 +125,12 @@ from repro_torch.kernels.perturb.ops import (abo_zo_perturb,
 from repro_torch.kernels.griewank.ops import (griewank_aggregates,
                                               griewank_shortcut_mismatches)
 from repro_torch.kernels.griewank.ref import griewank_aggregates_ref
-from repro_torch.kernels.rglru_scan.ops import (rglru_lru,
+from repro_torch.kernels.rglru_scan.ops import (rglru_lru, rglru_lru_bwd,
                                                 shortcut_mismatches)
-from repro_torch.kernels.rglru_scan.ref import rglru_lru_ref
-from repro_torch.kernels.rwkv6_wkv.ops import rwkv6_wkv
-from repro_torch.kernels.rwkv6_wkv.ref import wkv_ref
+from repro_torch.kernels.rglru_scan.ref import (rglru_lru_bwd_ref,
+                                                rglru_lru_ref)
+from repro_torch.kernels.rwkv6_wkv.ops import rwkv6_wkv, rwkv6_wkv_bwd
+from repro_torch.kernels.rwkv6_wkv.ref import wkv_bwd_ref, wkv_ref
 from repro_torch.models.model import Model
 from repro_torch.objectives import GRIEWANK, OBJECTIVES
 from test_torch_dense_layouts import DENSE_HEADS, narrow, prompt_len
@@ -235,6 +248,25 @@ BWD_SHAPES = [
 ]
 BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 BWD_ROW_TOL = {torch.bfloat16: 1e-1, torch.float32: 1e-3}
+# K3-bwd at head_dim 256 (the mma.sync kernel, bf16): recurrentgemma-2b's
+# layer at train_4k's T, T below the window, GQA in pairs, a ragged T
+D256_BWD_SHAPES = [(1, 10, 1, 4096, 4096, 256, True, 2048, torch.bfloat16),
+                   (1, 10, 1, 1000, 1000, 256, True, 2048, torch.bfloat16),
+                   (2, 8, 2, 640, 640, 256, True, 300, torch.bfloat16),
+                   (1, 2, 1, 77, 77, 256, True, None, torch.bfloat16)]
+# S-bwd at recurrentgemma-2b's (1, 4096, 2560), a T no tile of 64 divides,
+# and edges; W-bwd at rwkv6-3b's (1, 4096, 40, 64), a T no chunk of 16
+# divides in float32, the reduced head of 16, a strong-decay draw. Each
+# gradient held as max |got - want| over max |want| (float32 outputs:
+# the two sum in other orders over up to 4096 steps; bf16 outputs round to
+# bf16, one spacing 2^-8 of the value)
+LRU_BWD_SHAPES = [(1, 4096, 2560), (3, 1000, 2568), (2, 65, 264),
+                  (1, 1, 296)]
+WKV_BWD_SHAPES = [(1, 4096, 40, 64, torch.bfloat16, 0.0),
+                  (2, 77, 40, 64, torch.float32, 0.0),
+                  (3, 100, 4, 16, torch.float32, 0.0),
+                  (1, 1000, 40, 64, torch.float32, 3.0)]
+RTRAIN_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 BWD_ROW_FLOOR = 5e-2      # see _grad_row_err
 # a model's gradients with K3 and K3-bwd against the plain attention's, per
 # tensor, max |diff| over max |plain| (bf16: the plain attention rounds
@@ -1455,8 +1487,10 @@ def test_rglru_lru_shortcuts_hold_on_every_input(cuda):
 
 def test_rglru_lru_refuses_what_it_does_not_serve(cuda):
     u, xi, xr, lam = _lru_inputs((1, 16, 16), torch.bfloat16, cuda, 1)
-    with pytest.raises(ValueError, match="no backward"):
-        rglru_lru(u, xi, xr, lam.clone().requires_grad_(True))
+    before = rglru_lru_bwd.launches          # a gradient is S-bwd's now
+    h, _ = rglru_lru(u, xi, xr, lam.clone().requires_grad_(True))
+    h.float().sum().backward()
+    assert rglru_lru_bwd.launches == before + 1
     with pytest.raises(ValueError, match="contiguous"):
         rglru_lru(*(x.transpose(1, 2) for x in (u, xi, xr)), lam)
     with pytest.raises(ValueError, match="one type"):
@@ -1475,11 +1509,13 @@ def test_rglru_lru_refuses_what_it_does_not_serve(cuda):
 
 
 def test_rglru_scan_refuses_what_it_does_not_serve(cuda):
-    """float32 as bf16: no gradient, no stride, channels in groups of 4
-    (16 bytes), 16-byte aligned rows; no fallback."""
+    """float32 as bf16: no stride, channels in groups of 4 (16 bytes),
+    16-byte aligned rows; no fallback. A gradient is S-bwd's."""
     u, xi, xr, lam = _lru_inputs((1, 8, 4), torch.float32, cuda, 4)
-    with pytest.raises(ValueError, match="no backward"):
-        rglru_lru(u.clone().requires_grad_(True), xi, xr, lam)
+    before = rglru_lru_bwd.launches
+    h, _ = rglru_lru(u.clone().requires_grad_(True), xi, xr, lam)
+    h.sum().backward()
+    assert rglru_lru_bwd.launches == before + 1
     with pytest.raises(ValueError, match="contiguous"):
         rglru_lru(*(x.transpose(1, 2) for x in (u, xi, xr)), lam[:1].expand(8))
     odd = _lru_inputs((2, 33, 10), torch.float32, cuda, 3)   # 10 % 4 != 0
@@ -1538,8 +1574,8 @@ def test_rwkv6_wkv_matches_plain(cuda, case):
 
 
 def test_rwkv6_wkv_refuses_what_it_does_not_serve(cuda):
-    """No head size but 16 and 64, no stride, no gradient, no start off 16
-    bytes; no fallback."""
+    """No head size but 16 and 64, no stride, no start off 16 bytes; no
+    fallback. A gradient is W-bwd's."""
     r, k, v, logw, u = _wkv_inputs((1, 8, 2, 32), torch.bfloat16, cuda, 1)
     with pytest.raises(ValueError, match="head sizes"):
         rwkv6_wkv(r, k, v, logw, u)
@@ -1547,13 +1583,175 @@ def test_rwkv6_wkv_refuses_what_it_does_not_serve(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         rwkv6_wkv(*(x.transpose(1, 2).contiguous().transpose(1, 2)
                     for x in (r, k, v, logw)), u)
-    with pytest.raises(ValueError, match="no backward"):
-        rwkv6_wkv(r, k, v, logw, u.clone().requires_grad_(True))
-    with pytest.raises(ValueError, match="no backward"):
-        rwkv6_wkv(r.float().requires_grad_(True), k.float(), v.float(), logw,
-                  u)
+    before = rwkv6_wkv_bwd.launches         # a gradient is W-bwd's now
+    y, _ = rwkv6_wkv(r, k, v, logw, u.clone().requires_grad_(True))
+    y.sum().backward()
+    y, _ = rwkv6_wkv(r.float().requires_grad_(True), k.float(), v.float(),
+                     logw, u)
+    y.sum().backward()
+    assert rwkv6_wkv_bwd.launches == before + 2
     y, S = rwkv6_wkv(r[:, :0], k[:, :0], v[:, :0], logw[:, :0], u)
     assert y.shape == (1, 0, 2, 64) and not S.any()
     off = torch.empty(r.numel() + 1, dtype=r.dtype, device=cuda)[1:]
     with pytest.raises(ValueError, match="16 bytes"):
         rwkv6_wkv(off.view(r.shape), k, v, logw, u)
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families' training kernels
+# ---------------------------------------------------------------------------
+def _rel_err(got, want):
+    """max |got - want| over max |want|."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", LRU_BWD_SHAPES)
+def test_rglru_lru_bwd_matches_plain(cuda, shape, dtype):
+    """S-bwd against its plain version on the card (du, dxi, dxr and dΛ,
+    with a gradient of the last h too), within RTRAIN_TOL; the same bits
+    on a repeat; one launch a call."""
+    u, xi, xr, lam = _lru_inputs(shape, dtype, cuda, sum(shape))
+    g = torch.Generator(device=cuda).manual_seed(sum(shape) + 5)
+    dh = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    dlast = torch.randn((shape[0], shape[2]), generator=g, device=cuda)
+    before = rglru_lru_bwd.launches
+    got = rglru_lru_bwd(u, xi, xr, lam, dh, dlast)
+    again = rglru_lru_bwd(u, xi, xr, lam, dh, dlast)
+    torch.cuda.synchronize()
+    assert rglru_lru_bwd.launches == before + 2
+    want = rglru_lru_bwd_ref(u, xi, xr, lam, dh, dlast)
+    for name, a, w, b in zip(("du", "dxi", "dxr", "dlam"), got, want, again):
+        assert a.dtype == w.dtype and a.shape == w.shape, name
+        assert bool(torch.isfinite(a).all()), name
+        tol = RTRAIN_TOL[dtype if name != "dlam" else torch.float32]
+        assert _rel_err(a, w) <= tol, (name, _rel_err(a, w))
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("case", WKV_BWD_SHAPES)
+def test_rwkv6_wkv_bwd_matches_plain(cuda, case):
+    """W-bwd against its plain version on the card (dr, dk, dv, dlogw and
+    du, with a gradient of the last state too), within RTRAIN_TOL overall
+    and for dr, dk, dv per head; the same bits on a repeat."""
+    *shape, dtype, shift = case
+    r, k, v, logw, u = _wkv_inputs(tuple(shape), dtype, cuda, sum(shape),
+                                   shift)
+    g = torch.Generator(device=cuda).manual_seed(sum(shape) + 5)
+    b, t, h, hd = shape
+    dy = torch.randn((b, t, h, hd), generator=g, device=cuda)
+    dS = torch.randn((b, h, hd, hd), generator=g, device=cuda)
+    before = rwkv6_wkv_bwd.launches
+    got = rwkv6_wkv_bwd(r, k, v, logw, u, dy, dS)
+    again = rwkv6_wkv_bwd(r, k, v, logw, u, dy, dS)
+    torch.cuda.synchronize()
+    assert rwkv6_wkv_bwd.launches == before + 2
+    want = wkv_bwd_ref(r, k, v, logw, u, dy, dS)
+    for name, a, w, c in zip(("dr", "dk", "dv", "dlogw", "du"), got, want,
+                             again):
+        assert a.dtype == w.dtype and a.shape == w.shape, name
+        assert bool(torch.isfinite(a).all()), name
+        tol = RTRAIN_TOL[dtype if name in ("dr", "dk", "dv")
+                         else torch.float32]
+        assert _rel_err(a, w) <= tol, (name, _rel_err(a, w))
+        if name in ("dr", "dk", "dv"):
+            assert float(_rel(a.float(), w.float(), (0, 1, 3)).max()) <= tol
+        assert torch.equal(a, c), name
+
+
+@pytest.mark.parametrize("shape", D256_BWD_SHAPES)
+def test_flash_attention_bwd_d256_matches_plain(cuda, shape):
+    """K3-bwd at head_dim 256: the forward is the d = 256 Hopper kernel
+    (its lse), the backward the mma.sync kernel, held as the other K3-bwd
+    cases; the same bits on a repeat."""
+    q, k, v, dout, causal, window, _ = _bwd_case(shape, cuda)
+    assert choose_kernel(q, k, v) == "flash_attention_sm90_d256"
+    before = (flash_attention_bwd_mma.launches,
+              flash_attention_bwd_sm90.launches)
+    got = _bwd_grads(q, k, v, dout, causal, window, None)
+    torch.cuda.synchronize()
+    assert (flash_attention_bwd_mma.launches,
+            flash_attention_bwd_sm90.launches) == (before[0] + 1, before[1])
+    want = flash_attention_bwd_plain(q, k, v, dout, causal=causal,
+                                     window=window)
+    for name, a, w in zip("qkv", got, want):
+        assert bool(torch.isfinite(a).all())
+        err = float((a.float() - w.float()).abs().max()
+                    / w.float().abs().max())
+        assert err < BWD_TOL[torch.bfloat16], (name, err)
+        assert _grad_row_err(a, w) < BWD_ROW_TOL[torch.bfloat16], name
+    again = _bwd_grads(q, k, v, dout, causal, window, None)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+def test_flash_attention_bwd_mma_takes_d_from_p_not_the_rounded_output(
+        cuda):
+    """Values that share a large common part (as whisper-small's decoder's
+    do at random weights) make dP - D small beside D = rowsum(dO ∘ O): D
+    taken from O rounded to bf16 then moves dQ by several percent, as the
+    float64 emulation of that rule shows. The mma.sync kernel's bf16 D is
+    rowsum(P ∘ dP) and keeps dQ within BWD_TOL of the float64 gradient."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    b, h, t, d = 2, 4, 448, 64
+    q, k = (torch.randn(b, h, t, d, generator=g, device=cuda).bfloat16()
+            for _ in range(2))
+    v = (3.0 + 0.05 * torch.randn(b, h, t, d, generator=g,
+                                  device=cuda)).bfloat16()
+    dout = torch.randn(b, h, t, d, generator=g, device=cuda).bfloat16()
+    lse = torch.empty(b, h, t, dtype=torch.float32, device=cuda)
+    o = flash_attention_mma(q, k, v, causal=True, lse=lse)
+    dq, dk, dv = flash_attention_bwd_mma(q, k, v, o, dout, lse, causal=True)
+    q64, k64, v64, do64 = (x.double() for x in (q, k, v, dout))
+    s = (q64 @ k64.transpose(-1, -2)) * d ** -0.5
+    mask = torch.ones(t, t, dtype=torch.bool, device=cuda).tril()
+    p = torch.softmax(s.masked_fill(~mask, float("-inf")), -1)
+    dp = do64 @ v64.transpose(-1, -2)
+    want = (p * (dp - (p * dp).sum(-1, keepdim=True))) @ k64 * d ** -0.5
+    rounded = ((p * (dp - (do64 * o.double()).sum(-1, keepdim=True)))
+               @ k64 * d ** -0.5)
+    err, err_rounded = _rel_err(dq, want), _rel_err(rounded, want)
+    assert err < BWD_TOL[torch.bfloat16], err
+    assert err_rounded > 3 * err, (err, err_rounded)
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-3b",
+                                  "whisper-small"])
+def test_reduced_recurrent_model_gradients_on_the_card_match_cpu(cuda, arch):
+    """The reduced (float32) model's loss and every gradient on the card,
+    through S-bwd, W-bwd and K3-bwd, against the same model's on the CPU
+    (the plain versions), each within MODEL_GRAD_TOL of its max |cpu|."""
+    cfg = reduced(ARCHS[arch])
+    g = torch.Generator().manual_seed(2)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 41), generator=g)}
+    if cfg.encoder_layers:
+        batch["frames"] = torch.randn(2, cfg.encoder_len, cfg.d_model,
+                                      generator=g)
+    cpu = Model(cfg, device="cpu").init(0)
+    card = Model(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    counts = (rglru_lru_bwd.launches, rwkv6_wkv_bwd.launches,
+              flash_attention_bwd_mma.launches)
+    out = {}
+    for dev, model in (("cpu", cpu), (str(cuda), card)):
+        model.requires_grad_(True)
+        loss = model.loss({n: x.to(dev) for n, x in batch.items()},
+                          remat=True)[0]
+        loss.backward()
+        out[str(dev)] = (float(loss.detach()),
+                         {n: p.grad.cpu() for n, p in
+                          model.named_parameters()})
+    kinds = [cfg.mixer_kind(i) for i in range(cfg.n_layers)]
+    moved = tuple(a - b for a, b in zip(
+        (rglru_lru_bwd.launches, rwkv6_wkv_bwd.launches,
+         flash_attention_bwd_mma.launches), counts))
+    n_attn = sum(k in ("attn", "swa") for k in kinds) + (
+        cfg.encoder_layers + cfg.n_layers if cfg.encoder_layers else 0)
+    assert moved == (kinds.count("rglru"), kinds.count("rwkv6"), n_attn)
+    (lc, gc), (lg, gg) = out["cpu"], out[str(cuda)]
+    assert abs(lc - lg) <= 1e-4 * abs(lc)
+    for n in gc:
+        err = float((gg[n] - gc[n]).abs().max()
+                    / gc[n].abs().max().clamp_min(1e-30))
+        assert err < MODEL_GRAD_TOL["float32"], (n, err)

@@ -74,6 +74,9 @@ DENSE = ["mistral-nemo-12b", "h2o-danube-3-4b", "granite-20b",
 MOE = ["olmoe-1b-7b", "moonshot-v1-16b-a3b"]
 HYBRID = ["recurrentgemma-2b"]
 VLM = ["qwen2-vl-7b"]
+RWKV = ["rwkv6-3b"]
+AUDIO = ["whisper-small"]
+RECURRENT = HYBRID + RWKV
 
 
 def _cfgs(arch, dtype=None):
@@ -109,6 +112,24 @@ def _tbits(t: torch.Tensor) -> np.ndarray:
 def _batch(cfg, b=2, t=24, seed=5):
     toks = np.random.RandomState(seed).randint(0, cfg.vocab_size, (b, t + 1))
     return toks
+
+
+def _frames(cfg, b=2, seed=6):
+    """An encoder-decoder's stubbed frame embeddings (b, encoder_len, d),
+    or None."""
+    if not cfg.encoder_layers:
+        return None
+    return np.random.RandomState(seed).normal(
+        size=(b, cfg.encoder_len, cfg.d_model)).astype(np.float32)
+
+
+def _batches(cfg, toks, frames):
+    """The same batch for both packages: (JAX's, the port's)."""
+    jb, tb = {"tokens": jnp.asarray(toks)}, {"tokens": torch.from_numpy(toks)}
+    if frames is not None:
+        jb["frames"], tb["frames"] = (jnp.asarray(frames),
+                                      torch.from_numpy(frames))
+    return jb, tb
 
 
 # ---------------------------------------------------------------------------
@@ -246,12 +267,13 @@ def _ref_candidates(jm, params, batch, key, state, m):
     return fs, win
 
 
-@pytest.mark.parametrize("arch", ["mistral-nemo-12b", "granite-20b"] + MOE)
+@pytest.mark.parametrize("arch", ["mistral-nemo-12b", "granite-20b"] + MOE
+                         + RECURRENT + AUDIO)
 def test_abo_zo_step_matches_reference(arch):
     jm, params, tm = _pair(arch)
     cfg = jabo.ABOZOConfig(window=0.05)
     toks = _batch(tm.cfg)
-    jbatch = {"tokens": jnp.asarray(toks)}
+    jbatch, tbatch = _batches(tm.cfg, toks, _frames(tm.cfg))
     key = jax.random.fold_in(jax.random.PRNGKey(1), 2)
     jstate = {"step": jnp.asarray(3, jnp.int32),
               "window": jnp.asarray(cfg.window, jnp.float32)}
@@ -267,7 +289,6 @@ def test_abo_zo_step_matches_reference(arch):
     probe = {n: torch.empty_like(p) for n, p in names.items()}
     tkey = tuple(int(x) for x in np.asarray(key))
     dir_key = tabo.fold_in(tkey, 3)
-    tbatch = {"tokens": torch.from_numpy(toks)}
     with torch.no_grad():
         got = [float(tm.loss(tbatch)[0])]
         for i, s in enumerate(tabo.base_scales(cfg.m_candidates)):
@@ -359,7 +380,7 @@ def test_adamw_update_matches_reference(dtype, clip):
 # ---------------------------------------------------------------------------
 # the loss and its gradients
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", DENSE + MOE + RECURRENT)
 def test_loss_and_grads_match_reference(arch):
     jm, params, tm = _pair(arch)
     toks = _batch(tm.cfg)
@@ -409,6 +430,10 @@ def test_attention_gradient_on_cpu_is_the_plain_versions():
 # make_train_step against the reference's jitted step
 # ---------------------------------------------------------------------------
 def _adamw_runs(arch, *, remat, microbatches, steps):
+    """``steps`` AdamW steps through both packages' ``make_train_step``
+    from the same weights and batches (an encoder-decoder's with frames):
+    the losses and gnorms, each parameter's |port - JAX| flattened, and
+    the port's model."""
     jm, params, tm = _pair(arch)
     mesh = make_host_mesh(1)
     jstep, _ = jsteps.make_train_step(jm, mesh, optimizer="adamw",
@@ -421,10 +446,10 @@ def _adamw_runs(arch, *, remat, microbatches, steps):
     out = []
     for s in range(steps):
         toks = _batch(tm.cfg, b=4, seed=20 + s)
+        jb, tb = _batches(tm.cfg, toks, _frames(tm.cfg, b=4, seed=40 + s))
         with mesh:
-            params, jstate, jmet = jstep(params, jstate,
-                                         {"tokens": jnp.asarray(toks)})
-        tstate, tmet = tstep(tstate, {"tokens": torch.from_numpy(toks)})
+            params, jstate, jmet = jstep(params, jstate, jb)
+        tstate, tmet = tstep(tstate, tb)
         out.append((float(jmet["loss"]), float(tmet["loss"]),
                     float(jmet["gnorm"]), float(tmet["gnorm"])))
     want = named_from_jax(tm.cfg, jax.tree.map(np.asarray, params))
@@ -451,6 +476,15 @@ def test_adamw_train_step_matches_reference(remat, steps):
 @pytest.mark.parametrize("arch", MOE)
 def test_moe_adamw_train_step_matches_reference(arch):
     """One AdamW step through a float32 router and the experts."""
+    _hold_steps(*_adamw_runs(arch, remat=True, microbatches=1, steps=1)[:2])
+
+
+@pytest.mark.parametrize("arch", RECURRENT + AUDIO)
+def test_recurrent_adamw_train_step_matches_reference(arch):
+    """One AdamW step with remat through S and S-bwd (recurrentgemma-2b's
+    RG-LRU layers beside its local attention), W and W-bwd (rwkv6-3b's
+    float32 leaves among its bf16-typed tree) and whisper-small's encoder,
+    decoder and cross-attention with frames."""
     _hold_steps(*_adamw_runs(arch, remat=True, microbatches=1, steps=1)[:2])
 
 

@@ -65,9 +65,12 @@ Phases, in order; any failure exits non-zero before the result line:
  14. the mma.sync kernel's path: the reduced ``mistral-nemo-12b`` (float32,
      head_dim 16) prefill step on the card, against its plain-attention run,
      and that kernel timed at its attention shape;
- 15. the LM training path (``[train]``, TRAIN_ARGS): K3-bwd (two kernels,
-     each case through the one ``choose_bwd_kernel`` gives it) against its
-     plain version; the Hopper kernel, the mma.sync kernel and SDPA's
+ 15. the LM training path (``[train]``, TRAIN_ARGS): K3-bwd (four kernels:
+     the Hopper ones at head_dim 120/128 and 64, and 256 in phase 24, and
+     the mma.sync one; each case through the one ``choose_bwd_kernel``
+     gives it) against its plain version, and D's rule on values with a
+     large common part against float64 at 128, 64 and 256 (``d_rule``);
+     the Hopper kernel, the mma.sync kernel and SDPA's
      backward timed in turns at the AdamW shape and at T = 8192; P (ABO-ZO's
      perturbation) bit for bit its plain version and timed over the whole
      model; ABO-ZO on the whole ``mistral-nemo-12b`` through
@@ -173,20 +176,24 @@ Phases, in order; any failure exits non-zero before the result line:
      layer; K3-bwd at (8, 48/1, 512, 128) timed in turns with SDPA's
      backward);
  24. the recurrent families' and whisper-small's training at full width
-     (``[rtrain]``, RTRAIN_T): the three backward kernels the path adds,
-     S-bwd, W-bwd and K3-bwd at head_dim 256, each against its plain
+     (``[rtrain]``, RTRAIN_T): the backward kernels the path adds, S-bwd,
+     W-bwd and the Hopper K3-bwd at head_dim 256, each against its plain
      version on the card (T no tile or chunk divides, T below and above
      the window, MQA and GQA, float32 and bf16), the same bits on a repeat,
      each timed on the device alone beside its plain version's held call
-     and its bound (K3-bwd in turns with SDPA's backward); AdamW through
+     and its bound (K3-bwd in turns with the mma.sync kernel and SDPA's
+     backward); the Hopper K3-bwd at head_dim 64 at whisper-small's three
+     shapes the same way, the decoder's per row against float64; AdamW
+     through
      ``make_train_step`` on recurrentgemma-2b and rwkv6-3b (1 x 4096
      tokens, remat): step 1's loss and every gradient against the plain
      versions' (rwkv6's held in float32 cut to 2 layers, its bf16 read),
      two steps timed (wall, peak memory, launches a step forward and
-     backward apart: 18 S-bwd and 8 K3-bwd, 32 W-bwd; no plain version
-     called); one ABO-ZO step on each of the three whole models; whisper-
-     small's AdamW step held the same way, its 36 K3-bwd launches at head
-     dim 64 counted by kernel; the launcher's AdamW (recurrentgemma-2b) and
+     backward apart: 18 S-bwd and 8 Hopper K3-bwd at 256, no mma.sync one;
+     32 W-bwd; no plain version called); one ABO-ZO step on each of the
+     three whole models; whisper-small's AdamW step held the same way, its
+     36 K3-bwd launches all of the Hopper kernel at head_dim 64; the
+     launcher's AdamW (recurrentgemma-2b) and
      ABO-ZO (rwkv6-3b) runs at 1 x 4096 tokens;
  25. one JSON line with every kernel's launches, error and times;
  26. the last line, ``{"ok": true, "device": {...}}``.
@@ -414,7 +421,7 @@ HTTP_PHASE_S = 150
 # attention at TRAIN_BWD_SHAPES (the AdamW shape, the reduced config's at
 # 512 and at (e)'s 128 tokens, a ragged sq and a window, olmoe's MHA, and
 # the Hopper kernel's edges; tests/test_torch_gpu.py's BWD_SHAPES) and at
-# BWD_ROUTING_CASE, held as max |got - want| over the tensor's max |want|,
+# BWD_ROUTING_CASES, held as max |got - want| over the tensor's max |want|,
 # overall and per row, each through the kernel that choose_bwd_kernel names
 # (its launch count moves by one); then the Hopper kernel, the mma.sync
 # kernel and SDPA's backward timed in turns at the AdamW shape and at
@@ -442,10 +449,17 @@ TRAIN_BWD_SHAPES = [
     (1, 48, 1, 256, 256, 128, True, None, "bfloat16"),   # MQA (granite)
     (8, 48, 1, 512, 512, 128, True, None, "bfloat16"),   # granite's AdamW
 ]
-# A Hopper-eligible shape whose dO rows are BWD_ROUTING_STRIDE elements
-# apart (not a multiple of 8): the mma.sync kernel takes it.
-BWD_ROUTING_CASE = (2, 4, 2, 200, 200, 128, True, None, "bfloat16")
-BWD_ROUTING_STRIDE = 132
+# Hopper-eligible shapes (head_dim 128 and 64) whose dO rows are the
+# given number of elements apart (not a multiple of 8): the mma.sync
+# kernel takes them.
+BWD_ROUTING_CASES = [((2, 4, 2, 200, 200, 128, True, None, "bfloat16"), 132),
+                     ((2, 4, 2, 200, 200, 64, True, None, "bfloat16"), 68)]
+# D's rule: values that share a large common part,
+# v = 3 + 0.05·randn, (2, 4, 448, d) causal, through each Hopper backward;
+# dQ against float64 within BWD_TOL, and D from O rounded to bf16
+# (emulated in float64) more than D_RULE_RATIO times as far off
+D_RULE_DIMS = (128, 64, 256)
+D_RULE_RATIO = 3.0
 # The long-context training shape of mistral-nemo-12b's own config, timed
 # (b, hq, hkv, T, d; bf16, causal); the Hopper kernel is held to the plain
 # backward at BWD_LONG_HELD, whose autograd needs a few GB
@@ -677,13 +691,15 @@ DENSE_LONG_SHAPE = (1, 48, 1, DENSE_LONG_T, DENSE_LONG_T, 128, True, None)
 DENSE_BWD_SHAPE = (8, 48, 1, 512, 512, 128, True, None, "bfloat16")
 DENSE_PHASE_S = 240
 # Phase 24, the recurrent families' and whisper-small's training at full
-# width (``[rtrain]``): (a) the three backward kernels the path adds, each
+# width (``[rtrain]``): (a) the backward kernels the path adds, each
 # against its plain version run on the card, twice for the bits, then timed
 # on the device alone beside that held call's time (K3-bwd in turns with
-# SDPA's backward):
+# the mma.sync kernel and SDPA's backward):
 # S-bwd (``rglru_lru_bwd``) at S_BWD_SHAPES, W-bwd (``rwkv6_wkv_bwd``) at
-# W_BWD_SHAPES, K3-bwd at head_dim 256 (``flash_attention_bwd_mma``) at
-# D256_BWD_SHAPES, each gradient held as max |got - want| over max |want|
+# W_BWD_SHAPES, K3-bwd at head_dim 256 (``flash_attention_bwd_sm90_d256``)
+# at D256_BWD_SHAPES and at head_dim 64 (``flash_attention_bwd_sm90_d64``)
+# at WHISPER_BWD_SHAPES, each gradient held as max |got - want| over max
+# |want|
 # (RTRAIN_TOL: float32 outputs sum in other orders over up to 4096 steps;
 # bf16 outputs are one bf16 spacing, 2^-8, apart where a rounding flips)
 # and K3-bwd also per row (BWD_TOL, BWD_ROW_TOL); (b) AdamW through
@@ -703,9 +719,10 @@ DENSE_PHASE_S = 240
 # incumbent; peak memory against twice the parameter bytes plus one
 # forward's own peak: at 4096 tokens recurrentgemma's float32 logits alone
 # outweigh half its parameters); (d) whisper-small's AdamW step (4 x 448
-# tokens over 4 x 1500 stub frames) held as (b), every K3-bwd launch at
-# head_dim 64 counted by kernel; (e) ``launch.train``'s own loop, AdamW on
-# recurrentgemma-2b and ABO-ZO on rwkv6-3b, RTRAIN_STEPS steps each.
+# tokens over 4 x 1500 stub frames) held as (b), its 36 K3-bwd launches all
+# of ``flash_attention_bwd_sm90_d64``; (e) ``launch.train``'s own loop,
+# AdamW on recurrentgemma-2b and ABO-ZO on rwkv6-3b, RTRAIN_STEPS steps
+# each.
 RTRAIN_T = 4096
 RTRAIN_STEPS = 2
 S_BWD_SHAPES = [(1, RTRAIN_T, 2560, "bfloat16"), (3, 1000, 2568, "float32"),
@@ -719,6 +736,14 @@ D256_BWD_SHAPES = [
     (1, 10, 1, 1000, 1000, 256, True, 2048, "bfloat16"),  # T below the window
     (2, 8, 2, 640, 640, 256, True, 300, "bfloat16"),      # GQA
     (1, 2, 1, 77, 77, 256, True, None, "bfloat16"),       # ragged, no window
+]
+# whisper-small's K3-bwd shapes (bf16, head_dim 64, the model's layout):
+# the encoder's 1500 frames, cross-attention of 448 tokens over them, the
+# decoder's causal self-attention; the last is held against float64
+WHISPER_BWD_SHAPES = [
+    (4, 12, 12, 1500, 1500, 64, False, None, "bfloat16"),   # encoder
+    (4, 12, 12, 448, 1500, 64, False, None, "bfloat16"),    # cross
+    (4, 12, 12, 448, 448, 64, True, None, "bfloat16"),      # decoder self
 ]
 RTRAIN_TOL = {"bfloat16": 1e-2, "float32": 1e-4}
 RWKV_HOLD_LAYERS = 2
@@ -2376,11 +2401,15 @@ def _model_layout(t):
 
 def bwd_bound(b, hq, hkv, t, d, causal=True, peak=PEAK_BF16_OPS_S,
               itemsize=2) -> tuple[float, str]:
-    """Least time for K3's backward at (b, hq/hkv, t, d): q, k, v, O, dO and
+    """Least time for K3's backward at (b, hq/hkv, t, d): q, k, v, dO and
     the lse read once, dQ, dK, dV written once; five products of 2·d FLOP a
-    kept (query, key) pair (S recomputed, dP, dV, dK, dQ)."""
+    kept (query, key) pair (S recomputed, dP, dV, dK, dQ). O is read only
+    where D = rowsum(dO ∘ O), the mma.sync kernel's float32 path (bf16 and
+    every Hopper backward take D = rowsum(P ∘ dP) and never read O)."""
     pairs = t * (t + 1) / 2 if causal else t * t
-    return bound_ms(itemsize * (4 * b * hq * t * d + 4 * b * hkv * t * d)
+    o_rows = b * hq * t * d if itemsize == 4 else 0
+    return bound_ms(itemsize * (3 * b * hq * t * d + o_rows
+                                + 4 * b * hkv * t * d)
                     + 4 * b * hq * t, 10 * d * b * hq * pairs, peak)
 
 
@@ -2402,11 +2431,17 @@ def p_bound(n: int, itemsize: int) -> tuple[float, str, dict]:
 
 def bwd_kernel_for(dtype: str, d: int, dout_stride=None) -> str:
     """The K3-bwd kernel a case must run, from the routing rule stated
-    apart from ``choose_bwd_kernel``: bf16 at head_dim 120 or 128 with
-    16-byte strides to the Hopper kernel, the rest to the mma.sync one."""
-    hopper = (dtype == "bfloat16" and d in (120, 128)
-              and (dout_stride is None or dout_stride % 8 == 0))
-    return "flash_attention_bwd_sm90" if hopper else "flash_attention_bwd_mma"
+    apart from ``choose_bwd_kernel``: bf16 with 16-byte strides to the
+    Hopper kernel of its head dim (120 or 128, 64, 256), the rest to the
+    mma.sync one."""
+    if dtype == "bfloat16" and (dout_stride is None or dout_stride % 8 == 0):
+        hopper = {120: "flash_attention_bwd_sm90",
+                  128: "flash_attention_bwd_sm90",
+                  64: "flash_attention_bwd_sm90_d64",
+                  256: "flash_attention_bwd_sm90_d256"}.get(d)
+        if hopper:
+            return hopper
+    return "flash_attention_bwd_mma"
 
 
 def bwd_reading(got, again, want, name: str, ran: str, want_kernel: str,
@@ -2433,6 +2468,7 @@ def bwd_reading(got, again, want, name: str, ran: str, want_kernel: str,
 
 
 BWD_COUNTED = ("flash_attention_bwd", "flash_attention_bwd_sm90",
+               "flash_attention_bwd_sm90_d64", "flash_attention_bwd_sm90_d256",
                "flash_attention_bwd_mma")
 
 
@@ -2443,7 +2479,7 @@ def _bwd_counts() -> dict:
 
 def _bwd_ran(before: dict) -> str | None:
     """The one K3-bwd kernel whose launch count moved by one since
-    ``before`` (``_bwd_counts()``), the other's unchanged and the
+    ``before`` (``_bwd_counts()``), the others' unchanged and the
     dispatching wrapper's moved by one, else None."""
     moved = {n: c - before[n] for n, c in _bwd_counts().items()}
     if moved.pop("flash_attention_bwd") != 1:
@@ -2455,8 +2491,8 @@ def _bwd_ran(before: dict) -> str | None:
 def train_bwd_readings(dev, seed: int) -> list[dict]:
     """(a) K3-bwd against autograd through the plain attention at each
     shape of TRAIN_BWD_SHAPES, through ``flash_attention``'s gradient, and
-    at BWD_ROUTING_CASE, through ``flash_attention_bwd`` with a dO whose
-    rows are BWD_ROUTING_STRIDE apart: per case ``bwd_reading``."""
+    at each of BWD_ROUTING_CASES, through ``flash_attention_bwd`` with a dO
+    whose rows are the case's stride apart: per case ``bwd_reading``."""
     import torch
     from repro_torch.kernels.flash_attention import ops as fa
     out = []
@@ -2481,37 +2517,74 @@ def train_bwd_readings(dev, seed: int) -> list[dict]:
         out.append(bwd_reading(got, again, want, name, ran,
                                bwd_kernel_for(name, d), shape))
         del q, k, v, dout, got, again, want
-    b, hq, hkv, sq, sk, d, causal, window, name = BWD_ROUTING_CASE
-    dtype = getattr(torch, name)
-    q, k, v = (_model_layout(t)
-               for t in _qkv(dev, seed, b, hq, hkv, sq, sk, d, dtype))
-    g = torch.Generator(device=dev).manual_seed(seed + 7)
-    dout = torch.randn((b, hq, sq, BWD_ROUTING_STRIDE), generator=g,
-                       device=dev).to(dtype)[..., :d]
-    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
-    o = fa.flash_attention_sm90(q, k, v, causal=causal, window=window,
-                                lse=lse)
-    before = _bwd_counts()
-    got = fa.flash_attention_bwd(q, k, v, o, dout, lse, causal=causal,
-                                 window=window)
-    ran = _bwd_ran(before)
-    again = fa.flash_attention_bwd(q, k, v, o, dout, lse, causal=causal,
-                                   window=window)
-    want = fa.flash_attention_bwd_plain(q, k, v, dout, causal=causal,
-                                        window=window)
-    torch.cuda.synchronize()
-    r = bwd_reading(got, again, want, name, ran,
-                    bwd_kernel_for(name, d, BWD_ROUTING_STRIDE),
-                    BWD_ROUTING_CASE)
-    r["dout_stride"] = BWD_ROUTING_STRIDE
-    out.append(r)
+    for case, stride in BWD_ROUTING_CASES:
+        b, hq, hkv, sq, sk, d, causal, window, name = case
+        dtype = getattr(torch, name)
+        q, k, v = (_model_layout(t)
+                   for t in _qkv(dev, seed, b, hq, hkv, sq, sk, d, dtype))
+        g = torch.Generator(device=dev).manual_seed(seed + 7)
+        dout = torch.randn((b, hq, sq, stride), generator=g,
+                           device=dev).to(dtype)[..., :d]
+        lse = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
+        o = fa._KERNELS[fa.choose_kernel(q, k, v)](
+            q, k, v, causal=causal, window=window, lse=lse)
+        before = _bwd_counts()
+        got = fa.flash_attention_bwd(q, k, v, o, dout, lse, causal=causal,
+                                     window=window)
+        ran = _bwd_ran(before)
+        again = fa.flash_attention_bwd(q, k, v, o, dout, lse, causal=causal,
+                                       window=window)
+        want = fa.flash_attention_bwd_plain(q, k, v, dout, causal=causal,
+                                            window=window)
+        torch.cuda.synchronize()
+        r = bwd_reading(got, again, want, name, ran,
+                        bwd_kernel_for(name, d, stride), case)
+        r["dout_stride"] = stride
+        out.append(r)
+    return out
+
+
+def d_rule(dev, seed: int) -> list[dict]:
+    """D's rule through each Hopper K3-bwd (D_RULE_DIMS): on values that
+    share a large common part, dQ against the float64 gradient, beside
+    the float64 emulation of D = rowsum(dO ∘ O) with O rounded to bf16.
+    Each reading: head dim, kernel, the two errors (max |diff| over max
+    |want|)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa
+    out = []
+    for d in D_RULE_DIMS:
+        g = torch.Generator(device=dev).manual_seed(seed + 3)
+        b, h, t = 2, 4, 448
+        q, k = (torch.randn(b, h, t, d, generator=g, device=dev).bfloat16()
+                for _ in range(2))
+        v = (3.0 + 0.05 * torch.randn(b, h, t, d, generator=g,
+                                      device=dev)).bfloat16()
+        dout = torch.randn(b, h, t, d, generator=g, device=dev).bfloat16()
+        lse = torch.empty(b, h, t, dtype=torch.float32, device=dev)
+        o = fa._KERNELS[fa.choose_kernel(q, k, v)](q, k, v, lse=lse)
+        name = fa.choose_bwd_kernel(q, k, v, o, dout)
+        dq = getattr(fa, name)(q, k, v, o, dout, lse)[0]
+        q64, k64, v64, do64 = (x.double() for x in (q, k, v, dout))
+        s = (q64 @ k64.transpose(-1, -2)) * d ** -0.5
+        mask = torch.ones(t, t, dtype=torch.bool, device=dev).tril()
+        p = torch.softmax(s.masked_fill(~mask, float("-inf")), -1)
+        dp = do64 @ v64.transpose(-1, -2)
+        want = (p * (dp - (p * dp).sum(-1, keepdim=True))) @ k64 * d ** -0.5
+        rounded = ((p * (dp - (do64 * o.double()).sum(-1, keepdim=True)))
+                   @ k64 * d ** -0.5)
+        out.append({"d": d, "kernel": name, "err": rel_max(dq, want),
+                    "err_rounded_o": rel_max(rounded, want)})
+        del q, k, v, dout, lse, o, dq, q64, k64, v64, do64, s, p, dp, want
+        del rounded
+    torch.cuda.empty_cache()
     return out
 
 
 def bwd_times(dev, seed: int, b, hq, hkv, t, d, reps: int, dtype="bfloat16",
               plain=True, device_only=False) -> dict:
     """The K3-bwd kernels that take (b, hq/hkv, t, d) causal in ``dtype``
-    (the Hopper one in bf16 at head_dim 120 or 128, the mma.sync one always)
+    (the Hopper one of the head dim in bf16, the mma.sync one always)
     and SDPA's backward, timed in turns (Hopper, mma, SDPA, SDPA, mma,
     Hopper), each over ``reps`` calls; the plain version's time unless
     ``plain`` is False; the bound. The lse and O come from the forward.
@@ -2538,9 +2611,9 @@ def bwd_times(dev, seed: int, b, hq, hkv, t, d, reps: int, dtype="bfloat16",
             "sdpa": lambda: torch.autograd.grad(o_sdpa, (qs, ks, vs), dout,
                                                 retain_graph=True)}
     order = ("mma", "sdpa", "sdpa", "mma")
-    if fa.choose_bwd_kernel(q, k, v, o, dout) == "flash_attention_bwd_sm90":
-        runs["sm90"] = lambda: fa.flash_attention_bwd_sm90(q, k, v, o, dout,
-                                                           lse)
+    hopper = fa.choose_bwd_kernel(q, k, v, o, dout)
+    if hopper != "flash_attention_bwd_mma":
+        runs["sm90"] = lambda: getattr(fa, hopper)(q, k, v, o, dout, lse)
         order = ("sm90",) + order + ("sm90",)
     for fn in runs.values():
         fn()                                              # warm-up
@@ -2800,6 +2873,18 @@ def train_phase(dev, seed: int) -> list[dict]:
             bwd_reduced = r
         if r["shape"] == DENSE_BWD_SHAPE[:8]:
             bwd_granite = r
+    rule = d_rule(dev, seed)
+    for r in rule:
+        print(f"[train] (a) D's rule at head_dim {r['d']} (v = 3 + 0.05 "
+              f"randn, (2, 4, 448) causal): {r['kernel']} dQ against float64 "
+              f"{r['err']:.4g} (limit {BWD_TOL['bfloat16']}); D from O "
+              f"rounded to bf16 {r['err_rounded_o']:.4g} "
+              f"({r['err_rounded_o'] / r['err']:.1f}x, must exceed "
+              f"{D_RULE_RATIO}x)", flush=True)
+        check(r["kernel"] == bwd_kernel_for("bfloat16", r["d"])
+              and r["err"] < BWD_TOL["bfloat16"]
+              and r["err_rounded_o"] > D_RULE_RATIO * r["err"],
+              f"D's rule at head_dim {r['d']}: {r}")
     b, hq, hkv, d = TRAIN_B, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     t = TRAIN_T
     bwd_adamw = bwd_times(dev, seed, b, hq, hkv, t, d, 20)
@@ -2979,6 +3064,7 @@ def train_phase(dev, seed: int) -> list[dict]:
                         f"{ADAMW_LAYERS} layers",
          "max_abs_err_of": f"bf16 at ({b}, {hq}/{hkv}, {t}, {d}), causal",
          "max_rel_err": bwd_main["rel"], "row_rel_err": bwd_main["row"],
+         "d_rule": rule,
          "library": "scaled_dot_product_attention's backward",
          "long": {"shape": bwd_long["shape"],
                   "ms": bwd_long["ms"]["sm90"],
@@ -5626,11 +5712,23 @@ def w_bwd_bound(b, t, h, hd, itemsize) -> tuple[float, str]:
     return bound_ms(n * (6 * itemsize + 12), 12 * n * hd, PEAK_F32_OPS_S)
 
 
+def bwd_bound_cross(b, hq, hkv, sq, sk, d, causal) -> tuple[float, str]:
+    """Least time for K3's backward of sq queries over sk keys (bf16):
+    q, dO, dQ (b·hq·sq·d each), k, v, dK, dV (b·hkv·sk·d each) and the
+    lse moved once (no O: D = rowsum(P ∘ dP)); five products of 2·d FLOP a
+    kept pair (causal with sq = sk: the lower triangle)."""
+    pairs = sq * (sq + 1) // 2 if causal else sq * sk
+    return bound_ms(2 * (3 * b * hq * sq * d + 4 * b * hkv * sk * d)
+                    + 4 * b * hq * sq, 10 * d * b * hq * pairs,
+                    PEAK_BF16_OPS_S)
+
+
 def d256_bwd_bound(b, hq, hkv, t, d, window) -> tuple[float, str]:
     """Least time for K3-bwd at (b, hq/hkv, t, d) causal with a window:
-    q, k, v, O, dO and the lse read once, dQ, dK, dV written once (bf16);
-    five products of 2·d FLOP a kept (query, key) pair."""
-    return bound_ms(2 * (4 * b * hq * t * d + 4 * b * hkv * t * d)
+    q, k, v, dO and the lse read once, dQ, dK, dV written once (bf16; no
+    O: D = rowsum(P ∘ dP)); five products of 2·d FLOP a kept (query, key)
+    pair."""
+    return bound_ms(2 * (3 * b * hq * t * d + 4 * b * hkv * t * d)
                     + 4 * b * hq * t,
                     10 * d * b * hq * window_pairs(t, window),
                     PEAK_BF16_OPS_S)
@@ -5730,7 +5828,9 @@ def rtrain_counted() -> dict:
                         fa.flash_attention_mma),
             "backward": (rglru_lru_bwd, rwkv6_wkv_bwd, fa.flash_attention_bwd,
                          fa.flash_attention_bwd_mma,
-                         fa.flash_attention_bwd_sm90),
+                         fa.flash_attention_bwd_sm90,
+                         fa.flash_attention_bwd_sm90_d64,
+                         fa.flash_attention_bwd_sm90_d256),
             "perturb": (abo_zo_perturb,)}
 
 
@@ -5876,10 +5976,11 @@ def w_bwd_readings(dev, seed: int) -> dict:
 def d256_bwd_readings(dev, seed: int) -> dict:
     """(a) K3-bwd at head_dim 256 at D256_BWD_SHAPES through
     ``flash_attention``'s gradient (the d = 256 Hopper forward's lse, the
-    mma.sync backward) against the plain backward, per row, twice; then the
-    kernel, SDPA's backward (the window as a boolean mask, and causal
-    without it) and the plain version timed in turns at the path's shape.
-    Returns its reading for the kernels line."""
+    d = 256 Hopper backward) against the plain backward, per row, twice;
+    then the kernel, the mma.sync kernel, SDPA's backward (the window as a
+    boolean mask, and causal without it) timed in turns at the path's
+    shape, and the plain version. Returns the readings for the kernels
+    line of the Hopper kernel and of the mma.sync kernel at 256."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa
@@ -5931,8 +6032,10 @@ def d256_bwd_readings(dev, seed: int) -> dict:
     mask = (pos[:, None] >= pos[None]) & (pos[:, None] - pos[None] < window)
     o_mask = F.scaled_dot_product_attention(qs, krs, vrs, attn_mask=mask)
     o_causal = F.scaled_dot_product_attention(qs, krs, vrs, is_causal=True)
-    runs = {"kernel": (lambda: fa.flash_attention_bwd_mma(
+    runs = {"kernel": (lambda: fa.flash_attention_bwd_sm90_d256(
                 q, k, v, o, dout, lse, causal=causal, window=window), 10),
+            "mma": (lambda: fa.flash_attention_bwd_mma(
+                q, k, v, o, dout, lse, causal=causal, window=window), 3),
             "sdpa_window_mask": (lambda: torch.autograd.grad(
                 o_mask, (qs, krs, vrs), dout, retain_graph=True), 3),
             "sdpa_causal": (lambda: torch.autograd.grad(
@@ -5940,8 +6043,8 @@ def d256_bwd_readings(dev, seed: int) -> dict:
     for fn, _ in runs.values():
         fn()                                               # warm-up
     t_ms = {n: [] for n in runs}
-    for order in (("kernel", "sdpa_window_mask", "sdpa_causal"),
-                  ("sdpa_causal", "sdpa_window_mask", "kernel")):
+    for order in (("kernel", "mma", "sdpa_window_mask", "sdpa_causal"),
+                  ("sdpa_causal", "sdpa_window_mask", "mma", "kernel")):
         for n in order:
             t_ms[n].append(queued_ms(*runs[n]))
     ms = {n: sum(x) / len(x) for n, x in t_ms.items()}
@@ -5950,7 +6053,8 @@ def d256_bwd_readings(dev, seed: int) -> dict:
     bound, by = d256_bwd_bound(b, hq, hkv, t, d, window)
     print(f"[rtrain] (a) K3-bwd at {D256_BWD_SHAPES[0][:8]} bf16 "
           f"({window_pairs(t, window) * hq} kept pairs), in turns, device "
-          f"alone: flash_attention_bwd_mma {t_ms['kernel']} ms, SDPA's "
+          f"alone: flash_attention_bwd_sm90_d256 {t_ms['kernel']} ms, "
+          f"flash_attention_bwd_mma {t_ms['mma']} ms, SDPA's "
           f"backward with the window as a boolean mask "
           f"{t_ms['sdpa_window_mask']} ms, causal without the window "
           f"{t_ms['sdpa_causal']} ms (K and V repeated to the {hq} heads); "
@@ -5958,24 +6062,158 @@ def d256_bwd_readings(dev, seed: int) -> dict:
           f"{bound / ms['kernel']:.1%} of it | {nvidia_smi_line()}",
           flush=True)
     check(bound <= ms["kernel"], "K3-bwd at head_dim 256 beat its bound")
+    check(ms["kernel"] < ms["mma"] and ms["kernel"] < ms["sdpa_window_mask"],
+          f"the Hopper K3-bwd at head_dim 256 ({ms['kernel']:.4f} ms) is not "
+          f"faster than the mma.sync one ({ms['mma']:.4f}) and SDPA's masked "
+          f"backward ({ms['sdpa_window_mask']:.4f})")
     del q, k, v, dout, lse, o, qs, krs, vrs, mask, o_mask, o_causal, runs
     torch.cuda.empty_cache()
-    return {"name": "flash_attention_bwd_mma_d256", "route": "cuda",
+    hopper = {
+        "name": "flash_attention_bwd_sm90_d256", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/"
+                  "flash_attention_bwd_sm90_d256.cu",
+        "replaces": None,
+        "note": "port only: stands for the autodiff of "
+                "src/repro/kernels/flash_attention/ref.py::attention_ref at "
+                "head_dim 256",
+        "launches": 0, "max_abs_err": first["abs"], "ms": ms["kernel"],
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+        "library_ms": ms["sdpa_window_mask"],
+        "library": "scaled_dot_product_attention's backward with the "
+                   "window as a boolean attn_mask",
+        "library_ms_causal_no_window": ms["sdpa_causal"],
+        "mma_ms": ms["mma"], "max_rel_err": first["rel"],
+        "row_rel_err": first["row"],
+        "ms_of": f"bf16 at {D256_BWD_SHAPES[0][:8]}"}
+    return hopper, {"name": "flash_attention_bwd_mma_d256", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
             "replaces": None,
             "note": "port only: stands for the autodiff of "
                     "src/repro/kernels/flash_attention/ref.py::attention_ref"
                     " at head_dim 256; the mma.sync K3-bwd's bf16 pairs of "
                     "warps (the same wrapper and launch count as "
-                    "flash_attention_bwd_mma)",
-            "launches": 0, "max_abs_err": first["abs"], "ms": ms["kernel"],
+                    "flash_attention_bwd_mma); off the main path since the "
+                    "Hopper kernel at 256 (unaligned bf16 at 256 reaches it)",
+            "launches": 0, "max_abs_err": None, "ms": ms["mma"],
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": ms["sdpa_window_mask"],
             "library": "scaled_dot_product_attention's backward with the "
                        "window as a boolean attn_mask",
             "library_ms_causal_no_window": ms["sdpa_causal"],
-            "max_rel_err": first["rel"], "row_rel_err": first["row"],
             "ms_of": f"bf16 at {D256_BWD_SHAPES[0][:8]}"}
+
+
+def d64_bwd_readings(dev, seed: int) -> dict:
+    """(a) K3-bwd at head_dim 64 at WHISPER_BWD_SHAPES through
+    ``flash_attention``'s gradient (the d = 64 Hopper forward's lse, the
+    d = 64 Hopper backward) against the plain backward (the decoder's
+    causal self-attention against the plain backward on float64 copies),
+    per row, twice; then the kernel, the mma.sync kernel and SDPA's
+    backward timed in turns on the device alone at each shape, and the
+    plain version at the encoder's shape. Returns the Hopper kernel's
+    reading for the kernels line, with every shape's times (the mma.sync
+    kernel's among them)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa
+    shapes = {}
+    for shape, part in zip(WHISPER_BWD_SHAPES, ("encoder", "cross", "self")):
+        b, hq, hkv, sq, sk, d, causal, window, name = shape
+        q, k, v = (_model_layout(x).requires_grad_(True)
+                   for x in _qkv(dev, seed, b, hq, hkv, sq, sk, d,
+                                 torch.bfloat16))
+        g = torch.Generator(device=dev).manual_seed(seed + 7)
+        dout = torch.randn((b, hq, sq, d), generator=g, device=dev).to(
+            torch.bfloat16)
+        before = _bwd_counts()
+        got = torch.autograd.grad(
+            fa.flash_attention(q, k, v, causal=causal, window=window),
+            (q, k, v), dout)
+        ran = _bwd_ran(before)
+        again = torch.autograd.grad(
+            fa.flash_attention(q, k, v, causal=causal, window=window),
+            (q, k, v), dout)
+        against = "the plain backward"
+        if causal:                   # the decoder: float64 copies
+            want = fa.flash_attention_bwd_plain(
+                *(x.detach().double() for x in (q, k, v, dout)),
+                causal=causal, window=window)
+            against = "the plain backward in float64"
+        else:
+            want = fa.flash_attention_bwd_plain(q, k, v, dout, causal=causal,
+                                                window=window)
+        torch.cuda.synchronize()
+        r = bwd_reading(got, again, want, name, ran, bwd_kernel_for(name, d),
+                        shape)
+        print(f"[rtrain] (a) K3-bwd {part} {r['shape']} bf16: ran "
+              f"{r['kernel']} (want {r['want_kernel']}); against {against}: "
+              f"max |err| / max |want| {r['rel']} (limit {BWD_TOL[name]}), "
+              f"per row {r['row']} (limit {BWD_ROW_TOL[name]}), max abs "
+              f"{r['abs']:.4g}; a second run the same bits {r['same_bits']}",
+              flush=True)
+        check(r["ok"], f"K3-bwd at head_dim 64 disagrees with {against} at "
+              f"{r['shape']}, gave other bits on a repeat, or ran "
+              f"{r['kernel']}")
+        del got, again, want
+        qd, kd, vd = (x.detach() for x in (q, k, v))
+        lse = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
+        o = fa.flash_attention_sm90_d64(qd, kd, vd, causal=causal, lse=lse)
+        o_sdpa = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+        runs = {"kernel": lambda: fa.flash_attention_bwd_sm90_d64(
+                    qd, kd, vd, o, dout, lse, causal=causal),
+                "mma": lambda: fa.flash_attention_bwd_mma(
+                    qd, kd, vd, o, dout, lse, causal=causal),
+                "sdpa": lambda: torch.autograd.grad(
+                    o_sdpa, (q, k, v), dout, retain_graph=True)}
+        for fn in runs.values():
+            fn()                                           # warm-up
+        t_ms = {n: [] for n in runs}
+        for n in ("kernel", "mma", "sdpa", "sdpa", "mma", "kernel"):
+            t_ms[n].append(queued_ms(runs[n], 10))
+        ms = {n: sum(x) / len(x) for n, x in t_ms.items()}
+        # the plain version timed at the kernels line's shape alone
+        plain_ms = (cuda_ms(lambda: fa.flash_attention_bwd_plain(
+            qd, kd, vd, dout, causal=causal), 1) if part == "encoder"
+            else None)
+        bound, by = bwd_bound_cross(b, hq, hkv, sq, sk, d, causal)
+        print(f"[rtrain] (a) K3-bwd {part} {shape[:8]} bf16, in turns, device "
+              f"alone: flash_attention_bwd_sm90_d64 {t_ms['kernel']} ms, "
+              f"flash_attention_bwd_mma {t_ms['mma']} ms "
+              f"({ms['mma'] / ms['kernel']:.2f}x the Hopper kernel's), SDPA's "
+              f"backward {t_ms['sdpa']} ms (the Hopper kernel "
+              f"{ms['kernel'] / ms['sdpa']:.3f}x of it); "
+              + (f"plain version {plain_ms:.3f} ms; " if plain_ms else "")
+              + f"bound {bound:.4f} ms ({by}), the Hopper "
+              f"kernel at {bound / ms['kernel']:.1%} of it, mma.sync "
+              f"{bound / ms['mma']:.1%} | {nvidia_smi_line()}", flush=True)
+        check(bound <= ms["kernel"], "K3-bwd at head_dim 64 beat its bound")
+        check(ms["kernel"] < ms["mma"], f"the Hopper K3-bwd at head_dim 64 "
+              f"({ms['kernel']:.4f} ms) is not faster than the mma.sync one "
+              f"({ms['mma']:.4f}) at the {part} shape")
+        shapes[part] = {"shape": shape[:8], "ms": ms["kernel"],
+                        "turns": t_ms["kernel"], "mma_ms": ms["mma"],
+                        "mma_turns": t_ms["mma"], "library_ms": ms["sdpa"],
+                        "plain_ms": plain_ms, "bound_ms": bound,
+                        "bound_by": by, "max_abs_err": r["abs"],
+                        "max_rel_err": r["rel"], "row_rel_err": r["row"],
+                        "against": against}
+        del q, k, v, qd, kd, vd, dout, lse, o, o_sdpa, runs
+        torch.cuda.empty_cache()
+    enc = shapes["encoder"]
+    return {"name": "flash_attention_bwd_sm90_d64", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
+            "replaces": None,
+            "note": "port only: stands for the autodiff of "
+                    "src/repro/kernels/flash_attention/ref.py::attention_ref"
+                    " at head_dim 64; the head_dim 64 instantiation of the "
+                    "Hopper K3-bwd's template, software-pipelined",
+            "launches": 0,
+            "max_abs_err": max(x["max_abs_err"] for x in shapes.values()),
+            "ms": enc["ms"], "plain_ms": enc["plain_ms"],
+            "bound_ms": enc["bound_ms"], "bound_by": enc["bound_by"],
+            "library_ms": enc["library_ms"],
+            "library": "scaled_dot_product_attention's backward",
+            "ms_of": f"bf16 at {enc['shape']}", "whisper": shapes}
 
 
 def held_step1(model, batch, tag: str, hold: bool) -> dict:
@@ -6107,9 +6345,10 @@ def abo_zo_step(model, batch, tag: str) -> dict:
 
 
 def rtrain_phase(dev, seed: int) -> list[dict]:
-    """Phase 24 (see RTRAIN_T). Returns S-bwd's, W-bwd's and K3-bwd at
-    head_dim 256's entries of the kernels line, their launches those of
-    one AdamW step at full width."""
+    """Phase 24 (see RTRAIN_T). Returns S-bwd's, W-bwd's and the Hopper
+    K3-bwd at head_dim 256's and 64's entries of the kernels line, their
+    launches those of one AdamW step at full width, and the mma.sync
+    K3-bwd at 256's (off the path, no launch)."""
     import dataclasses
     import io
 
@@ -6122,7 +6361,8 @@ def rtrain_phase(dev, seed: int) -> list[dict]:
     t_phase = time.perf_counter()
     s_entry = s_bwd_readings(dev, seed)
     w_entry = w_bwd_readings(dev, seed)
-    k_entry = d256_bwd_readings(dev, seed)
+    k_entry, mma_d256 = d256_bwd_readings(dev, seed)
+    d64_entry = d64_bwd_readings(dev, seed)
     print(f"[rtrain] (a) took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
@@ -6159,7 +6399,7 @@ def rtrain_phase(dev, seed: int) -> list[dict]:
         bwd = steps[arch]["launches"]["backward"]
         want = ({"rglru_lru_bwd": kinds.count("rglru"),
                  "flash_attention_bwd": kinds.count("swa"),
-                 "flash_attention_bwd_mma": kinds.count("swa")}
+                 "flash_attention_bwd_sm90_d256": kinds.count("swa")}
                 if arch == "recurrentgemma-2b" else
                 {"rwkv6_wkv_bwd": kinds.count("rwkv6")})
         check(bwd == want, f"{tag}: an AdamW step's backward launched {bwd}, "
@@ -6211,9 +6451,9 @@ def rtrain_phase(dev, seed: int) -> list[dict]:
     n_k3 = cfg.encoder_layers + 2 * cfg.n_layers
     bwd = wsteps["launches"]["backward"]
     check(bwd == {"flash_attention_bwd": n_k3,
-                  "flash_attention_bwd_mma": n_k3},
+                  "flash_attention_bwd_sm90_d64": n_k3},
           f"{tag}: an AdamW step's backward launched {bwd}, want {n_k3} of "
-          "the mma.sync K3-bwd at head_dim 64")
+          "the Hopper K3-bwd at head_dim 64 and no other")
     abo_zo_step(model, wb[0], f"[rtrain] (c) {WHISPER_ARCH}")
     del model
     torch.cuda.empty_cache()
@@ -6227,14 +6467,19 @@ def rtrain_phase(dev, seed: int) -> list[dict]:
     s_entry["launches"] = rg["launches"]["backward"]["rglru_lru_bwd"]
     w_entry["launches"] = rw["launches"]["backward"]["rwkv6_wkv_bwd"]
     k_entry["launches"] = rg["launches"]["backward"][
-        "flash_attention_bwd_mma"]
+        "flash_attention_bwd_sm90_d256"]
+    d64_entry["launches"] = bwd["flash_attention_bwd_sm90_d64"]
     for e, arch in ((s_entry, "recurrentgemma-2b"), (w_entry, "rwkv6-3b"),
                     (k_entry, "recurrentgemma-2b")):
         e["launches_of"] = f"one AdamW step of {arch} at full width"
         e["step"] = {"arch": arch, "walls": steps[arch]["walls"],
                      "peak_over_params": steps[arch]["peak"]
                      / steps[arch]["par_bytes"]}
-    return [s_entry, w_entry, k_entry]
+    d64_entry["launches_of"] = f"one AdamW step of {WHISPER_ARCH}"
+    d64_entry["step"] = {"arch": WHISPER_ARCH, "walls": wsteps["walls"],
+                         "peak_over_params": wsteps["peak"]
+                         / wsteps["par_bytes"]}
+    return [s_entry, w_entry, k_entry, d64_entry, mma_d256]
 
 
 def sm_clock_max_hz() -> float:
@@ -6611,6 +6856,13 @@ def main() -> None:
         "ms_of": enc["shape"], "attn_shapes_row_rel_err": d64_err["row"],
         "whisper": whisper})
     kernels.append(k3_mma)
+    d64_bwd = next(e for e in rtrain
+                   if e["name"] == "flash_attention_bwd_sm90_d64")
+    train_kernels[1]["whisper_d64"] = {
+        part: {"shape": x["shape"], "ms": x["mma_ms"],
+               "library_ms": x["library_ms"], "bound_ms": x["bound_ms"],
+               "bound_by": x["bound_by"]}
+        for part, x in d64_bwd["whisper"].items()}
     kernels.extend(train_kernels)
     kernels.append(scan)
     kernels.append(wkv)

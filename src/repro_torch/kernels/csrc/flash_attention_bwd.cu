@@ -54,11 +54,12 @@
 //     views.
 //
 // Bound on an H100 at the AdamW training shape (b = 8, 32 query / 8 kv
-// heads, T = 512, d = 128, causal): bytes. q, O, dO, dQ (b·hq·T·d each),
-// k, v, dK, dV (b·hkv·T·d each) in bf16 and L are 168 MB, 0.050 ms at
-// 3.35 TB/s; five products of 2·d FLOP a kept (query, key) pair (S
-// recomputed, dP, dV, dK, dQ), 10·d·b·hq·T(T+1)/2 = 4.3e10 bf16
-// tensor-core FLOP, take 0.044 ms at 989 TFLOP/s. This first version
+// heads, T = 512, d = 128, causal): operations. Five products of 2·d FLOP
+// a kept (query, key) pair (S recomputed, dP, dV, dK, dQ),
+// 10·d·b·hq·T(T+1)/2 = 4.3e10 bf16 tensor-core FLOP, take 0.0435 ms at
+// 989 TFLOP/s; q, dO, dQ (b·hq·T·d each), k, v, dK, dV (b·hkv·T·d each)
+// in bf16 and L are 135 MB, 0.0402 ms at 3.35 TB/s (bf16 does not read O:
+// D comes from P ∘ dP; float32 reads it). This first version
 // (mma.sync, synchronous loads, S and dP recomputed in the dQ pass) is far
 // from either; PERF.md has its time.
 //

@@ -150,33 +150,9 @@ __device__ __forceinline__ bool unit_at(const Geom& g, int w, Unit* u) {
   return true;
 }
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// d (64 x 64, float32) += A (64 x 16, bf16 fragments in registers) · B
-// (16 x 64), B MN-major in shared memory (the descriptor's transpose).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REPRO_D32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : REPRO_ACC32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// Named barriers 1.. kWG order the consumers' products: warpgroup w waits on
-// barrier 1 + w for its turn and arrives on the next one's to pass it.
-__device__ __forceinline__ void named_sync(int id) {
-  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
-}
-__device__ __forceinline__ void named_arrive(int id) {
-  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
-}
+// Named barriers 1.. kWG (sm90.cuh's named_sync, named_arrive) order the
+// consumers' products: warpgroup w waits on barrier 1 + w for its turn and
+// arrives on the next one's to pass it.
 
 // ----------------------------------------------------------------- kernel --
 template <int kWG>

@@ -1,10 +1,12 @@
 // The Hopper building blocks of the TMA kernels (flash_attention_sm90.cu,
-// flash_attention_sm90_d256.cu, flash_attention_bwd_sm90.cu and
+// flash_attention_sm90_d256.cu, flash_attention_sm90_d64.cu,
+// flash_attention_bwd_sm90.cu, flash_attention_bwd_sm90_d256.cu and
 // rwkv6_wkv.cu): mbarriers, TMA tile loads, shared-memory matrix
 // descriptors with 128-byte swizzle, the bf16 wgmma m64n128k16 with both
 // operands in shared memory or A in registers, m64n64k16 from shared
-// memory, m64n256k16 with A in registers, and the host-side tensor-map
-// encoding; for rwkv6_wkv.cu the split-TF32 mma.sync m16n8k8 and plain
+// memory or with A in registers, m64n256k16 with A in registers, named
+// barriers over two warpgroups, the MUFU's exp2, and the host-side
+// tensor-map encoding; for rwkv6_wkv.cu the split-TF32 mma.sync m16n8k8 and plain
 // (unswizzled) row boxes. sm_90a only.
 #pragma once
 
@@ -179,6 +181,19 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// d (64 x 64, float32) += A (64 x 16, bf16 fragments in registers) · B
+// (16 x 64), B MN-major in shared memory (the descriptor's transpose).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REPRO_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : REPRO_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 // d (64 x 256, float32) += A (64 x 16, bf16 fragments in registers) · B
 // (16 x 256), B MN-major in shared memory (the descriptor's transpose).
 __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
@@ -212,6 +227,23 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
         "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]),
         "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// Named barrier `id` (1..15) over two warpgroups (256 threads): sync waits
+// for every thread's arrival, arrive only counts this one's.
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// 2^x by the MUFU (ex2.approx.ftz: exp2f without its rescale of results
+// below 2^-126, which it flushes to 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // ------------------------------------------------------------ split TF32 --

@@ -46,22 +46,33 @@ O, dO and the lse; no atomics), which launches the port-only kernel that
 * ``flash_attention_bwd_sm90`` (``csrc/flash_attention_bwd_sm90.cu``: TMA,
   rings of shared-memory stages, wgmma) where the forward took
   ``flash_attention_sm90`` and O and dO pass the same alignment test;
+* ``flash_attention_bwd_sm90_d64`` (the same source at head_dim 64) where
+  the forward took ``flash_attention_sm90_d64`` (whisper-small) and O and
+  dO pass that test;
+* ``flash_attention_bwd_sm90_d256`` (``csrc/flash_attention_bwd_sm90_d256.cu``:
+  the head dim split between two consumer warpgroups, S and dP computed
+  once and exchanged, a kv head's query heads split over CTAs as
+  ``d256_bwd_plan`` says) where the forward took
+  ``flash_attention_sm90_d256`` (recurrentgemma-2b's local attention) and
+  O and dO pass that test;
 * ``flash_attention_bwd_mma`` (``csrc/flash_attention_bwd.cu``: mma.sync
-  in bf16, CUDA cores in float32) for everything else, bf16 at head_dim
-  256 (recurrentgemma-2b's local attention) among it.
+  in bf16, CUDA cores in float32) for everything else: float32, and bf16
+  that is unaligned (at head_dim 256 too) or has no Hopper forward.
 
 The reference has no backward kernel: its gradient through attention is
 autodiff of ``attention_ref``, so the plain version of the backward is
 autograd through ``flash_attention_plain``, and on a CPU tensor the op is
-the plain version, autograd and all. Where neither backward kernel takes
+the plain version, autograd and all. Where no backward kernel takes
 the inputs (a dtype other than float32 and bfloat16, head_dim not a
 multiple of 8 up to 128 and not bf16 at 256), the op raises rather than
 fall back.
 ``flash_attention_bwd.launches`` counts calls of its wrapper, and each
-kernel wrapper its own: one call, one layer's backward, runs three CUDA
-kernels (a pass for each row's D, dK and dV, dQ). D is ``rowsum(dO·O)``,
-except in the mma.sync kernel's bf16 path, where it is ``rowsum(P·dP)``:
-O rounded to bf16 would shift it, and dQ with it.
+kernel wrapper its own: one call, one layer's backward, runs two to four
+CUDA kernels. D, the row sum that every dS of a row subtracts, is
+``rowsum(P·dP)`` in float32 from the same P and dP that dS is built from
+(a first sweep of each Hopper kernel's dQ pass; a pass of the mma.sync
+kernel's dQ kernel in bf16), and ``rowsum(dO·O)`` only in the mma.sync
+kernel's float32 path: O rounded to bf16 would shift D, and dQ with it.
 """
 from __future__ import annotations
 
@@ -258,12 +269,66 @@ def _launcher_bwd():
 def _launcher_bwd_sm90():
     lib = _build.load("flash_attention_bwd_sm90")
     fn = lib.flash_attention_bwd_sm90_launch
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
-                   + [ctypes.c_longlong] * 24
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+                   + [ctypes.c_longlong] * 21
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib, fn
+
+
+@functools.cache
+def _launcher_bwd_sm90_d256():
+    lib = _build.load("flash_attention_bwd_sm90_d256")
+    fn = lib.flash_attention_bwd_sm90_d256_launch
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+                   + [ctypes.c_longlong] * 21
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+D256_BWD_BLOCK = 64     # keys a dK/dV CTA and rows a dQ CTA at head_dim 256
+
+
+def d256_bwd_units(b, hq, hkv, sk, splits) -> list[tuple]:
+    """The dK/dV CTAs of ``flash_attention_bwd_sm90_d256`` with ``splits``
+    CTAs a key block: (key block, batch, kv head, split, its query heads),
+    in the grid's order (key block 0 first). Split z of kv head j takes
+    query heads j·group + [z·per, min(group, (z + 1)·per)), per =
+    ceil(group / splits); the partials' pass adds a key's splits in the
+    order z = 0, 1, ..."""
+    group = hq // hkv
+    per = -(-group // splits)
+    n_kb = -(-sk // D256_BWD_BLOCK)
+    return [(kb, bi, j, z, tuple(range(j * group + z * per,
+                                       j * group + min(group, (z + 1) * per))))
+            for kb in range(n_kb) for bi in range(b) for j in range(hkv)
+            for z in range(splits)]
+
+
+@functools.cache
+def d256_bwd_plan(b, hq, hkv, sk, sms) -> tuple[int, int]:
+    """The group split of ``flash_attention_bwd_sm90_d256``: (splits, query
+    heads a split). A pure function of the shape and of ``sms``, the
+    card's SMs (cached: the op asks it at every call). A key block of 64
+    keys has one dK/dV CTA a split; splits divide the group hq / hkv
+    evenly, and the plan takes the split count with the fewest rounds of
+    ``sms`` CTAs times query heads a CTA, the smaller on a tie (two at
+    recurrentgemma-2b's 10/1 heads and 4096 keys: 128 CTAs of 5 heads).
+    More than one split adds float32 partials of dK and dV and a pass that
+    adds them in split order."""
+    group = hq // hkv
+    base = -(-sk // D256_BWD_BLOCK) * b * hkv
+    best = splits = None
+    for s in range(1, group + 1):
+        if group % s:
+            continue
+        cost = -(-base * s // sms) * (group // s)
+        if best is None or cost < best:
+            best, splits = cost, s
+    return splits, group // splits
 
 
 def _tma_strides(t):
@@ -307,18 +372,24 @@ def choose_kernel(q, k, v) -> str:
     return "flash_attention_mma"
 
 
+_BWD_OF = {"flash_attention_sm90": "flash_attention_bwd_sm90",
+           "flash_attention_sm90_d64": "flash_attention_bwd_sm90_d64",
+           "flash_attention_sm90_d256": "flash_attention_bwd_sm90_d256"}
+
+
 def choose_bwd_kernel(q, k, v, out, dout) -> str:
-    """Which backward kernel takes (q, k, v, O, dO):
-    ``"flash_attention_bwd_sm90"`` where ``choose_kernel(q, k, v)`` is
-    ``"flash_attention_sm90"`` and ``out`` and ``dout`` are bf16 and pass
-    the same alignment test, else ``"flash_attention_bwd_mma"`` (bf16 at
-    head_dim 256 among them: recurrentgemma-2b's local attention, whose
-    forward is ``flash_attention_sm90_d256``). Reads only dtypes, shapes,
-    strides and pointers: no device query."""
-    if (choose_kernel(q, k, v) == "flash_attention_sm90"
-            and out.dtype == dout.dtype == torch.bfloat16
+    """Which backward kernel takes (q, k, v, O, dO): where
+    ``choose_kernel(q, k, v)`` names a Hopper forward and ``out`` and
+    ``dout`` are bf16 and pass the same alignment test, its Hopper
+    backward (``"flash_attention_bwd_sm90"`` at head_dim 120 or 128,
+    ``"flash_attention_bwd_sm90_d64"`` at 64,
+    ``"flash_attention_bwd_sm90_d256"`` at 256); else
+    ``"flash_attention_bwd_mma"``. Reads only dtypes, shapes, strides and
+    pointers: no device query."""
+    hopper = _BWD_OF.get(choose_kernel(q, k, v))
+    if (hopper is not None and out.dtype == dout.dtype == torch.bfloat16
             and _tma_aligned(out) and _tma_aligned(dout)):
-        return "flash_attention_bwd_sm90"
+        return hopper
     return "flash_attention_bwd_mma"
 
 
@@ -554,7 +625,8 @@ _KERNELS = {"flash_attention_sm90": flash_attention_sm90,
 def check_bwd(q) -> None:
     """Raise unless a backward kernel takes q's dtype and head_dim: float32
     or bfloat16 with head_dim a multiple of 8 up to 128, or bfloat16 at
-    256 (the mma.sync kernel's pairs of warps)."""
+    256 (the Hopper kernel where aligned, the mma.sync kernel's pairs of
+    warps else)."""
     d = q.shape[-1]
     if not (q.dtype in _DTYPES and d % 8 == 0 and d <= 128
             or q.dtype == torch.bfloat16 and d == SM90_D256):
@@ -628,46 +700,124 @@ def flash_attention_bwd_mma(q, k, v, out, dout, lse, *, causal=True,
     return dq, dk, dv
 
 
-def flash_attention_bwd_sm90(q, k, v, out, dout, lse, *, causal=True,
-                             window=None):
-    """The kernel of ``csrc/flash_attention_bwd_sm90.cu`` on CUDA tensors
-    that ``choose_bwd_kernel`` sends to it; raises on any other. A pre-pass
-    writes each row's ``rowsum(dO·O)`` and lse·log2(e) into float32 scratch
-    padded to 128 rows; one CTA per (batch·kv head, 128 keys) for dK and
-    dV (TMA ring of Q and dO tiles, wgmma); one per (batch·query head, 128
-    query rows) for dQ. Arguments and result as ``flash_attention_bwd``."""
+def _check_bwd_hopper(q, k, v, out, dout, lse, window, name):
+    """The checks of a Hopper backward wrapper: CUDA tensors that
+    ``choose_bwd_kernel`` sends to ``name``. Returns (b, hq, hkv, sk, d)."""
     b, hq, hkv, sk, d = _check_bwd_args(q, k, v, out, dout, lse, window,
-                                        "flash_attention_bwd_sm90")
-    if choose_bwd_kernel(q, k, v, out, dout) != "flash_attention_bwd_sm90":
+                                        name)
+    if choose_bwd_kernel(q, k, v, out, dout) != name:
+        dims = {"flash_attention_bwd_sm90": SM90_HEAD_DIMS,
+                "flash_attention_bwd_sm90_d64": (SM90_D64,),
+                "flash_attention_bwd_sm90_d256": (SM90_D256,)}[name]
         raise ValueError(
-            f"flash_attention_bwd_sm90 takes bf16 with head_dim in "
-            f"{SM90_HEAD_DIMS}, non-empty sequences and 16-byte-aligned "
-            f"pointers and strides of q, k, v, out and dout; got {q.dtype}, "
-            f"d = {d}, strides {q.stride()}, {k.stride()}, {v.stride()}, "
-            f"{out.stride()}, {dout.stride()}")
-    sq = q.shape[2]
+            f"{name} takes bf16 with head_dim in {dims}, non-empty sequences "
+            f"and 16-byte-aligned pointers and strides of q, k, v, out and "
+            f"dout; got {q.dtype}, d = {d}, strides {q.stride()}, "
+            f"{k.stride()}, {v.stride()}, {out.stride()}, {dout.stride()}")
+    if b * hq > 65535:
+        raise ValueError(f"batch x heads = {b * hq} exceeds the grid's 65535")
+    return b, hq, hkv, sk, d
+
+
+def _bwd_sm90_call(q, k, v, dout, lse, causal, window):
+    """One call of ``csrc/flash_attention_bwd_sm90.cu`` (head_dim 64, 120
+    or 128) on checked inputs: returns (dq, dk, dv)."""
+    b, hq, sq, d = q.shape
     dq, dk, dv = _new_out(q), _new_out(k), _new_out(v)
-    if b * hq == 0:
-        return dq, dk, dv
     sq_pad = -(-sq // 128) * 128
     scratch = torch.empty(2 * b * hq * sq_pad, dtype=torch.float32,
                           device=q.device)
     lib, fn = _launcher_bwd_sm90()
     with torch.cuda.device(q.device):
-        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
-                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                  b, hq, hkv, sq, sk, d, sq_pad,
+        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                  lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
+                  dk.data_ptr(), dv.data_ptr(),
+                  b, hq, k.shape[1], sq, k.shape[2], d, sq_pad,
                   *_tma_strides(q), *_tma_strides(k), *_tma_strides(v),
-                  *_tma_strides(out), *_tma_strides(dout), *dq.stride()[:3],
+                  *_tma_strides(dout), *dq.stride()[:3], *dk.stride()[:3],
+                  *dv.stride()[:3], int(bool(causal)), int(window or 0),
+                  d ** -0.5, _stream(q))
+    _build.check(lib, code, "flash_attention_bwd_sm90")
+    return dq, dk, dv
+
+
+def flash_attention_bwd_sm90(q, k, v, out, dout, lse, *, causal=True,
+                             window=None):
+    """The kernel of ``csrc/flash_attention_bwd_sm90.cu`` at head_dim 120
+    or 128, on CUDA tensors that ``choose_bwd_kernel`` sends to it; raises
+    on any other. Two CUDA kernels: one CTA per (batch·query head, 128
+    query rows) for each row's D = rowsum(P·dP) (a first sweep over the
+    keys, into float32 scratch padded to 128 rows with lse·log2(e)) and dQ
+    (a second sweep); then one per (batch·kv head, 128 keys) for dK and dV
+    (TMA ring of Q and dO tiles, wgmma). Arguments and result as
+    ``flash_attention_bwd``."""
+    b, hq, _, _, _ = _check_bwd_hopper(q, k, v, out, dout, lse, window,
+                                       "flash_attention_bwd_sm90")
+    if b * hq == 0:
+        return _new_out(q), _new_out(k), _new_out(v)
+    grads = _bwd_sm90_call(q, k, v, dout, lse, causal, window)
+    flash_attention_bwd_sm90.launches += 1
+    return grads
+
+
+def flash_attention_bwd_sm90_d64(q, k, v, out, dout, lse, *, causal=True,
+                                 window=None):
+    """The kernel of ``csrc/flash_attention_bwd_sm90.cu`` at head_dim 64
+    (whisper-small's attention: every tile one 64-dim box, four stages a
+    ring), on CUDA tensors that ``choose_bwd_kernel`` sends to it; raises
+    on any other. The launches of ``flash_attention_bwd_sm90``; arguments
+    and result as ``flash_attention_bwd``."""
+    b, hq, _, _, _ = _check_bwd_hopper(q, k, v, out, dout, lse, window,
+                                       "flash_attention_bwd_sm90_d64")
+    if b * hq == 0:
+        return _new_out(q), _new_out(k), _new_out(v)
+    grads = _bwd_sm90_call(q, k, v, dout, lse, causal, window)
+    flash_attention_bwd_sm90_d64.launches += 1
+    return grads
+
+
+def flash_attention_bwd_sm90_d256(q, k, v, out, dout, lse, *, causal=True,
+                                  window=None):
+    """The kernel of ``csrc/flash_attention_bwd_sm90_d256.cu`` (bf16,
+    head_dim 256) on CUDA tensors that ``choose_bwd_kernel`` sends to it;
+    raises on any other. One CTA per (batch·query head, 64 rows) for D
+    and dQ, then one per (key block of 64, batch·kv head, split) for dK and
+    dV, the group split as ``d256_bwd_plan`` says; with more than one split
+    the wrapper allocates float32 partials and a third CUDA kernel adds
+    them, counted as one launch. Arguments and result as
+    ``flash_attention_bwd``."""
+    b, hq, hkv, sk, d = _check_bwd_hopper(q, k, v, out, dout, lse, window,
+                                          "flash_attention_bwd_sm90_d256")
+    sq = q.shape[2]
+    dq, dk, dv = _new_out(q), _new_out(k), _new_out(v)
+    if b * hq == 0:
+        return dq, dk, dv
+    splits, per = d256_bwd_plan(b, hq, hkv, sk, _sm_count(q.device.index))
+    sq_pad = -(-sq // D256_BWD_BLOCK) * D256_BWD_BLOCK
+    scratch = torch.empty(2 * b * hq * sq_pad, dtype=torch.float32,
+                          device=q.device)
+    part = None
+    if splits > 1:
+        part = torch.empty(2 * splits * b * hkv * sk * d,
+                           dtype=torch.float32, device=q.device)
+    lib, fn = _launcher_bwd_sm90_d256()
+    with torch.cuda.device(q.device):
+        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                  lse.data_ptr(), scratch.data_ptr(),
+                  None if part is None else part.data_ptr(), dq.data_ptr(),
+                  dk.data_ptr(), dv.data_ptr(), b, hq, hkv, sq, sk, sq_pad,
+                  splits, per, *_tma_strides(q), *_tma_strides(k),
+                  *_tma_strides(v), *_tma_strides(dout), *dq.stride()[:3],
                   *dk.stride()[:3], *dv.stride()[:3], int(bool(causal)),
                   int(window or 0), d ** -0.5, _stream(q))
-    _build.check(lib, code, "flash_attention_bwd_sm90")
-    flash_attention_bwd_sm90.launches += 1
+    _build.check(lib, code, "flash_attention_bwd_sm90_d256")
+    flash_attention_bwd_sm90_d256.launches += 1
     return dq, dk, dv
 
 
 _BWD_KERNELS = {"flash_attention_bwd_sm90": flash_attention_bwd_sm90,
+                "flash_attention_bwd_sm90_d64": flash_attention_bwd_sm90_d64,
+                "flash_attention_bwd_sm90_d256": flash_attention_bwd_sm90_d256,
                 "flash_attention_bwd_mma": flash_attention_bwd_mma}
 
 
@@ -761,3 +911,5 @@ flash_attention_sm90_d64.launches = 0
 flash_attention_bwd.launches = 0
 flash_attention_bwd_mma.launches = 0
 flash_attention_bwd_sm90.launches = 0
+flash_attention_bwd_sm90_d64.launches = 0
+flash_attention_bwd_sm90_d256.launches = 0

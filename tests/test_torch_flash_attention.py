@@ -244,13 +244,17 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 
 def test_d256_forward_has_no_gradient_kernel():
-    """A gradient through K3 at head_dim 256 in bf16 has a backward kernel,
-    the mma.sync one (the name is older than that kernel); in float32, which
-    no forward kernel takes at 256, it is refused on the card before any
-    launch."""
+    """A gradient through K3 at head_dim 256 in bf16 has a backward kernel
+    (the name is older than the kernels): the Hopper one where the inputs
+    are aligned, else the mma.sync one; in float32, which no forward kernel
+    takes at 256, it is refused on the card before any launch."""
     q = _bf16(1, 2, 8, 256)
     ops.check_bwd(q)
-    assert ops.choose_bwd_kernel(q, q, q, q, q) == "flash_attention_bwd_mma"
+    assert (ops.choose_bwd_kernel(q, q, q, q, q)
+            == "flash_attention_bwd_sm90_d256")
+    wide = _bf16(1, 2, 8, 260)[..., :256]
+    assert (ops.choose_bwd_kernel(q, q, q, q, wide)
+            == "flash_attention_bwd_mma")
     with pytest.raises(ValueError, match="backward kernel"):
         ops.check_bwd(q.float())
     with pytest.raises(ValueError, match="backward kernel"):
@@ -451,8 +455,25 @@ def _bwd_routing_cases():
         cases.append((f"bf16 d={d} transposed", q, kv, kv,
                       _bf16(2, 50, 4, d).transpose(1, 2),
                       _bf16(2, 50, 4, d).transpose(1, 2), sm90))
+    d64, d256 = "flash_attention_bwd_sm90_d64", "flash_attention_bwd_sm90_d256"
     q, kv = _bf16(1, 4, 64, 64), _bf16(1, 2, 64, 64)
-    cases.append(("bf16 d=64", q, kv, kv, q, q, mma))
+    cases.append(("bf16 d=64", q, kv, kv, q, q, d64))
+    # whisper's layout: (b, t, h, d) buffers read as (b, h, t, d)
+    q = _bf16(2, 50, 4, 64).transpose(1, 2)
+    kv = _bf16(2, 70, 4, 64).transpose(1, 2)
+    cases.append(("bf16 d=64 transposed", q, kv, kv,
+                  _bf16(2, 50, 4, 64).transpose(1, 2),
+                  _bf16(2, 50, 4, 64).transpose(1, 2), d64))
+    f, fkv = torch.zeros(1, 4, 64, 64), torch.zeros(1, 2, 64, 64)
+    cases.append(("float32 d=64", f, fkv, fkv, f, f, mma))
+    q, kv = _bf16(1, 4, 64, 64), _bf16(1, 2, 64, 64)
+    wide = _bf16(1, 4, 64, 68)[..., :64]       # row stride 68: 136 bytes
+    cases.append(("bf16 d=64 dout stride 68", q, kv, kv, q, wide, mma))
+    q, kv = _bf16(1, 10, 64, 256), _bf16(1, 1, 64, 256)
+    cases.append(("bf16 d=256", q, kv, kv, q, q, d256))
+    off = _bf16(10 * 64 * 256 + 1)[1:].view(1, 10, 64, 256)
+    cases.append(("bf16 d=256 unaligned q", off, kv, kv, q, q, mma))
+    cases.append(("bf16 d=256 unaligned dout", q, kv, kv, q, off, mma))
     f, fkv = torch.zeros(1, 4, 64, 128), torch.zeros(1, 2, 64, 128)
     cases.append(("float32 d=128", f, fkv, fkv, f, f, mma))
     q, kv = _bf16(1, 4, 64, 128), _bf16(1, 2, 64, 128)
@@ -478,7 +499,8 @@ def test_choose_bwd_kernel_routes_by_dtype_head_dim_and_alignment(case):
 def test_bwd_kernel_wrappers_refuse_cpu_tensors():
     q, kv = _bf16(1, 4, 64, 128), _bf16(1, 2, 64, 128)
     lse = torch.zeros(1, 4, 64)
-    for fn in (ops.flash_attention_bwd_sm90, ops.flash_attention_bwd_mma):
+    for fn in (ops.flash_attention_bwd_sm90, ops.flash_attention_bwd_sm90_d64,
+               ops.flash_attention_bwd_sm90_d256, ops.flash_attention_bwd_mma):
         before = fn.launches
         with pytest.raises(ValueError, match="runs on cuda"):
             fn(q, kv, kv, q, q, lse)
@@ -501,3 +523,38 @@ def test_bwd_on_cpu_is_the_plain_version_and_launches_nothing():
     assert counts == [w.launches for w in (ops.flash_attention_bwd,
                                            ops.flash_attention_bwd_sm90,
                                            ops.flash_attention_bwd_mma)]
+
+
+@pytest.mark.parametrize("shape", [(1, 10, 1, 4096), (1, 10, 1, 1000),
+                                   (2, 8, 2, 640), (1, 2, 1, 77),
+                                   (4, 12, 12, 1500), (3, 6, 2, 65)])
+def test_d256_bwd_plan_covers_every_query_head_and_key_once(shape):
+    """The group split of the head_dim 256 backward: splits divide the
+    group, every (batch, query head, key block) is one CTA's, and a key's
+    partials are added in split order (the units' order within a key
+    block)."""
+    b, hq, hkv, sk = shape
+    splits, per = ops.d256_bwd_plan(b, hq, hkv, sk, 132)
+    group = hq // hkv
+    assert group % splits == 0 and splits * per == group
+    units = ops.d256_bwd_units(b, hq, hkv, sk, splits)
+    n_kb = -(-sk // ops.D256_BWD_BLOCK)
+    assert len(units) == n_kb * b * hkv * splits
+    seen = {}
+    for kb, bi, j, z, heads in units:
+        assert heads and all(h // group == j for h in heads)
+        for h in heads:
+            key = (kb, bi, h)
+            assert key not in seen
+            seen[key] = z
+    assert len(seen) == n_kb * b * hq
+    for kb in range(n_kb):                      # splits in order
+        zs = [z for k, bi, j, z, _ in units if (k, bi, j) == (kb, 0, 0)]
+        assert zs == list(range(splits))
+
+
+def test_d256_bwd_plan_splits_recurrentgemma_group_in_two():
+    """recurrentgemma-2b's (1, 10/1, 4096): 64 key blocks, 2 splits of 5
+    heads (128 CTAs on 132 SMs); one kv head a query head: no split."""
+    assert ops.d256_bwd_plan(1, 10, 1, 4096, 132) == (2, 5)
+    assert ops.d256_bwd_plan(4, 12, 12, 1500, 132) == (1, 1)

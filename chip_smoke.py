@@ -5702,14 +5702,34 @@ def s_bwd_bound(b, t, d, itemsize) -> tuple[float, str]:
     return bound_ms(7 * itemsize * b * t * d, 32 * b * t * d)
 
 
+W_BWD_STEP_MS = 3.103    # the step form's time at the path's shape, before
+
+
 def w_bwd_bound(b, t, h, hd, itemsize) -> tuple[float, str]:
-    """Least time for W-bwd on (b, t, h, hd): r, k, v (the model's type),
-    logw and dy (float32) read once, dr, dk, dv and dlogw written once;
-    against the step form's 12 float32 operations an element of the state
-    a step (6 multiply-adds: the state rebuilt, G·v, G ⊙ S, dy·S, G·k and
-    G's update) on the CUDA cores."""
-    n = b * t * h * hd
-    return bound_ms(n * (6 * itemsize + 12), 12 * n * hd, PEAK_F32_OPS_S)
+    """Least time for W-bwd on (b, t, h, hd) in its chunked form (chunks of
+    C = 16 steps): the bytes, r, k, v (the model's type), logw and dy
+    (float32) read once, dr, dk, dv and dlogw written once, at the memory
+    rate; against the form's operations: its products a chunk and head,
+    five of the state (2·C·hd² FLOP each: the forward sweep's K̂ᵀV, dY S0ᵀ,
+    V Gᵀ, K̂ G and r̃ᵀ dY) and two of the chunk (2·C²·hd: Aᵀ dY, dY Vᵀ), at
+    the TF32 tensor-core rate, three passes each in split TF32, two where
+    one side is a bf16 v (exact in TF32); and its decay terms on the CUDA
+    cores, 7 an entry (t, s < t) and channel (the two loops' W, x and sums)
+    and 16 a step and channel (prefixes, P, Q, r̃, K̂ and the outputs), at
+    the float32 rate. The two kinds of operation run on different units, so
+    the slower of them counts. The step form this replaced was bound by its
+    12 CUDA-core operations an element of the state a step, a bound of the
+    form and not of the work."""
+    c = 16
+    units = b * h * -(-t // c)
+    v_pass = 2 if itemsize == 2 else 3
+    tc = units * (2 * c * hd * hd * (3 * 3 + 2 * v_pass)
+                  + 2 * c * c * hd * (3 + v_pass))
+    cuda = units * hd * (7 * c * (c - 1) // 2 + 16 * c)
+    t_ops = max(tc / PEAK_TF32_OPS_S, cuda / PEAK_F32_OPS_S)
+    t_bytes = b * t * h * hd * (6 * itemsize + 12) / PEAK_BYTES_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
 
 
 def bwd_bound_cross(b, hq, hkv, sq, sk, d, causal) -> tuple[float, str]:
@@ -5955,9 +5975,11 @@ def w_bwd_readings(dev, seed: int) -> dict:
     ms = {n: sum(x) / len(x) for n, x in t_ms.items()}
     bound, by = w_bwd_bound(b, t, h, hd, 2)
     print(f"[rtrain] (a) W-bwd ({b}, {t}, {h}, {hd}) bf16: kernel "
-          f"{t_ms['kernel']} ms (device alone, twice), plain version "
+          f"{t_ms['kernel']} ms (device alone, twice; the chunked form), "
+          f"earlier {W_BWD_STEP_MS} ms (the step form it replaced, NVIDIA "
+          f"H100 80GB HBM3 at 700 W), plain version "
           f"{t_ms['plain']} ms (events, its held call above, dS given); "
-          f"bound {bound:.4f} ms ({by}), "
+          f"bound {bound:.4f} ms ({by}, the chunked form's), "
           f"{bound / ms['kernel']:.1%} of it; no library call computes "
           f"RWKV6's gradient | {nvidia_smi_line()}", flush=True)
     check(bound <= ms["kernel"], "W-bwd beat its bound")

@@ -53,13 +53,20 @@ def _launcher():
 def _launcher_bwd():
     lib = _build.load("rwkv6_wkv_bwd")
     fn = lib.rwkv6_wkv_bwd_launch
-    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
 
 
 BWD_CHUNK = 16      # W-bwd's steps a chunk: one checkpoint of S a chunk
+
+
+def bwd_scratch_bytes(b: int, t: int, h: int, hd: int) -> int:
+    """The scratch W-bwd's wrapper allocates a call: the float32 state each
+    chunk starts from, (b, H, ceil(T / 16), hd, hd), and du's (b, H, hd)
+    sums over T before the batch's."""
+    return 4 * b * h * hd * (-(-t // BWD_CHUNK) * hd + 1)
 
 
 def _check(r, k, v, logw, u) -> bool:
@@ -154,10 +161,16 @@ def rwkv6_wkv_bwd(r, k, v, logw, u, dy, dS=None):
     ``ref.wkv_bwd_ref`` returns it: (dr, dk, dv) in r's type, dlogw float32
     (b, T, H, hd) and du float32 (H, hd). dy is float32 of r's shape, dS
     float32 (b, H, hd, hd) or None (zero). On CUDA tensors the kernel of
-    ``csrc/rwkv6_wkv_bwd.cu`` (what W takes, any start): three CUDA
-    kernels, the sweeps over T and then the fixed-order sums of dv's row
-    slices and of du over the batch, counted as one launch; on CPU tensors
-    the plain version. No fallback."""
+    ``csrc/rwkv6_wkv_bwd.cu`` (what W takes); on CPU tensors the plain
+    version. No fallback.
+
+    The kernel is a chunked backward (``ref.wkv_bwd_chunked`` is its
+    arithmetic): chunks of ``BWD_CHUNK`` steps, the chunk's products on the
+    tensor cores in split TF32 (dv's in plain TF32 where dv is bf16), a
+    cluster of hd / 16 CTAs a head; two CUDA kernels, the sweeps over T and
+    then du's fixed-order sum over the batch, counted as one launch. Its
+    tiles arrive by TMA, so dy is made contiguous and 16-byte aligned here;
+    its scratch is ``bwd_scratch_bytes``."""
     on_card = _check(r, k, v, logw, u)
     b, t, h, hd = r.shape
     if (tuple(dy.shape) != tuple(r.shape) or dy.dtype != torch.float32
@@ -172,24 +185,19 @@ def rwkv6_wkv_bwd(r, k, v, logw, u, dy, dS=None):
     if not on_card:
         return wkv_bwd_ref(r, k, v, logw, u, dy, dS)
     dy = dy.contiguous()
+    if dy.data_ptr() % 16:
+        dy = dy.clone()
     u = u.contiguous()
-    if not all(x.is_contiguous() for x in (r, k, v, logw)):
-        raise ValueError("rwkv6_wkv_bwd's kernel needs contiguous tensors")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"rwkv6_wkv_bwd's kernel takes head sizes "
-                         f"{HEAD_DIMS}, not {hd}")
+    _kernel_takes((r, k, v, logw, u))
     dr, dk, dv = (torch.empty_like(r) for _ in range(3))
     dlogw = torch.empty(r.shape, dtype=torch.float32, device=r.device)
     du = torch.empty((h, hd), dtype=torch.float32, device=r.device)
     if r.numel() == 0:
         du.zero_()
         return dr, dk, dv, dlogw, du
-    slices = hd // 16
     chunks = -(-t // BWD_CHUNK)
     ckpt = torch.empty((b, h, chunks, hd, hd), dtype=torch.float32,
                        device=r.device)
-    dv_part = torch.empty((slices, b, t, h, hd), dtype=torch.float32,
-                          device=r.device)
     du_part = torch.empty((b, h, hd), dtype=torch.float32, device=r.device)
     ds = None if dS is None else dS.float().contiguous()
     lib, fn = _launcher_bwd()
@@ -198,7 +206,7 @@ def rwkv6_wkv_bwd(r, k, v, logw, u, dy, dS=None):
                   u.data_ptr(), dy.data_ptr(),
                   None if ds is None else ds.data_ptr(), ckpt.data_ptr(),
                   dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                  dlogw.data_ptr(), dv_part.data_ptr(), du_part.data_ptr(),
+                  dlogw.data_ptr(), du_part.data_ptr(),
                   du.data_ptr(), b, t, h, hd, int(r.dtype == torch.bfloat16),
                   torch.cuda.current_stream(r.device).cuda_stream)
     _build.check(lib, code, "rwkv6_wkv_bwd")

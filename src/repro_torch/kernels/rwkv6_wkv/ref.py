@@ -26,6 +26,9 @@ version of W-bwd (``csrc/rwkv6_wkv_bwd.cu``): the states recomputed in
 float32 (float64 for float64 inputs) from the start, kept at every
 ``CHUNK``-th step, each chunk's states rebuilt from its checkpoint, and
 the reverse step taken over the chunk.
+
+``wkv_bwd_chunked(r, k, v, logw, u, dy, dS, chunk)`` is the same gradient
+in the kernel's chunked arithmetic, for the CPU tests: no path calls it.
 """
 from __future__ import annotations
 
@@ -216,3 +219,122 @@ def wkv_bwd_ref(r, k, v, logw, u, dy, dS=None):
                               w_t[..., :, None], G)
     return (dr.to(r.dtype), dk.to(r.dtype), dv.to(r.dtype), dlogw,
             du.sum(0))
+
+
+def _suffix(x, dim, inclusive):
+    """Σ over the indices after (``inclusive``: from) each index of ``dim``,
+    summed from the last index back."""
+    s = x.flip(dim).cumsum(dim).flip(dim)
+    if inclusive:
+        return s
+    return torch.cat([s.narrow(dim, 1, x.shape[dim] - 1),
+                      torch.zeros_like(x.narrow(dim, 0, 1))], dim)
+
+
+def _prefix(x, dim):
+    """Σ over the indices before each index of ``dim``."""
+    s = x.cumsum(dim)
+    return torch.cat([torch.zeros_like(x.narrow(dim, 0, 1)),
+                      s.narrow(dim, 0, x.shape[dim] - 1)], dim)
+
+
+def wkv_bwd_chunked(r, k, v, logw, u, dy, dS=None, chunk=16):
+    """``wkv_bwd_ref``'s gradient in chunks of ``chunk`` steps, as
+    ``csrc/rwkv6_wkv_bwd.cu`` computes it: the same outputs and types.
+
+    Over a chunk from S0, with ``wkv_chunked``'s r̃_t = r_t ⊙ P_t, K̂_s =
+    k_s ⊙ Q_s and D (P_t = 2^lb_t the decay before step t within the chunk,
+    Q_s = 2^(L - lb_{s+1}) the decay after step s, D = 2^L, every log a sum
+    of logw · log2 e), W[t, s] = w_{t-1} ⊙ ... ⊙ w_{s+1} (products of w =
+    2^(logw · log2 e), 1 at s = t - 1) and the chunk's A (``wkv_chunked``),
+    y = r̃ S0 + A V and S_end = D ⊙ S0 + K̂ᵀ V. Given dY and the gradient G
+    of S_end (dS after the last chunk), chunks from the last:
+
+    - the products: dr̃ = dY S0ᵀ, dK̂ = V Gᵀ, dV = Aᵀ dY + K̂ G, dA = dY Vᵀ
+      and dD = rowsum(G ⊙ S0); then G ← D ⊙ G + r̃ᵀ dY;
+    - through the decays, with M[t, s] = dA[t, s] r_t ⊙ k_s ⊙ W[t, s]
+      for s < t:
+      dr_t = dr̃_t ⊙ P_t + Σ_{s<t} dA[t, s] k_s ⊙ W[t, s] + u ⊙ k_t dA[t, t],
+      dk_s = dK̂_s ⊙ Q_s + Σ_{t>s} dA[t, s] r_t ⊙ W[t, s] + u ⊙ r_s dA[s, s],
+      du = Σ_t r_t ⊙ k_t dA[t, t] (over T, then the batch),
+      dlogw_τ = D ⊙ dD + Σ_{s<τ} K̂_s ⊙ dK̂_s + Σ_{t>τ} (r̃_t ⊙ dr̃_t
+      + Σ_{s<t} M[t, s]) - Σ_{s>=τ} Σ_{t>s} M[t, s].
+
+    Every factor is a product of decays of at most 1 and none is inverted,
+    so nothing overflows however fast the decay; dlogw's one subtraction
+    cancels within a chunk. The states S0 come from a forward sweep (S ←
+    D ⊙ S + K̂ᵀ V), kept at every chunk. The ragged last chunk is padded
+    with r = k = v = dy = 0 and logw = 0, which change no valid output.
+    Float32 (float64 for float64 inputs)."""
+    b, t, h, hd = r.shape
+    work = _work(r).dtype
+    dev = r.device
+    n = -(-t // chunk) * chunk
+    nc = n // chunk
+
+    def chunks_of(x):       # (b, t, h, hd) -> (b, h, nc, chunk, hd), padded
+        x = x.to(work).permute(0, 2, 1, 3)
+        x = torch.nn.functional.pad(x, (0, 0, 0, n - t))
+        return x.reshape(b, h, nc, chunk, hd)
+
+    rc, kc, vc, dyc = (chunks_of(x) for x in (r, k, v, dy))
+    lg = chunks_of(logw) * LOG2E
+    uf = _work(u).to(work)[None, :, None, None, :]        # (1, h, 1, 1, hd)
+    lb1 = lg.cumsum(3)                                    # after each step
+    lb = torch.nn.functional.pad(lb1, (0, 0, 1, 0))[..., :chunk, :]
+    L = lb1[..., -1:, :]
+    P, Q = torch.exp2(lb), torch.exp2(L - lb1)
+    D = torch.exp2(L[..., 0, :])                          # (b, h, nc, hd)
+    rt, kt = rc * P, kc * Q
+    w = torch.exp2(lg)
+    # W[t, s] as the kernel takes it: 1 at s = t - 1, then times w_{s+1}
+    # as s falls; zero at s >= t
+    W = torch.zeros(b, h, nc, chunk, chunk, hd, dtype=work, device=dev)
+    for tt in range(1, chunk):
+        q = torch.ones_like(w[..., 0, :])
+        for s in range(tt - 1, -1, -1):
+            W[..., tt, s, :] = q
+            q = q * w[..., s, :]
+    rkW = rc[..., :, None, :] * kc[..., None, :, :] * W    # r_t k_s W[t, s]
+    eye = torch.eye(chunk, dtype=torch.bool, device=dev)
+    diag = (rc * uf * kc).sum(-1)                          # r_t · (u ⊙ k_t)
+    A = rkW.sum(-1) + torch.diag_embed(diag)               # (.., t, s)
+    dA = dyc @ vc.transpose(-1, -2)
+    dAd = dA.diagonal(0, -2, -1)[..., None]                # dA[t, t]
+    # the forward sweep: the state each chunk starts from
+    S = torch.zeros(b, h, hd, hd, dtype=work, device=dev)
+    S0 = []
+    for c in range(nc):
+        S0.append(S)
+        S = (D[:, :, c, :, None] * S
+             + kt[:, :, c].transpose(-1, -2) @ vc[:, :, c])
+    # the backward sweep: the chain and its products
+    G = (torch.zeros(b, h, hd, hd, dtype=work, device=dev) if dS is None
+         else dS.to(work).clone())
+    drt, dkt, dv, dD = ([None] * nc for _ in range(4))
+    for c in range(nc - 1, -1, -1):
+        drt[c] = dyc[:, :, c] @ S0[c].transpose(-1, -2)
+        dkt[c] = vc[:, :, c] @ G.transpose(-1, -2)
+        dv[c] = (A[:, :, c].transpose(-1, -2) @ dyc[:, :, c]
+                 + kt[:, :, c] @ G)
+        dD[c] = (G * S0[c]).sum(-1)
+        G = (D[:, :, c, :, None] * G
+             + rt[:, :, c].transpose(-1, -2) @ dyc[:, :, c])
+    drt, dkt, dv, dD = (torch.stack(x, 2) for x in (drt, dkt, dv, dD))
+    # through the decays
+    dAl = dA.masked_fill(eye, 0.0)[..., None]              # s < t only
+    dr = (drt * P + (dAl * kc[..., None, :, :] * W).sum(-2)
+          + uf * kc * dAd)
+    dk = (dkt * Q + (dAl * rc[..., :, None, :] * W).sum(-3)
+          + uf * rc * dAd)
+    M = dAl * rkW
+    dlogw = ((D * dD)[..., None, :] + _prefix(kt * dkt, 3)
+             + _suffix(rt * drt + M.sum(-2), 3, False)
+             - _suffix(M.sum(-3), 3, True))
+    du = (rc * kc * dAd).sum((2, 3)).sum(0)
+
+    def back(x):            # (b, h, nc, chunk, hd) -> (b, t, h, hd)
+        return (x.reshape(b, h, n, hd)[:, :, :t].permute(0, 2, 1, 3)
+                .contiguous())
+    return (back(dr).to(r.dtype), back(dk).to(r.dtype), back(dv).to(r.dtype),
+            back(dlogw), du)

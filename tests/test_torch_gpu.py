@@ -95,7 +95,10 @@ versions run on the card at ``LRU_BWD_SHAPES`` and ``WKV_BWD_SHAPES`` (the
 models' layer shapes, T no tile or chunk divides, float32 and bf16, a
 strong-decay draw), each gradient within ``RTRAIN_TOL`` of its max |plain|
 (bf16: the outputs round to bf16), the same bits on a repeat, the
-gradient through each op launching its kernel; K3-bwd at head_dim 256
+gradient through each op launching its kernel; W-bwd also against its
+chunked arithmetic (``wkv_bwd_chunked``) run on the card, at the path's
+T = 4096 under the strong decay, and its scratch held to
+``bwd_scratch_bytes``; K3-bwd at head_dim 256
 (``D256_BWD_SHAPES``: recurrentgemma-2b's layer, T below its window, GQA,
 a ragged T) on the Hopper d = 256 kernel under BWD_TOL and BWD_ROW_TOL;
 the
@@ -136,8 +139,10 @@ from repro_torch.kernels.rglru_scan.ops import (rglru_lru, rglru_lru_bwd,
                                                 shortcut_mismatches)
 from repro_torch.kernels.rglru_scan.ref import (rglru_lru_bwd_ref,
                                                 rglru_lru_ref)
-from repro_torch.kernels.rwkv6_wkv.ops import rwkv6_wkv, rwkv6_wkv_bwd
-from repro_torch.kernels.rwkv6_wkv.ref import wkv_bwd_ref, wkv_ref
+from repro_torch.kernels.rwkv6_wkv.ops import (bwd_scratch_bytes, rwkv6_wkv,
+                                               rwkv6_wkv_bwd)
+from repro_torch.kernels.rwkv6_wkv.ref import (wkv_bwd_chunked, wkv_bwd_ref,
+                                               wkv_ref)
 from repro_torch.models.model import Model
 from repro_torch.objectives import GRIEWANK, OBJECTIVES
 from test_torch_dense_layouts import DENSE_HEADS, narrow, prompt_len
@@ -1750,6 +1755,78 @@ def test_rwkv6_wkv_bwd_matches_plain(cuda, case):
         if name in ("dr", "dk", "dv"):
             assert float(_rel(a.float(), w.float(), (0, 1, 3)).max()) <= tol
         assert torch.equal(a, c), name
+
+
+def _wkv_bwd_case(case, cuda):
+    *shape, dtype, shift = case
+    r, k, v, logw, u = _wkv_inputs(tuple(shape), dtype, cuda, sum(shape),
+                                   shift)
+    g = torch.Generator(device=cuda).manual_seed(sum(shape) + 5)
+    b, t, h, hd = shape
+    dy = torch.randn((b, t, h, hd), generator=g, device=cuda)
+    dS = torch.randn((b, h, hd, hd), generator=g, device=cuda)
+    return (r, k, v, logw, u, dy, dS), dtype
+
+
+def _hold_wkv_bwd(got, want, dtype):
+    for name, a, w in zip(("dr", "dk", "dv", "dlogw", "du"), got, want):
+        assert a.dtype == w.dtype and a.shape == w.shape, name
+        assert bool(torch.isfinite(a).all()), name
+        tol = RTRAIN_TOL[dtype if name in ("dr", "dk", "dv")
+                         else torch.float32]
+        assert _rel_err(a, w) <= tol, (name, _rel_err(a, w))
+        if name in ("dr", "dk", "dv"):
+            assert float(_rel(a.float(), w.float(), (0, 1, 3)).max()) <= tol
+
+
+@pytest.mark.parametrize("case", [(2, 77, 40, 64, torch.float32, 0.0),
+                                  (3, 100, 4, 16, torch.bfloat16, 0.0),
+                                  (1, 300, 8, 64, torch.float32, 3.0)])
+def test_rwkv6_wkv_bwd_matches_its_chunked_arithmetic(cuda, case):
+    """W-bwd against ``wkv_bwd_chunked`` (the kernel's arithmetic in plain
+    PyTorch) run on the card on the same inputs, within RTRAIN_TOL overall
+    and for dr, dk, dv per head: what differs is TF32 products and the
+    order of sums, not the form."""
+    args, dtype = _wkv_bwd_case(case, cuda)
+    got = rwkv6_wkv_bwd(*args)
+    torch.cuda.synchronize()
+    _hold_wkv_bwd(got, wkv_bwd_chunked(*args), dtype)
+
+
+def test_rwkv6_wkv_bwd_at_the_path_length_under_strong_decay(cuda):
+    """W-bwd at rwkv6-3b's T = 4096 with the decay base shifted by 3 (the
+    fastest channels decay by e^-12 a step): finite, within RTRAIN_TOL of
+    the plain version overall and per head, the same bits on a repeat."""
+    args, dtype = _wkv_bwd_case((1, 4096, 40, 64, torch.bfloat16, 3.0), cuda)
+    got = rwkv6_wkv_bwd(*args)
+    again = rwkv6_wkv_bwd(*args)
+    torch.cuda.synchronize()
+    _hold_wkv_bwd(got, wkv_bwd_ref(*args), dtype)
+    for a, c in zip(got, again):
+        assert torch.equal(a, c)
+
+
+def test_rwkv6_wkv_bwd_scratch_is_its_stated_size(cuda):
+    """What a W-bwd call allocates beyond its outputs is at most
+    ``bwd_scratch_bytes``: the chunk states' checkpoint and du's partial
+    sums, no (slices, b, T, H, hd) dv partials (the step form's). The
+    sizes are the allocator's own records of each request (its peak
+    counts whole blocks, which may hold up to 1 MiB more than asked)."""
+    args, dtype = _wkv_bwd_case((1, 1000, 40, 64, torch.bfloat16, 0.0), cuda)
+    b, t, h, hd = args[0].shape
+    torch.cuda.synchronize()
+    torch.cuda.memory._record_memory_history(max_entries=10000)
+    try:
+        out = rwkv6_wkv_bwd(*args)
+        torch.cuda.synchronize()
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    asked = sum(e["size"] for trace in snap["device_traces"] for e in trace
+                if e["action"] == "alloc")
+    outputs = sum(x.numel() * x.element_size() for x in out)
+    assert asked - outputs <= bwd_scratch_bytes(b, t, h, hd), (
+        asked, outputs, bwd_scratch_bytes(b, t, h, hd))
 
 
 @pytest.mark.parametrize("shape", D256_BWD_SHAPES)
